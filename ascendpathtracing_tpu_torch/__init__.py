@@ -1,0 +1,27 @@
+"""AscendPathTracing on PyTorch and CUDA: the port of ``ascendpathtracing_tpu``.
+
+The JAX package stays the reference.  This package mirrors its layout so
+that each module's counterpart is found under the same name:
+
+- ``device``            — ``resolve_device("cuda" | "cpu")``; no fallback.
+- ``convert``           — the JAX package's NumPy scene tables and rays as
+  tensors on a chosen device and dtype.
+- ``ops.intersect``     — ray-sphere intersection over SoA planes.
+- ``ops.shade``         — the reference half of the shading ops.
+- ``models.megakernel`` — the reference-semantics render in plain torch
+  (its backward is torch autograd).
+- ``ops.render_kernels``— the hand-written CUDA kernels of that render
+  (``csrc/render_ref.cu``), their plain twins, launch counters, and the
+  differentiable render (``RenderReferenceFn``, ``RenderReference``).
+- ``ops.build``         — builds ``csrc/*.cu`` with nvcc at first use.
+- ``cli``, ``bench``    — the user entry points.
+
+The port imports ``torch`` and never ``jax``.  From the JAX package it
+imports only the NumPy host modules ``config``, ``scenes``, ``camera``,
+``oracle`` and ``utils.io``, so scenes, camera rays, file formats and the
+float64 oracle have one source.
+"""
+
+from ascendpathtracing_tpu_torch.device import resolve_device
+
+__all__ = ["resolve_device"]

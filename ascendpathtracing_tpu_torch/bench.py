@@ -1,0 +1,232 @@
+"""Benchmark of the port's main path on a CUDA device.
+
+Measures the step that the JAX package's ``bench.py`` measures by
+default: the Cornell8 scene in reference semantics, 4,194,304 camera rays
+(1024 x 1024 x 4, ``camera.generate_rays_numpy(seed=0)``), 8 bounces,
+forward plus the backward to the [10, S] scene planes.  Prints ONE JSON
+line whose metric names the backend and renderer; ``detail`` holds the
+toolchain, the card's name and power limit, and every step time.
+
+    python -m ascendpathtracing_tpu_torch.bench                 # fwd+bwd, kernels
+    python -m ascendpathtracing_tpu_torch.bench --fwd-only
+    python -m ascendpathtracing_tpu_torch.bench --renderer plain
+    python -m ascendpathtracing_tpu_torch.bench --profile     # + device busy/idle
+
+``--renderer kernel`` is the custom-VJP render on the hand-written CUDA
+kernels (replay backward); ``--renderer plain`` is the plain-torch
+``models/megakernel`` path with torch autograd to the float scene leaves
+(albedo, emission, center, r2), as the JAX bench's jit path.  Each step
+is timed with CUDA events after a warm-up; the value is the median.  It
+needs a CUDA device and exits 2 without one.
+
+``--profile`` then runs the same number of steps under ``torch.profiler``
+and adds ``detail.profile``: the device's busy time per step (the union
+of its kernel and memset intervals), the wall time per step on the host's
+clock, the idle share (1 - busy / wall) and the device events that took
+the most time.  The profiler adds host time, so the idle share it reads
+is an upper bound for the unprofiled step.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import sys
+import time
+
+SCENE = "cornell8"
+
+
+def make_step(renderer, fwd_only, rays_planes, scene, *, bounces):
+    """One step of the main path on ``rays_planes`` [6, N] (float32, on
+    the device) -> a callable returning (value, grads).
+
+    kernel: colors through ``RenderReferenceFn``; with backward, the
+      gradient of colors.sum() w.r.t. the [10, S] scene planes.
+    plain:  colors through ``megakernel.render_reference_impl``; with
+      backward, torch autograd to albedo, emission, center and r2 (the
+      last two are exact zeros).
+    """
+    import torch
+
+    from ascendpathtracing_tpu_torch import convert
+    from ascendpathtracing_tpu_torch.models import megakernel
+    from ascendpathtracing_tpu_torch.ops import render_kernels as rk
+
+    device = rays_planes.device
+    if renderer == "kernel":
+        planes = convert.scene_planes_from_numpy(scene.soa10(), device=device)
+        if fwd_only:
+            def step():
+                return rk.render_reference_planes(
+                    rays_planes, planes, light_index=scene.light_index,
+                    bounces=bounces,
+                ), ()
+            return step
+        p = planes.requires_grad_(True)
+        render = rk.make_render_reference_diff(
+            light_index=scene.light_index, bounces=bounces, replay=True
+        )
+
+        def step():
+            loss = render(rays_planes, p).sum()
+            return loss, torch.autograd.grad(loss, (p,))
+        return step
+
+    if renderer != "plain":
+        raise ValueError(f"unknown renderer {renderer!r}")
+    dev = megakernel.scene_to_device(scene, device=device)
+    rays = rays_planes.T  # [N, 6] view whose columns are the contiguous planes
+    if fwd_only:
+        def step():
+            with torch.no_grad():
+                return megakernel.render_reference_impl(rays, dev, bounces=bounces), ()
+        return step
+    keys = ("albedo", "emission", "center", "r2")
+    params = {k: dev[k].clone().requires_grad_(True) for k in keys}
+
+    def step():
+        loss = megakernel.render_reference_impl(
+            rays, {**dev, **params}, bounces=bounces
+        ).sum()
+        # center and r2 reach the colors only through discrete winners, so
+        # they are not in the backward graph; their gradient is exactly 0.
+        return loss, torch.autograd.grad(
+            loss, tuple(params.values()), materialize_grads=True
+        )
+    return step
+
+
+def time_steps(step, *, iters, warmup):
+    """Runs ``warmup`` untimed steps, then ``iters`` steps each between two
+    CUDA events -> (step times in ms, the last step's result)."""
+    import torch
+
+    for _ in range(warmup):
+        out = step()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = step()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return times, out
+
+
+def busy_us(intervals):
+    """Length of the union of (start, end) intervals."""
+    total, reach = 0.0, float("-inf")
+    for start, end in sorted(intervals):
+        if end > reach:
+            total += end - max(start, reach)
+            reach = end
+    return total
+
+
+def profile_steps(step, *, iters, top=8):
+    """Runs ``iters`` steps under torch.profiler -> busy/idle summary of
+    the device (times in ms, per step)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            step()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = busy_us([(e.time_range.start, e.time_range.end) for e in dev])
+    by_name = {}
+    for e in dev:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return {
+        "steps": iters,
+        "wall_ms_per_step": wall_us / iters / 1e3,
+        "device_busy_ms_per_step": busy / iters / 1e3,
+        "idle_share": 1.0 - busy / wall_us,
+        "device_events_per_step": len(dev) / iters,
+        "top_device_ms_per_step": [[name[:80], us / iters / 1e3] for name, us in ranked],
+    }
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(prog="ascendpathtracing_tpu_torch.bench")
+    p.add_argument("--rays", type=int, default=1 << 22, help="primary rays per step")
+    p.add_argument("--iters", type=int, default=10, help="timed steps (>= 10)")
+    p.add_argument("--warmup", type=int, default=2)
+    p.add_argument("--bounces", type=int, default=8)
+    p.add_argument("--renderer", choices=["kernel", "plain"], default="kernel")
+    p.add_argument("--fwd-only", action="store_true")
+    p.add_argument("--profile", action="store_true",
+                   help="also run the steps under torch.profiler (detail.profile)")
+    args = p.parse_args(argv)
+    if args.iters < 10:
+        p.error("--iters must be >= 10 for a median")
+
+    import numpy as np
+    import torch
+
+    from ascendpathtracing_tpu_torch import convert
+    from ascendpathtracing_tpu_torch.device import (
+        gpu_name_and_power_limit,
+        resolve_device,
+    )
+    from ascendpathtracing_tpu_torch.host import camera, scenes
+
+    try:
+        device = resolve_device("cuda")
+    except RuntimeError as e:
+        print(f"error: {e}; the benchmark measures only on a CUDA device",
+              file=sys.stderr)
+        return 2
+
+    # Square image covering the ray count (n = w*h*4 at 1 sample).
+    w = h = int(np.sqrt(args.rays / 4))
+    n = w * h * 4
+    rays_planes = convert.rays_planes_from_numpy(
+        camera.generate_rays_numpy(w, h, 1, seed=0).astype(np.float32),
+        device=device,
+    )
+    scene = scenes.get_scene(SCENE)
+    step = make_step(args.renderer, args.fwd_only, rays_planes, scene,
+                     bounces=args.bounces)
+    times, _ = time_steps(step, iters=args.iters, warmup=args.warmup)
+    med = statistics.median(times)
+    profile = profile_steps(step, iters=args.iters) if args.profile else None
+    tag = "fwd" if args.fwd_only else "fwd+bwd"
+    print(json.dumps({
+        "metric": f"Mrays/s {tag} @ {args.bounces} bounces "
+                  f"({SCENE}, cuda {args.renderer})",
+        "value": n / (med * 1e-3) / 1e6,
+        "unit": "Mrays/s",
+        "detail": {
+            "backend": "cuda",
+            "gpu": gpu_name_and_power_limit(),
+            "device_count": torch.cuda.device_count(),
+            "torch": torch.__version__,
+            "cuda": torch.version.cuda,
+            "renderer": args.renderer,
+            "rays_per_step": n,
+            "bounces": args.bounces,
+            "step_ms_median": med,
+            "step_ms": times,
+            "warmup": args.warmup,
+            **({"profile": profile} if profile else {}),
+        },
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

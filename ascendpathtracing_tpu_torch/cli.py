@@ -1,0 +1,276 @@
+"""Command-line interface of the port.
+
+Usage:
+    python -m ascendpathtracing_tpu_torch.cli render \
+        --width 256 --height 256 --bounces 8 --backend cuda --out output/
+    python -m ascendpathtracing_tpu_torch.cli selftest --backend cuda
+
+``--backend cuda`` requires a CUDA device and exits 2 without one;
+``--backend cpu`` runs on the CPU.  Nothing reroutes to another device.
+``--renderer kernel`` (default) goes through ``ops/render_kernels`` (the
+CUDA kernels on a card, their plain twins on the CPU); ``--renderer
+plain`` runs the plain-torch ``models/megakernel`` path.
+
+Artifacts, in the JAX package's formats (shared ``utils/io``):
+  <out>/rays.bin  <out>/spheres.bin  <out>/color.bin  <out>/color.ppm
+
+Ported so far: reference mode of ``render`` and checks 1-3 of
+``selftest``.  Path tracing, mesh scenes, the wavefront renderer,
+``--shard``, AOVs, post-processing and the ``train`` and ``oracle``
+commands exit 2 with "not yet ported".
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+
+NOT_PORTED = 2
+
+
+def _parse_args(argv):
+    p = argparse.ArgumentParser(prog="ascendpathtracing_tpu_torch")
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    r = sub.add_parser("render", help="render a scene end-to-end")
+    r.add_argument("--width", type=int, default=16)
+    r.add_argument("--height", type=int, default=16)
+    r.add_argument("--samples", type=int, default=1)
+    r.add_argument("--bounces", type=int, default=5)
+    r.add_argument("--mode", choices=["reference", "pt"], default="reference")
+    r.add_argument("--scene", default=None, help="default: cornell8")
+    r.add_argument("--seed", type=int, default=0)
+    r.add_argument("--backend", choices=["cuda", "cpu"], default="cuda")
+    r.add_argument("--renderer", choices=["kernel", "plain", "wavefront"],
+                   default="kernel")
+    r.add_argument("--out", default="output")
+    r.add_argument("--nee", action="store_true")
+    r.add_argument("--aov", choices=["none", "depth", "normal", "albedo", "gbuffer"],
+                   default="none")
+    r.add_argument("--denoise", type=int, default=0, metavar="ITERS")
+    r.add_argument("--tonemap", choices=["none", "reinhard", "aces"], default="none")
+    r.add_argument("--exposure", type=float, default=1.0)
+    r.add_argument("--clamp", type=float, default=0.0, metavar="L")
+    r.add_argument("--check-finite", action="store_true",
+                   help="fail if the render produced NaN/Inf")
+    r.add_argument("--shard", type=int, default=0, metavar="N")
+    r.add_argument("--oracle", action="store_true",
+                   help="also run the NumPy oracle and report parity")
+
+    st = sub.add_parser("selftest", help="quick correctness checks of the "
+                        "ported compute paths on the chosen backend")
+    st.add_argument("--backend", choices=["cuda", "cpu"], default="cuda")
+
+    for name in ("train", "oracle"):
+        sub.add_parser(name, help="not yet ported")
+    args, rest = p.parse_known_args(argv)
+    if rest and args.cmd not in ("train", "oracle"):
+        p.error(f"unrecognized arguments: {' '.join(rest)}")
+    return args
+
+
+def _not_ported(what: str) -> int:
+    print(f"error: {what} is not yet ported to ascendpathtracing_tpu_torch "
+          "(use ascendpathtracing_tpu)", file=sys.stderr)
+    return NOT_PORTED
+
+
+def _device(name: str):
+    """The requested torch device, or None after printing why not."""
+    from ascendpathtracing_tpu_torch.device import resolve_device
+
+    try:
+        return resolve_device(name)
+    except RuntimeError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return None
+
+
+def _unported_render_option(args) -> str | None:
+    checks = [
+        (args.mode != "reference", f"--mode {args.mode}"),
+        (args.renderer == "wavefront", "--renderer wavefront"),
+        (args.scene is not None and args.scene.startswith("mesh-"), "mesh scenes"),
+        (args.nee, "--nee"),
+        (args.aov != "none", "--aov"),
+        (args.denoise > 0 or args.tonemap != "none" or args.clamp > 0,
+         "post-processing (--denoise/--tonemap/--clamp)"),
+        (args.shard > 0, "--shard"),
+    ]
+    return next((what for bad, what in checks if bad), None)
+
+
+def cmd_render(args) -> int:
+    from ascendpathtracing_tpu_torch.host import config
+
+    try:
+        config.RenderConfig(
+            width=args.width, height=args.height, samples=args.samples,
+            bounces=args.bounces, mode=args.mode,
+        ).validate()
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    what = _unported_render_option(args)
+    if what is not None:
+        return _not_ported(what)
+    device = _device(args.backend)
+    if device is None:
+        return 2
+
+    import numpy as np
+    import torch
+
+    from ascendpathtracing_tpu_torch import convert
+    from ascendpathtracing_tpu_torch.host import camera, io, oracle, scenes
+    from ascendpathtracing_tpu_torch.models import megakernel
+    from ascendpathtracing_tpu_torch.ops import render_kernels
+
+    scene_name = args.scene or "cornell8"
+    try:
+        scene = scenes.get_scene(scene_name)
+    except KeyError as e:
+        print(f"error: {e.args[0]}", file=sys.stderr)
+        return 2
+    w, h, s = args.width, args.height, args.samples
+
+    t0 = time.time()
+    rays = camera.generate_rays_numpy(w, h, s, seed=args.seed).astype(np.float32)
+    io.write_rays_bin(rays, f"{args.out}/rays.bin")
+    io.write_spheres_bin(scene, f"{args.out}/spheres.bin")
+    t_gen = time.time() - t0
+
+    t0 = time.time()
+    rays_t = torch.tensor(rays, device=device)
+    if args.renderer == "kernel":
+        colors = render_kernels.render_reference(
+            rays_t,
+            convert.scene_planes_from_numpy(scene.soa10(), device=device),
+            light_index=scene.light_index,
+            bounces=args.bounces,
+        )
+    else:
+        dev = megakernel.scene_to_device(scene, device=device)
+        colors = megakernel.render_reference_impl(rays_t, dev, bounces=args.bounces)
+    colors = colors.cpu().numpy()
+    t_render = time.time() - t0
+
+    if args.check_finite and not np.isfinite(colors).all():
+        print(f"error: render produced {(~np.isfinite(colors)).sum()} "
+              "non-finite values", file=sys.stderr)
+        return 1
+
+    io.write_color_bin(colors, f"{args.out}/color.bin")
+    img = io.decode_color(colors, w, h, s)
+    io.write_ppm(img, f"{args.out}/color.ppm")
+
+    n_rays = rays.shape[0]
+    stats = {
+        "backend": device.type,
+        "scene": scene_name,
+        "mode": args.mode,
+        "renderer": args.renderer,
+        "rays": n_rays,
+        "bounces": args.bounces,
+        "gen_s": round(t_gen, 4),
+        "render_s": round(t_render, 4),
+        # Primary rays per second, end to end on the host clock (includes
+        # the first call's kernel build and the copy back); bench.py
+        # measures the device step.
+        "mrays_per_s": round(n_rays / max(t_render, 1e-9) / 1e6, 3),
+        "mray_bounces_per_s": round(
+            n_rays * args.bounces / max(t_render, 1e-9) / 1e6, 3
+        ),
+        "out": f"{args.out}/color.ppm",
+    }
+    if args.oracle:
+        exp = oracle.render_reference_numpy(rays, scene, bounces=args.bounces)
+        img_o = io.decode_color(exp, w, h, s)
+        stats["oracle_rays_bitexact"] = float((np.abs(exp - colors).max(1) == 0).mean())
+        stats["oracle_img_equal_pix"] = float((img_o == img).all(axis=-1).mean())
+    print(json.dumps(stats))
+    return 0
+
+
+def cmd_selftest(args) -> int:
+    """Checks 1-3 of the JAX package's ``selftest`` on the chosen backend:
+    plain path vs the NumPy oracle, kernel forward vs plain path, and the
+    kernel custom-VJP gradients vs plain autograd.  One JSON line per
+    check; exit 0 iff all pass."""
+    device = _device(args.backend)
+    if device is None:
+        return 2
+
+    import numpy as np
+    import torch
+
+    from ascendpathtracing_tpu_torch import convert
+    from ascendpathtracing_tpu_torch.host import camera, oracle, scenes
+    from ascendpathtracing_tpu_torch.models import megakernel
+    from ascendpathtracing_tpu_torch.ops import render_kernels as rk
+
+    checks = []
+
+    def report(name, ok, **detail):
+        checks.append(bool(ok))
+        print(json.dumps({"check": name, "ok": bool(ok), **detail}))
+
+    scene = scenes.cornell8()
+    rays = camera.generate_rays_numpy(16, 16, 1, seed=0).astype(np.float32)
+    rays_t = torch.tensor(rays, device=device)
+    planes = convert.scene_planes_from_numpy(scene.soa10(), device=device)
+    rp = convert.rays_planes_from_numpy(rays, device=device)
+    dev = megakernel.scene_to_device(scene, device=device)
+
+    # 1. plain path vs NumPy oracle, 1 bounce (f32 is bitwise at 1 bounce).
+    img = megakernel.render_reference_impl(rays_t, dev, bounces=1)
+    ora = oracle.render_reference_numpy(rays, scene, bounces=1)
+    err = float(np.abs(img.cpu().numpy() - ora).max())
+    report("plain_vs_oracle_1bounce", err == 0.0, max_abs_err=err)
+
+    # 2. kernel forward vs plain path, 1 bounce, bitwise.
+    ker = rk.render_reference_planes(rp, planes, light_index=scene.light_index, bounces=1)
+    err = float((ker.T - img).abs().max())
+    report("kernel_fwd_vs_plain_1bounce", err == 0.0, max_abs_err=err,
+           device=device.type)
+
+    # 3. custom-VJP gradients vs plain autograd, 1 bounce.
+    p = planes.clone().requires_grad_(True)
+    render = rk.make_render_reference_diff(
+        light_index=scene.light_index, bounces=1, replay=True
+    )
+    render(rp, p).sum().backward()
+    gp = p.grad
+    alb = dev["albedo"].clone().requires_grad_(True)
+    emi = dev["emission"].clone().requires_grad_(True)
+    megakernel.render_reference_impl(
+        rays_t, dict(dev, albedo=alb, emission=emi), bounces=1
+    ).sum().backward()
+    ea = float((gp[7:10].T - alb.grad).abs().max())
+    ee = float((gp[4:7].T - emi.grad).abs().max())
+    eg = float(gp[0:4].abs().max())
+    gref = float(alb.grad.abs().max())
+    ok = ea <= 1e-4 * max(gref, 1.0) and ee <= 1e-3 and eg == 0.0
+    report("custom_vjp_grads_vs_autograd_1bounce", ok, albedo_err=ea,
+           emission_err=ee, geom_grads=eg)
+
+    n_ok = sum(checks)
+    print(json.dumps({"selftest": "PASS" if n_ok == len(checks) else "FAIL",
+                      "passed": n_ok, "ran": len(checks),
+                      "backend": device.type}))
+    return 0 if n_ok == len(checks) else 1
+
+
+def main(argv=None) -> int:
+    args = _parse_args(sys.argv[1:] if argv is None else argv)
+    if args.cmd == "render":
+        return cmd_render(args)
+    if args.cmd == "selftest":
+        return cmd_selftest(args)
+    return _not_ported(f"the {args.cmd} command")
+
+
+if __name__ == "__main__":
+    sys.exit(main())

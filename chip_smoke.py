@@ -1,0 +1,314 @@
+"""Smoke test of the PyTorch/CUDA port (``ascendpathtracing_tpu_torch``) on
+one CUDA card.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from the sources in this checkout, checks
+each against its plain PyTorch twin (and the NumPy oracle) on the card,
+drives the main path once through the user entry points (the
+differentiable render at 4,194,304 rays x 8 bounces of cornell8, its
+forward, and the CLI, selftest and bench), proves through the launch
+counters, reset before each run, that the main path went through the
+kernels, and times kernels and plain versions with CUDA events.  One
+line per phase; the first failed check raises and the script exits
+non-zero.  Before the last line it prints the card's name and power
+limit (nvidia-smi) and one JSON object with a row per kernel (its
+``launches`` are counted in the run its ``run`` field names); the last
+line is
+``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+Without a CUDA device it prints no result and exits 1.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import io
+import json
+import statistics
+import sys
+import tempfile
+import time
+
+FULL_W = 1024  # 1024 x 1024 x 4 = 4,194,304 rays, the main path's size
+BOUNCES = 8
+SOURCE = "ascendpathtracing_tpu_torch/csrc/render_ref.cu"
+PALLAS = "ascendpathtracing_tpu/ops/pallas_kernels.py"
+REPLACES = {  # launch counter -> the TPU kernel it replaces
+    "fwd": f"{PALLAS}:41",
+    "fwd_idx": f"{PALLAS}:638",
+    "bwd_replay": f"{PALLAS}:787",
+    "bwd_recompute": f"{PALLAS}:923",
+}
+# The user-facing runs of phase 6, each counted from zero, and the
+# launches each must make.  ``train_step`` is the main path (fwd + replay
+# bwd); the inference render runs the forward without residual, and the
+# replay=False training step the recompute backward.
+RUNS = {
+    "train_step": {"fwd": 0, "fwd_idx": 1, "bwd_replay": 1, "bwd_recompute": 0},
+    "inference_render": {"fwd": 1, "fwd_idx": 0, "bwd_replay": 0, "bwd_recompute": 0},
+    "train_step_recompute": {"fwd": 1, "fwd_idx": 0, "bwd_replay": 0, "bwd_recompute": 1},
+}
+RUN_OF = {  # kernel -> the run whose count its row reports
+    "fwd": "inference_render",
+    "fwd_idx": "train_step",
+    "bwd_replay": "train_step",
+    "bwd_recompute": "train_step_recompute",
+}
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def require(ok, what):
+    if not ok:
+        raise SmokeFailure(what)
+
+
+def phase(name, **fields):
+    print(json.dumps({"phase": name, **fields}), flush=True)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; a CUDA card is "
+              "required", file=sys.stderr)
+        return 1
+
+    import numpy as np
+
+    from ascendpathtracing_tpu_torch import bench, cli, convert
+    from ascendpathtracing_tpu_torch.device import gpu_name_and_power_limit
+    from ascendpathtracing_tpu_torch.host import camera, oracle, scenes
+    from ascendpathtracing_tpu_torch.ops import build
+    from ascendpathtracing_tpu_torch.ops import render_kernels as rk
+
+    dev = torch.device("cuda")
+    gpu = gpu_name_and_power_limit()
+    scene = scenes.cornell8()
+    light = scene.light_index
+    kw = dict(light_index=light, bounces=BOUNCES)
+
+    def rays_planes(w, dtype=np.float32):
+        r = camera.generate_rays_numpy(w, w, 1, seed=0).astype(dtype)
+        t = torch.float64 if dtype == np.float64 else torch.float32
+        return r, convert.rays_planes_from_numpy(r, device=dev, dtype=t)
+
+    def planes(dtype=np.float32):
+        t = torch.float64 if dtype == np.float64 else torch.float32
+        return convert.scene_planes_from_numpy(scene.soa10(dtype), device=dev, dtype=t)
+
+    # ---- 1. build ------------------------------------------------------
+    t0 = time.time()
+    rk.load_library()
+    build_s = time.time() - t0
+    log = build.library_path("render_ref").with_suffix(".log").read_text()
+    regs = [ln.split("info    : ")[-1] for ln in log.splitlines() if "Used" in ln]
+    spills = [ln.strip() for ln in log.splitlines() if "spill" in ln]
+    require(all("0 bytes spill stores, 0 bytes spill loads" in s for s in spills),
+            f"register spills: {spills}")
+    phase("build", seconds=build_s, gpu=gpu, torch=torch.__version__,
+          cuda=torch.version.cuda, ptxas=regs)
+    print(gpu, flush=True)
+
+    # ---- 2. fwd f32, 1 bounce, 64x64x1: bitwise vs oracle and plain ----
+    r64, rp = rays_planes(64)
+    sp = planes()
+    k = rk.render_reference_planes(rp, sp, light_index=light, bounces=1)
+    p = rk.render_reference_planes_plain(rp, sp, light_index=light, bounces=1)
+    ora = oracle.render_reference_numpy(r64, scene, bounces=1)
+    e_ora = float(np.abs(k.T.cpu().numpy() - ora).max())
+    require(e_ora == 0.0, f"fwd f32 1 bounce vs oracle: max err {e_ora}")
+    require(torch.equal(k, p), "fwd f32 1 bounce vs plain twin: not bitwise")
+    phase("fwd_f32_1bounce_64x64", max_abs_err_vs_oracle=e_ora,
+          bitwise_vs_plain=True, tolerance="bitwise")
+
+    # ---- 3. fwd+idx f64, 8 bounces, 256x256x1 --------------------------
+    r256, rp = rays_planes(256, np.float64)
+    sp64 = planes(np.float64)
+    c, idx = rk.render_reference_planes_with_idx(rp, sp64, **kw)
+    cp, idxp = rk.render_reference_planes_with_idx_plain(rp, sp64, **kw)
+    ora = oracle.render_reference_numpy(r256, scene, bounces=BOUNCES, dtype=np.float64)
+    e_ora = float(np.abs(c.T.cpu().numpy() - ora).max())
+    require(np.allclose(c.T.cpu().numpy(), ora, rtol=1e-12, atol=1e-12),
+            f"fwd_idx f64 vs f64 oracle: max err {e_ora}")
+    require(torch.equal(idx, idxp), "fwd_idx f64: idx differs from the plain twin")
+    phase("fwd_idx_f64_8bounce_256x256", max_abs_err_vs_oracle=e_ora,
+          idx_equal_plain=True, tolerance="allclose 1e-12")
+
+    # ---- 4. fwd+idx f32, 8 bounces, 4,194,304 rays ----------------------
+    _, rp = rays_planes(FULL_W)
+    n = rp.shape[1]
+    c, idx = rk.render_reference_planes_with_idx(rp, sp, **kw)
+    c_noidx = rk.render_reference_planes(rp, sp, **kw)
+    cp, idxp = rk.render_reference_planes_with_idx_plain(rp, sp, **kw)
+    agree = (idx == idxp).all(dim=0)
+    flipped = 1.0 - float(agree.float().mean())
+    fwd_err = float((c - cp).abs().max())
+    require(torch.equal(c[:, agree], cp[:, agree]),
+            "rays with equal idx trails are not bitwise equal")
+    require(flipped < 0.01, f"{flipped:.4%} of rays have a different idx trail")
+    require(torch.equal(c, c_noidx), "fwd and fwd_idx kernels disagree")
+    require(bool(torch.isfinite(c).all()), "non-finite colors")
+    phase("fwd_idx_f32_8bounce_4M", rays=n, trail_differs_share=flipped,
+          max_abs_err_vs_plain=fwd_err, tolerance="bitwise where trails agree")
+    max_err = {"fwd": fwd_err, "fwd_idx": fwd_err}
+
+    # ---- 5. replay and recompute backward vs plain twins ---------------
+    def rel_close(a, b, rtol):
+        return bool(torch.allclose(a, b, rtol=rtol, atol=0.0))
+
+    def max_rel(a, b):
+        nz = b != 0
+        return float(((a - b)[nz].abs() / b[nz].abs()).max()) if nz.any() else 0.0
+
+    for dtype, tdt, rtol in ((np.float32, torch.float32, 1e-5),
+                             (np.float64, torch.float64, 1e-12)):
+        _, rpx = rays_planes(FULL_W, dtype)
+        spx = planes(dtype)
+        _, idx_x = rk.render_reference_planes_with_idx(rpx, spx, **kw)
+        g = torch.arange(3 * n, device=dev, dtype=tdt).reshape(3, n)
+        d_rep = rk.render_ref_bwd_replay(idx_x, spx, g, **kw)
+        d_rep2 = rk.render_ref_bwd_replay(idx_x, spx, g, **kw)
+        d_rec = rk.render_ref_bwd(rpx, spx, g, **kw)
+        d_rec2 = rk.render_ref_bwd(rpx, spx, g, **kw)
+        p_rep = rk.render_ref_bwd_replay_plain(idx_x, spx, g, **kw)
+        p_rec = rk.render_ref_bwd_plain(rpx, spx, g, **kw)
+        require(rel_close(d_rep, p_rep, rtol), f"replay bwd {tdt} vs plain")
+        require(rel_close(d_rec, p_rec, rtol), f"recompute bwd {tdt} vs plain")
+        require(float(d_rep[0:4].abs().max()) == 0.0, "replay rows 0-3 not 0")
+        require(float(d_rec[0:4].abs().max()) == 0.0, "recompute rows 0-3 not 0")
+        require(torch.equal(d_rep, d_rep2) and torch.equal(d_rec, d_rec2),
+                "two backward runs differ")
+        phase(f"bwd_{str(tdt).split('.')[-1]}_4M_arange_g",
+              replay_max_rel_err=max_rel(d_rep, p_rep),
+              recompute_max_rel_err=max_rel(d_rec, p_rec), rtol=rtol,
+              rows_0_3_zero=True, repeat_bitwise=True)
+        del rpx, idx_x, g, p_rep, p_rec
+    torch.cuda.empty_cache()
+
+    # Main path's own cotangent (sum -> ones), f32, for the kernel table.
+    ones = torch.ones((3, n), device=dev)
+    max_err["bwd_replay"] = float(
+        (rk.render_ref_bwd_replay(idx, sp, ones, **kw)
+         - rk.render_ref_bwd_replay_plain(idx, sp, ones, **kw)).abs().max())
+    max_err["bwd_recompute"] = float(
+        (rk.render_ref_bwd(rp, sp, ones, **kw)
+         - rk.render_ref_bwd_plain(rp, sp, ones, **kw)).abs().max())
+
+    # ---- 6. the main path, counted run by run ---------------------------
+    step_plain = bench.make_step("plain", False, rp, scene, bounces=BOUNCES)
+    model = rk.RenderReference(sp, **kw)
+    model_rec = rk.RenderReference(sp, **kw, replay=False)
+    rays_in = rp.clone().requires_grad_(True)
+
+    def counted(run):
+        torch.cuda.synchronize()
+        rk.reset_launches()
+        out = run()
+        torch.cuda.synchronize()
+        return out, dict(rk.LAUNCHES)
+
+    def train_step(m, rays):
+        out = m(rays)
+        out.sum().backward()
+        return out
+
+    launches = {}
+    out, launches["train_step"] = counted(lambda: train_step(model, rays_in))
+    with torch.no_grad():
+        out_fwd, launches["inference_render"] = counted(lambda: model(rp))
+    _, launches["train_step_recompute"] = counted(lambda: train_step(model_rec, rp))
+    require(launches == RUNS, f"launches per run {launches}, expected {RUNS}")
+    require(bool(torch.isfinite(out).all()), "non-finite step output")
+    require(float(rays_in.grad.abs().max()) == 0.0, "ray gradient not exactly 0")
+    require(torch.equal(out.detach(), out_fwd), "inference and training forward differ")
+    g_ker = model.scene_planes.grad
+    require(torch.equal(g_ker, model_rec.scene_planes.grad),
+            "replay and recompute steps differ")
+    _, (g_alb, g_emi, _, _) = step_plain()
+    # f32 sums over 4M rays taken in different orders (kernel: per-block
+    # shuffles then a fixed tree; torch: its own reduction) differ by a
+    # few ulp per level; 1e-3 also covers any ray whose trail flips.
+    require(rel_close(g_ker[7:10].T, g_alb, 1e-3), "albedo grad vs plain autograd")
+    require(rel_close(g_ker[4:7, light], g_emi[light], 1e-3),
+            "emission grad vs plain autograd")
+    require(float(g_ker[0:4].abs().max()) == 0.0, "geometry grad rows not 0")
+    phase("main_path_4M_8bounce", rays=n, launches=launches, ray_grad_zero=True,
+          finite=True,
+          albedo_max_rel_err=max_rel(g_ker[7:10].T, g_alb),
+          emission_max_rel_err=max_rel(g_ker[4:7, light], g_emi[light]),
+          tolerance="rtol 1e-3 vs plain autograd (f32 sums in other orders)")
+    del out, out_fwd, step_plain, model, model_rec, rays_in
+    torch.cuda.empty_cache()
+
+    # ---- 7. times -------------------------------------------------------
+    def med_ms(step, iters=10):
+        times, _ = bench.time_steps(step, iters=iters, warmup=2)
+        return statistics.median(times)
+
+    steps = {}
+    for renderer in ("kernel", "plain"):
+        for fwd_only in (True, False):
+            name = f"{renderer}_{'fwd' if fwd_only else 'fwd+bwd'}"
+            ms = med_ms(bench.make_step(renderer, fwd_only, rp, scene, bounces=BOUNCES))
+            steps[name] = {"ms": ms, "mrays_per_s": n / (ms * 1e-3) / 1e6}
+            torch.cuda.empty_cache()
+    phase("step_times_4M_8bounce", gpu=gpu, **steps)
+
+    g1 = torch.ones((3, n), device=dev)
+    calls = {
+        "fwd": (lambda: rk.render_reference_planes(rp, sp, **kw),
+                lambda: rk.render_reference_planes_plain(rp, sp, **kw)),
+        "fwd_idx": (lambda: rk.render_reference_planes_with_idx(rp, sp, **kw),
+                    lambda: rk.render_reference_planes_with_idx_plain(rp, sp, **kw)),
+        "bwd_replay": (lambda: rk.render_ref_bwd_replay(idx, sp, g1, **kw),
+                       lambda: rk.render_ref_bwd_replay_plain(idx, sp, g1, **kw)),
+        "bwd_recompute": (lambda: rk.render_ref_bwd(rp, sp, g1, **kw),
+                          lambda: rk.render_ref_bwd_plain(rp, sp, g1, **kw)),
+    }
+    rows = []
+    for name, (ker, plain) in calls.items():
+        rows.append({
+            "name": name, "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES[name], "run": RUN_OF[name],
+            "launches": launches[RUN_OF[name]][name],
+            "max_abs_err": max_err[name], "ms": med_ms(ker),
+            "plain_ms": med_ms(plain),
+        })
+        torch.cuda.empty_cache()
+    phase("kernel_times_4M_8bounce", gpu=gpu,
+          **{r["name"]: {"ms": r["ms"], "plain_ms": r["plain_ms"]} for r in rows})
+
+    # ---- 8. entry points -----------------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["render", "--backend", "cuda", "--renderer", "kernel",
+                           "--width", "256", "--height", "256", "--bounces", "1",
+                           "--oracle", "--out", tmp])
+        stats = json.loads(buf.getvalue().strip().splitlines()[-1])
+    require(rc == 0 and stats["oracle_rays_bitexact"] == 1.0, f"cli render: {stats}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc_self = cli.main(["selftest", "--backend", "cuda"])
+    require(rc_self == 0, f"cli selftest failed:\n{buf.getvalue()}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc_bench = bench.main([])
+    bench_line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    require(rc_bench == 0 and bench_line["value"] > 0, f"bench: {bench_line}")
+    phase("entry_points", cli_render=stats, selftest="PASS", bench=bench_line)
+
+    print(gpu_name_and_power_limit(), flush=True)
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

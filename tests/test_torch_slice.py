@@ -1,0 +1,180 @@
+"""The port's slice as a whole: CLI artifacts byte for byte against the JAX
+package's CLI, one fwd+bwd step against JAX value_and_grad, the entry
+points' refusals, and that importing the port loads no jax."""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ascendpathtracing_tpu import camera, scenes
+from ascendpathtracing_tpu import cli as jax_cli
+from ascendpathtracing_tpu.ops import pallas_kernels as pk
+from ascendpathtracing_tpu_torch import bench, cli, convert
+from ascendpathtracing_tpu_torch.ops import render_kernels as rk
+
+REPO = Path(__file__).resolve().parents[1]
+ARTIFACTS = ("rays.bin", "spheres.bin", "color.bin", "color.ppm")
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.fixture
+def no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal on a machine without CUDA")
+
+
+def _json_line(capsys):
+    return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+
+def test_cli_render_artifacts_byte_identical_to_jax_cli(tmp_path, capsys):
+    size = ["--width", "32", "--height", "32", "--bounces", "1"]
+    assert cli.main(["render", "--backend", "cpu", *size, "--oracle",
+                     "--out", str(tmp_path / "port")]) == 0
+    port = _json_line(capsys)
+    assert jax_cli.main(["render", "--renderer", "pallas", "--backend", "cpu",
+                         *size, "--oracle", "--out", str(tmp_path / "jax")]) == 0
+    ref = _json_line(capsys)
+    assert set(port) == set(ref)
+    assert port["oracle_rays_bitexact"] == ref["oracle_rays_bitexact"] == 1.0
+    for name in ARTIFACTS:
+        assert (tmp_path / "port" / name).read_bytes() == (tmp_path / "jax" / name).read_bytes(), name
+
+
+def test_cli_plain_renderer_writes_the_same_colors(tmp_path, capsys):
+    args = ["render", "--backend", "cpu", "--width", "16", "--height", "16",
+            "--bounces", "8", "--check-finite"]
+    assert cli.main([*args, "--renderer", "kernel", "--out", str(tmp_path / "k")]) == 0
+    assert cli.main([*args, "--renderer", "plain", "--out", str(tmp_path / "p")]) == 0
+    for name in ARTIFACTS:
+        assert (tmp_path / "k" / name).read_bytes() == (tmp_path / "p" / name).read_bytes()
+    assert _json_line(capsys)["renderer"] == "plain"
+
+
+def test_fwd_bwd_step_matches_jax_value_and_grad():
+    """One step of the main path (8 bounces, replay VJP) at 16x16 against
+    jax.value_and_grad of make_render_reference_pallas_diff.  float32
+    winners flip by rounding on some rays (tests/test_reference_parity.py);
+    the loss weights those rays by 0 on both sides, so every compared ray
+    has the same winners and the same ordered albedo product."""
+    scene = scenes.cornell8()
+    rays = camera.generate_rays_numpy(16, 16, 1, seed=0).astype(np.float32)
+    planes = scene.soa10()
+    rp_j, pl_j = jnp.asarray(rays.T.copy()), jnp.asarray(planes)
+    _, jidx = pk.render_reference_pallas_planes_with_idx(
+        rp_j, pl_j, light_index=7, bounces=8, tile=1024, interpret=True
+    )
+    rp, sp = convert.rays_planes_from_numpy(rays), convert.scene_planes_from_numpy(planes)
+    _, idx = rk.render_reference_planes_with_idx(rp, sp, light_index=7, bounces=8)
+    agree = (np.asarray(jidx) == idx.numpy()).all(axis=0)
+    assert agree.mean() >= 0.3, f"only {agree.mean():.1%} of trails agree"
+    w = np.broadcast_to(agree, (3, agree.size)).astype(np.float32)
+
+    render_j = pk.make_render_reference_pallas_diff(
+        light_index=7, bounces=8, tile=1024, interpret=True
+    )
+    val_j, grad_j = jax.value_and_grad(
+        lambda p: jnp.sum(render_j(rp_j, p) * jnp.asarray(w))
+    )(pl_j)
+
+    model = rk.RenderReference(sp, light_index=7, bounces=8)
+    loss = (model(rp) * torch.tensor(w)).sum()
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(val_j), rtol=1e-6)
+    np.testing.assert_allclose(
+        model.scene_planes.grad.numpy(), np.asarray(grad_j), rtol=1e-4, atol=1e-3
+    )
+
+
+def test_importing_the_port_loads_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import ascendpathtracing_tpu_torch as p\n"
+        "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "assert 'jax' not in sys.modules, sorted(k for k in sys.modules if 'jax' in k)\n"
+        "print(len(mods))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+        text=True, timeout=300, check=False,
+    )
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 11
+
+
+def test_backend_cuda_exits_2_without_cuda(no_cuda, tmp_path, capsys):
+    assert cli.main(["render", "--backend", "cuda", "--out", str(tmp_path)]) == 2
+    assert cli.main(["selftest", "--backend", "cuda"]) == 2
+    assert bench.main([]) == 2
+    assert "CUDA" in capsys.readouterr().err
+    assert not (tmp_path / "color.bin").exists()
+
+
+@pytest.mark.parametrize(
+    "argv",
+    [
+        ["render", "--mode", "pt"],
+        ["render", "--renderer", "wavefront"],
+        ["render", "--scene", "mesh-cube"],
+        ["render", "--shard", "2"],
+        ["render", "--aov", "depth"],
+        ["render", "--denoise", "1"],
+        ["render", "--nee"],
+        ["train", "--steps", "1"],
+        ["oracle"],
+    ],
+)
+def test_unported_modes_exit_2(argv, tmp_path, capsys):
+    assert cli.main([*argv, "--backend", "cpu", "--out", str(tmp_path)]
+                    if argv[0] == "render" else argv) == 2
+    assert "not yet ported" in capsys.readouterr().err
+
+
+def test_selftest_passes_on_cpu(capsys):
+    assert cli.main(["selftest", "--backend", "cpu"]) == 0
+    lines = [json.loads(x) for x in capsys.readouterr().out.strip().splitlines()]
+    assert lines[-1] == {"selftest": "PASS", "passed": 3, "ran": 3, "backend": "cpu"}
+
+
+def test_bench_profile_summary_on_the_host():
+    """The profiler summary's arithmetic; a CPU step has no device events."""
+    assert bench.busy_us([(5.0, 6.0), (0.0, 2.0), (1.0, 3.0), (1.5, 2.5)]) == 4.0
+    x = torch.ones(64)
+    prof = bench.profile_steps(lambda: x * 2, iters=3)
+    assert prof["steps"] == 3 and prof["wall_ms_per_step"] > 0
+    assert prof["device_busy_ms_per_step"] == 0.0 and prof["idle_share"] == 1.0
+
+
+def test_chip_smoke_refuses_without_cuda(no_cuda):
+    out = subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=REPO, capture_output=True,
+        text=True, timeout=300, check=False,
+    )
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+# ------------------------------------------------------- on a card ----
+@pytest.mark.cuda
+def test_cuda_cli_render_matches_oracle(cuda, tmp_path, capsys):
+    assert cli.main(["render", "--backend", "cuda", "--width", "64", "--height",
+                     "64", "--bounces", "1", "--oracle", "--out", str(tmp_path)]) == 0
+    stats = _json_line(capsys)
+    assert stats["backend"] == "cuda" and stats["oracle_rays_bitexact"] == 1.0
