@@ -7,12 +7,19 @@ that each module's counterpart is found under the same name:
 - ``convert``           — the JAX package's NumPy scene tables and rays as
   tensors on a chosen device and dtype.
 - ``ops.intersect``     — ray-sphere intersection over SoA planes.
-- ``ops.shade``         — the reference half of the shading ops.
-- ``models.megakernel`` — the reference-semantics render in plain torch
-  (its backward is torch autograd).
-- ``ops.render_kernels``— the hand-written CUDA kernels of that render
-  (``csrc/render_ref.cu``), their plain twins, launch counters, and the
-  differentiable render (``RenderReferenceFn``, ``RenderReference``).
+- ``ops.shade``         — the shading ops: the reference's specular
+  bounce and the path tracer's BSDFs and Russian roulette.
+- ``ops.rng``           — Philox4x32-10 uniforms keyed by counter, the
+  stand-in for the TPU's hardware PRNG.
+- ``models.megakernel`` — the renderers in plain torch: reference
+  semantics, the path-tracing estimators (with and without NEE) and the
+  first-hit AOVs (their backward is torch autograd).
+- ``ops.render_kernels``— the hand-written CUDA kernels of the reference
+  render (``csrc/render_ref.cu``), their plain twins, launch counters,
+  and the differentiable render (``RenderReferenceFn``,
+  ``RenderReference``).
+- ``ops.pt_kernels``    — the fused sphere path tracer: the hand-written
+  CUDA kernel (``csrc/render_pt.cu``), its plain twin and launch count.
 - ``ops.build``         — builds ``csrc/*.cu`` with nvcc at first use.
 - ``cli``, ``bench``    — the user entry points.
 

@@ -1,23 +1,37 @@
-"""Benchmark of the port's main path on a CUDA device.
+"""Benchmark of the port on a CUDA device.
 
-Measures the step that the JAX package's ``bench.py`` measures by
-default: the Cornell8 scene in reference semantics, 4,194,304 camera rays
-(1024 x 1024 x 4, ``camera.generate_rays_numpy(seed=0)``), 8 bounces,
-forward plus the backward to the [10, S] scene planes.  Prints ONE JSON
-line whose metric names the backend and renderer; ``detail`` holds the
-toolchain, the card's name and power limit, and every step time.
+Reference mode (the default) measures the step that the JAX package's
+``bench.py`` measures by default: the Cornell8 scene in reference
+semantics, 4,194,304 camera rays (1024 x 1024 x 4,
+``camera.generate_rays_numpy(seed=0)``), 8 bounces, forward plus the
+backward to the [10, S] scene planes.  Prints ONE JSON line whose metric
+names the backend and renderer; ``detail`` holds the toolchain, the
+card's name and power limit, and every step time.
 
     python -m ascendpathtracing_tpu_torch.bench                 # fwd+bwd, kernels
     python -m ascendpathtracing_tpu_torch.bench --fwd-only
     python -m ascendpathtracing_tpu_torch.bench --renderer plain
     python -m ascendpathtracing_tpu_torch.bench --profile     # + device busy/idle
+    python -m ascendpathtracing_tpu_torch.bench --mode pt     # fused path tracer
+    python -m ascendpathtracing_tpu_torch.bench --mode pt --renderer plain
 
 ``--renderer kernel`` is the custom-VJP render on the hand-written CUDA
 kernels (replay backward); ``--renderer plain`` is the plain-torch
 ``models/megakernel`` path with torch autograd to the float scene leaves
-(albedo, emission, center, r2), as the JAX bench's jit path.  Each step
-is timed with CUDA events after a warm-up; the value is the median.  It
-needs a CUDA device and exits 2 without one.
+(albedo, emission, center, r2), as the JAX bench's jit path.
+
+``--mode pt --renderer kernel`` is the JAX bench's ``pallas-pt`` cell:
+the fused path-tracing kernel (``ops/pt_kernels.render_pt``) on cornell8
+at 1024 x 1024 pixels x ``--spp`` (64) samples, 8 bounces, RR from 5,
+seed 0, forward only; its value counts samples (camera paths) per
+second, and ``detail.launches_per_step`` counts the kernel's launches.
+``--mode pt --renderer plain`` is the JAX bench's ``--mode pt`` jit cell:
+the plain estimator (``megakernel.render_pt_impl``) on smallpt9 at
+4,194,304 rays, 8 bounces, RR from 5, fwd+bwd by autograd to albedo,
+emission, center and r2 (``--fwd-only`` for the forward).
+
+Each step is timed with CUDA events after a warm-up; the value is the
+median.  It needs a CUDA device and exits 2 without one.
 
 ``--profile`` then runs the same number of steps under ``torch.profiler``
 and adds ``detail.profile``: the device's busy time per step (the union
@@ -36,6 +50,8 @@ import sys
 import time
 
 SCENE = "cornell8"
+PT_SCENES = {"kernel": "cornell8", "plain": "smallpt9"}  # the JAX bench's cells
+PT_RR_DEPTH = 5
 
 
 def make_step(renderer, fwd_only, rays_planes, scene, *, bounces):
@@ -95,6 +111,55 @@ def make_step(renderer, fwd_only, rays_planes, scene, *, bounces):
         return loss, torch.autograd.grad(
             loss, tuple(params.values()), materialize_grads=True
         )
+    return step
+
+
+def make_pt_step(renderer, fwd_only, scene, *, device, bounces, width=1024,
+                 height=1024, spp4=64, rays=None):
+    """One step of the path-tracing cells -> a callable returning (value,
+    grads).
+
+    kernel: the fused kernel at width x height x spp4 samples, seed 0 ->
+      per-pixel means [3, W*H]; forward only.
+    plain:  ``megakernel.render_pt_impl`` on ``rays`` [N, 6] with a new
+      seed every step (the JAX bench folds the step into its key); with
+      backward, torch autograd of the sum to albedo, emission, center and
+      r2.
+    """
+    import torch
+
+    from ascendpathtracing_tpu_torch import convert
+    from ascendpathtracing_tpu_torch.models import megakernel
+    from ascendpathtracing_tpu_torch.ops import pt_kernels
+
+    if renderer == "kernel":
+        planes = convert.scene_planes_from_numpy(scene.soa10(), device=device)
+        materials = torch.tensor(scene.material, dtype=torch.int32, device=device)
+
+        def step():
+            return pt_kernels.render_pt(
+                planes, materials, width=width, height=height, spp4=spp4,
+                bounces=bounces, rr_depth=PT_RR_DEPTH, seed=0,
+            ), ()
+        return step
+
+    if renderer != "plain":
+        raise ValueError(f"unknown renderer {renderer!r}")
+    dev = megakernel.scene_to_device(scene, device=device)
+    mats = tuple(int(m) for m in scene.material)
+    keys = ("albedo", "emission", "center", "r2")
+    params = {k: dev[k].clone().requires_grad_(not fwd_only) for k in keys}
+    seeds = iter(range(1 << 30))
+
+    def step():
+        with torch.set_grad_enabled(not fwd_only):
+            loss = megakernel.render_pt_impl(
+                rays, {**dev, **params}, bounces=bounces, rr_depth=PT_RR_DEPTH,
+                materials_static=mats, seed=next(seeds),
+            ).sum()
+            if fwd_only:
+                return loss, ()
+            return loss, torch.autograd.grad(loss, tuple(params.values()))
     return step
 
 
@@ -167,6 +232,9 @@ def main(argv=None) -> int:
     p.add_argument("--warmup", type=int, default=2)
     p.add_argument("--bounces", type=int, default=8)
     p.add_argument("--renderer", choices=["kernel", "plain"], default="kernel")
+    p.add_argument("--mode", choices=["reference", "pt"], default="reference")
+    p.add_argument("--spp", type=int, default=64,
+                   help="pt kernel: samples per pixel (spp4, a multiple of 4)")
     p.add_argument("--fwd-only", action="store_true")
     p.add_argument("--profile", action="store_true",
                    help="also run the steps under torch.profiler (detail.profile)")
@@ -194,20 +262,42 @@ def main(argv=None) -> int:
     # Square image covering the ray count (n = w*h*4 at 1 sample).
     w = h = int(np.sqrt(args.rays / 4))
     n = w * h * 4
-    rays_planes = convert.rays_planes_from_numpy(
-        camera.generate_rays_numpy(w, h, 1, seed=0).astype(np.float32),
-        device=device,
-    )
-    scene = scenes.get_scene(SCENE)
-    step = make_step(args.renderer, args.fwd_only, rays_planes, scene,
-                     bounces=args.bounces)
+    rays = camera.generate_rays_numpy(w, h, 1, seed=0).astype(np.float32)
+    extra = {}
+    if args.mode == "pt":
+        from ascendpathtracing_tpu_torch.ops import pt_kernels
+
+        scene_name = PT_SCENES[args.renderer]
+        fwd_only = args.fwd_only or args.renderer == "kernel"
+        step = make_pt_step(
+            args.renderer, fwd_only, scenes.get_scene(scene_name), device=device,
+            bounces=args.bounces, width=w, height=h, spp4=args.spp,
+            rays=torch.tensor(rays, device=device),
+        )
+        if args.renderer == "kernel":
+            n = w * h * args.spp
+            extra = {"width": w, "height": h, "spp4": args.spp}
+        extra.update(mode="pt", rr_depth=PT_RR_DEPTH)
+        pt_kernels.reset_launches()
+    else:
+        scene_name = SCENE
+        fwd_only = args.fwd_only
+        step = make_step(args.renderer, fwd_only,
+                         convert.rays_planes_from_numpy(rays, device=device),
+                         scenes.get_scene(SCENE), bounces=args.bounces)
     times, _ = time_steps(step, iters=args.iters, warmup=args.warmup)
+    if args.mode == "pt":
+        extra["launches_per_step"] = (
+            pt_kernels.LAUNCHES["pt"] / (args.iters + args.warmup)
+        )
     med = statistics.median(times)
     profile = profile_steps(step, iters=args.iters) if args.profile else None
-    tag = "fwd" if args.fwd_only else "fwd+bwd"
+    tag = "fwd" if fwd_only else "fwd+bwd"
+    what = "samples" if args.mode == "pt" and args.renderer == "kernel" else "rays"
+    cell = f"{scene_name}, pt" if args.mode == "pt" else scene_name
     print(json.dumps({
         "metric": f"Mrays/s {tag} @ {args.bounces} bounces "
-                  f"({SCENE}, cuda {args.renderer})",
+                  f"({cell}, cuda {args.renderer})",
         "value": n / (med * 1e-3) / 1e6,
         "unit": "Mrays/s",
         "detail": {
@@ -217,8 +307,9 @@ def main(argv=None) -> int:
             "torch": torch.__version__,
             "cuda": torch.version.cuda,
             "renderer": args.renderer,
-            "rays_per_step": n,
+            f"{what}_per_step": n,
             "bounces": args.bounces,
+            **extra,
             "step_ms_median": med,
             "step_ms": times,
             "warmup": args.warmup,

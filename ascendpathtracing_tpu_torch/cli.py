@@ -5,19 +5,28 @@ Usage:
         --width 256 --height 256 --bounces 8 --backend cuda --out output/
     python -m ascendpathtracing_tpu_torch.cli selftest --backend cuda
 
+    python -m ascendpathtracing_tpu_torch.cli render --mode pt \
+        --renderer plain --backend cuda --samples 4 --out output/
+
 ``--backend cuda`` requires a CUDA device and exits 2 without one;
 ``--backend cpu`` runs on the CPU.  Nothing reroutes to another device.
 ``--renderer kernel`` (default) goes through ``ops/render_kernels`` (the
 CUDA kernels on a card, their plain twins on the CPU); ``--renderer
-plain`` runs the plain-torch ``models/megakernel`` path.
+plain`` runs the plain-torch ``models/megakernel`` path.  ``--mode pt``
+(default scene smallpt9) is the plain path-tracing estimator, with
+``--nee`` for next-event estimation; like the JAX CLI's ``--renderer
+pallas``, ``--renderer kernel`` takes reference mode only.  Its random
+numbers come from the port's Philox stream keyed by ``--seed``, so its
+images match the JAX package's only statistically.
 
 Artifacts, in the JAX package's formats (shared ``utils/io``):
   <out>/rays.bin  <out>/spheres.bin  <out>/color.bin  <out>/color.ppm
+  with --aov: <out>/depth.ppm  <out>/normal.ppm  <out>/albedo.ppm
 
-Ported so far: reference mode of ``render`` and checks 1-3 of
-``selftest``.  Path tracing, mesh scenes, the wavefront renderer,
-``--shard``, AOVs, post-processing and the ``train`` and ``oracle``
-commands exit 2 with "not yet ported".
+Ported so far: ``render`` in reference and pt mode with the AOVs, and
+checks 1-4 of ``selftest``.  Mesh scenes, the wavefront renderer,
+``--shard``, post-processing and the ``train`` and ``oracle`` commands
+exit 2 with "not yet ported".
 """
 
 from __future__ import annotations
@@ -90,11 +99,8 @@ def _device(name: str):
 
 def _unported_render_option(args) -> str | None:
     checks = [
-        (args.mode != "reference", f"--mode {args.mode}"),
         (args.renderer == "wavefront", "--renderer wavefront"),
         (args.scene is not None and args.scene.startswith("mesh-"), "mesh scenes"),
-        (args.nee, "--nee"),
-        (args.aov != "none", "--aov"),
         (args.denoise > 0 or args.tonemap != "none" or args.clamp > 0,
          "post-processing (--denoise/--tonemap/--clamp)"),
         (args.shard > 0, "--shard"),
@@ -116,6 +122,11 @@ def cmd_render(args) -> int:
     what = _unported_render_option(args)
     if what is not None:
         return _not_ported(what)
+    if args.renderer == "kernel" and args.mode != "reference":
+        # The JAX CLI's refusal for its kernel renderer (cli.py:253-256).
+        print("error: --renderer kernel supports --mode reference only",
+              file=sys.stderr)
+        return 2
     device = _device(args.backend)
     if device is None:
         return 2
@@ -128,7 +139,7 @@ def cmd_render(args) -> int:
     from ascendpathtracing_tpu_torch.models import megakernel
     from ascendpathtracing_tpu_torch.ops import render_kernels
 
-    scene_name = args.scene or "cornell8"
+    scene_name = args.scene or ("cornell8" if args.mode == "reference" else "smallpt9")
     try:
         scene = scenes.get_scene(scene_name)
     except KeyError as e:
@@ -144,7 +155,11 @@ def cmd_render(args) -> int:
 
     t0 = time.time()
     rays_t = torch.tensor(rays, device=device)
-    if args.renderer == "kernel":
+    dev = megakernel.scene_to_device(scene, device=device)
+    if args.mode == "pt":
+        fn = megakernel.render_pt_nee_impl if args.nee else megakernel.render_pt_impl
+        colors = fn(rays_t, dev, bounces=args.bounces, seed=args.seed)
+    elif args.renderer == "kernel":
         colors = render_kernels.render_reference(
             rays_t,
             convert.scene_planes_from_numpy(scene.soa10(), device=device),
@@ -152,7 +167,6 @@ def cmd_render(args) -> int:
             bounces=args.bounces,
         )
     else:
-        dev = megakernel.scene_to_device(scene, device=device)
         colors = megakernel.render_reference_impl(rays_t, dev, bounces=args.bounces)
     colors = colors.cpu().numpy()
     t_render = time.time() - t0
@@ -165,6 +179,8 @@ def cmd_render(args) -> int:
     io.write_color_bin(colors, f"{args.out}/color.bin")
     img = io.decode_color(colors, w, h, s)
     io.write_ppm(img, f"{args.out}/color.ppm")
+    if args.aov != "none":
+        _write_aovs(args.aov, rays_t, dev, w, h, s, args.out)
 
     n_rays = rays.shape[0]
     stats = {
@@ -185,7 +201,7 @@ def cmd_render(args) -> int:
         ),
         "out": f"{args.out}/color.ppm",
     }
-    if args.oracle:
+    if args.oracle and args.mode == "reference":
         exp = oracle.render_reference_numpy(rays, scene, bounces=args.bounces)
         img_o = io.decode_color(exp, w, h, s)
         stats["oracle_rays_bitexact"] = float((np.abs(exp - colors).max(1) == 0).mean())
@@ -194,11 +210,76 @@ def cmd_render(args) -> int:
     return 0
 
 
+def _write_aovs(aov, rays_t, dev, w, h, s, out) -> None:
+    """First-hit AOV images, as the JAX CLI writes them (cli.py:313-338):
+    depth.ppm (depth / its max), normal.ppm (normal * 0.5 + 0.5) and
+    albedo.ppm; ``gbuffer`` writes all three."""
+    import numpy as np
+
+    from ascendpathtracing_tpu_torch.host import io
+    from ascendpathtracing_tpu_torch.models import megakernel
+
+    gbuf = megakernel.render_gbuffer_impl(rays_t, dev)
+    if aov in ("depth", "gbuffer"):
+        depth = gbuf["depth"].cpu().numpy()
+        dmax = max(float(depth.max()), 1e-9)
+        io.write_ppm(
+            io.decode_color(np.repeat((depth / dmax)[:, None], 3, axis=1), w, h, s),
+            f"{out}/depth.ppm",
+        )
+    if aov in ("normal", "gbuffer"):
+        io.write_ppm(
+            io.decode_color(gbuf["normal"].cpu().numpy() * 0.5 + 0.5, w, h, s),
+            f"{out}/normal.ppm",
+        )
+    if aov in ("albedo", "gbuffer"):
+        io.write_ppm(
+            io.decode_color(gbuf["albedo"].cpu().numpy(), w, h, s),
+            f"{out}/albedo.ppm",
+        )
+
+
+def pt_energy_check(device) -> dict:
+    """Selftest check 4 (the JAX CLI's cli.py:488-521): the fused path
+    tracer (``ops/pt_kernels.render_pt``: the CUDA kernel on a card, its
+    plain twin on the CPU) against the plain estimator, mean energy on
+    cornell8 at 64x64, spp4 = 32, 4 bounces, RR from 3.  The two draw
+    independent random streams; their means must agree within 2.5%
+    relative."""
+    import numpy as np
+    import torch
+
+    from ascendpathtracing_tpu_torch import convert
+    from ascendpathtracing_tpu_torch.host import camera, scenes
+    from ascendpathtracing_tpu_torch.models import megakernel
+    from ascendpathtracing_tpu_torch.ops import pt_kernels
+
+    scene = scenes.cornell8()
+    w = h = 64
+    spp4 = 32
+    img = pt_kernels.render_pt(
+        convert.scene_planes_from_numpy(scene.soa10(), device=device),
+        torch.tensor(scene.material, dtype=torch.int32, device=device),
+        width=w, height=h, spp4=spp4, bounces=4, rr_depth=3,
+    )
+    rays = camera.generate_rays_numpy(w, h, spp4 // 4, seed=0).astype(np.float32)
+    est = megakernel.render_pt_impl(
+        torch.tensor(rays, device=device),
+        megakernel.scene_to_device(scene, device=device), bounces=4, rr_depth=3,
+        materials_static=tuple(int(m) for m in scene.material),
+    )
+    mp, mj = float(img.mean()), float(est.mean())
+    rel = abs(mp - mj) / max(mj, 1e-9)
+    return {"ok": rel < 0.025 and np.isfinite(mp), "fused_mean": mp,
+            "plain_mean": mj, "rel_diff": rel}
+
+
 def cmd_selftest(args) -> int:
-    """Checks 1-3 of the JAX package's ``selftest`` on the chosen backend:
-    plain path vs the NumPy oracle, kernel forward vs plain path, and the
-    kernel custom-VJP gradients vs plain autograd.  One JSON line per
-    check; exit 0 iff all pass."""
+    """Checks 1-4 of the JAX package's ``selftest`` on the chosen backend:
+    plain path vs the NumPy oracle, kernel forward vs plain path, the
+    kernel custom-VJP gradients vs plain autograd, and the fused path
+    tracer's energy vs the plain estimator's.  One JSON line per check;
+    exit 0 iff all pass."""
     device = _device(args.backend)
     if device is None:
         return 2
@@ -255,6 +336,10 @@ def cmd_selftest(args) -> int:
     ok = ea <= 1e-4 * max(gref, 1.0) and ee <= 1e-3 and eg == 0.0
     report("custom_vjp_grads_vs_autograd_1bounce", ok, albedo_err=ea,
            emission_err=ee, geom_grads=eg)
+
+    # 4. fused path tracer vs the plain estimator, mean energy.
+    res = pt_energy_check(device)
+    report("pt_fused_energy_vs_plain", res.pop("ok"), **res)
 
     n_ok = sum(checks)
     print(json.dumps({"selftest": "PASS" if n_ok == len(checks) else "FAIL",

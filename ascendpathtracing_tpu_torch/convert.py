@@ -3,8 +3,8 @@
 Scenes and camera rays are made once, by the JAX package's NumPy host
 modules (``scenes.SphereScene.soa10``, ``camera.generate_rays_numpy``,
 ``models.megakernel.scene_to_device`` read back as NumPy).  These
-functions carry those arrays over to a device and dtype, so that a test
-feeds both sides the same inputs.
+functions carry those arrays, and a test's uniform draws, over to a
+device and dtype, so that a test feeds both sides the same inputs.
 """
 
 from __future__ import annotations
@@ -37,6 +37,19 @@ def rays_planes_from_numpy(
     if arr.ndim != 2 or arr.shape[1] != 6:
         raise ValueError(f"expected [N, 6] rays, got {arr.shape}")
     return torch.tensor(np.ascontiguousarray(arr.T), dtype=dtype, device=device)
+
+
+def uniforms_from_numpy(
+    uniforms, *, device="cpu", dtype=torch.float32
+) -> torch.Tensor:
+    """Uniform draws (NumPy, e.g. the JAX package's per-bounce
+    ``jax.random.uniform`` draws stacked as [bounces, k, N]) -> a
+    contiguous tensor, so that both sides of a test see the same
+    randomness."""
+    arr = np.asarray(uniforms)
+    if arr.ndim != 3:
+        raise ValueError(f"expected [bounces, k, N] uniforms, got {arr.shape}")
+    return torch.tensor(np.ascontiguousarray(arr), dtype=dtype, device=device)
 
 
 def scene_dict_from_numpy(

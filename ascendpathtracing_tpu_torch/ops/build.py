@@ -16,6 +16,7 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
@@ -82,6 +83,13 @@ def build(name: str) -> Path:
         )
     os.replace(tmp, out)
     return out
+
+
+def build_all(names) -> list[Path]:
+    """Builds several libraries at once, one nvcc process each, all
+    started together; returns their paths."""
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        return list(pool.map(build, names))
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -98,7 +98,7 @@ def _launch(counter: str, stem: str, like: torch.Tensor, *args) -> None:
 
 
 # ------------------------------------------------------------ checks ----
-def _on_cpu(*tensors) -> bool:
+def on_cpu(*tensors) -> bool:
     """True for CPU tensors, False for CUDA tensors on one device; raises
     for anything else."""
     dev = tensors[0].device
@@ -218,7 +218,7 @@ def render_reference_planes(
     contiguous) -> colors [3, N]."""
     s = _check_scene(scene_planes, light_index, bounces)
     n = _check_planes("rays", rays_planes, 6, scene_planes.dtype)
-    if _on_cpu(rays_planes, scene_planes):
+    if on_cpu(rays_planes, scene_planes):
         return render_reference_planes_plain(
             rays_planes, scene_planes, light_index=light_index,
             bounces=bounces, eps=eps,
@@ -239,7 +239,7 @@ def render_reference_planes_with_idx(
     and idx [bounces, N] int32 (S encodes a miss) — the replay residual."""
     s = _check_scene(scene_planes, light_index, bounces)
     n = _check_planes("rays", rays_planes, 6, scene_planes.dtype)
-    if _on_cpu(rays_planes, scene_planes):
+    if on_cpu(rays_planes, scene_planes):
         return render_reference_planes_with_idx_plain(
             rays_planes, scene_planes, light_index=light_index,
             bounces=bounces, eps=eps,
@@ -264,7 +264,7 @@ def render_ref_bwd_replay(idx, scene_planes, g, *, light_index, bounces):
     s = _check_scene(scene_planes, light_index, bounces)
     n = _check_planes("idx", idx, bounces, torch.int32)
     _check_planes("g", g, 3, scene_planes.dtype, n)
-    if _on_cpu(idx, scene_planes, g):
+    if on_cpu(idx, scene_planes, g):
         return render_ref_bwd_replay_plain(
             idx, scene_planes, g, light_index=light_index, bounces=bounces
         )
@@ -284,7 +284,7 @@ def render_ref_bwd(rays_planes, scene_planes, g, *, light_index, bounces, eps=1e
     s = _check_scene(scene_planes, light_index, bounces)
     n = _check_planes("rays", rays_planes, 6, scene_planes.dtype)
     _check_planes("g", g, 3, scene_planes.dtype, n)
-    if _on_cpu(rays_planes, scene_planes, g):
+    if on_cpu(rays_planes, scene_planes, g):
         return render_ref_bwd_plain(
             rays_planes, scene_planes, g, light_index=light_index,
             bounces=bounces, eps=eps,

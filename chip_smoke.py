@@ -3,15 +3,16 @@ one CUDA card.
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from the sources in this checkout, checks
-each against its plain PyTorch twin (and the NumPy oracle) on the card,
-drives the main path once through the user entry points (the
-differentiable render at 4,194,304 rays x 8 bounces of cornell8, its
-forward, and the CLI, selftest and bench), proves through the launch
-counters, reset before each run, that the main path went through the
-kernels, and times kernels and plain versions with CUDA events.  One
-line per phase; the first failed check raises and the script exits
-non-zero.  Before the last line it prints the card's name and power
+Builds the port's CUDA kernels from the sources in this checkout (both
+libraries at once), checks each against its plain PyTorch twin (and the
+NumPy oracle) on the card, drives the main path once through the user
+entry points (the differentiable render at 4,194,304 rays x 8 bounces of
+cornell8, its forward, and the CLI, selftest and bench), then the fused
+path tracer (cornell8, 1024 x 1024 pixels x 64 samples, 8 bounces, RR
+from 5) through the bench's step, proves through the launch counters,
+reset before each run, that each path went through its kernels, and
+times kernels and plain versions with CUDA events.  One line per phase;
+the first failed check raises and the script exits non-zero.  Before the last line it prints the card's name and power
 limit (nvidia-smi) and one JSON object with a row per kernel (its
 ``launches`` are counted in the run its ``run`` field names); the last
 line is
@@ -31,28 +32,40 @@ import time
 
 FULL_W = 1024  # 1024 x 1024 x 4 = 4,194,304 rays, the main path's size
 BOUNCES = 8
-SOURCE = "ascendpathtracing_tpu_torch/csrc/render_ref.cu"
+PT_SPP4, PT_RR = 64, 5  # the fused path tracer's cell: 1024 x 1024 x 64
+CSRC = "ascendpathtracing_tpu_torch/csrc"
 PALLAS = "ascendpathtracing_tpu/ops/pallas_kernels.py"
+SOURCE = {  # launch counter -> its CUDA source
+    "fwd": f"{CSRC}/render_ref.cu",
+    "fwd_idx": f"{CSRC}/render_ref.cu",
+    "bwd_replay": f"{CSRC}/render_ref.cu",
+    "bwd_recompute": f"{CSRC}/render_ref.cu",
+    "pt": f"{CSRC}/render_pt.cu",
+}
 REPLACES = {  # launch counter -> the TPU kernel it replaces
     "fwd": f"{PALLAS}:41",
     "fwd_idx": f"{PALLAS}:638",
     "bwd_replay": f"{PALLAS}:787",
     "bwd_recompute": f"{PALLAS}:923",
+    "pt": f"{PALLAS}:226",
 }
-# The user-facing runs of phase 6, each counted from zero, and the
-# launches each must make.  ``train_step`` is the main path (fwd + replay
-# bwd); the inference render runs the forward without residual, and the
-# replay=False training step the recompute backward.
+# The user-facing runs, each counted from zero, and the launches each
+# must make.  ``train_step`` is the main path (fwd + replay bwd); the
+# inference render runs the forward without residual, and the
+# replay=False training step the recompute backward (phase 6).
+# ``pt_step`` is one step of the bench's fused path-tracing cell (phase 12).
 RUNS = {
-    "train_step": {"fwd": 0, "fwd_idx": 1, "bwd_replay": 1, "bwd_recompute": 0},
-    "inference_render": {"fwd": 1, "fwd_idx": 0, "bwd_replay": 0, "bwd_recompute": 0},
-    "train_step_recompute": {"fwd": 1, "fwd_idx": 0, "bwd_replay": 0, "bwd_recompute": 1},
+    "train_step": {"fwd": 0, "fwd_idx": 1, "bwd_replay": 1, "bwd_recompute": 0, "pt": 0},
+    "inference_render": {"fwd": 1, "fwd_idx": 0, "bwd_replay": 0, "bwd_recompute": 0, "pt": 0},
+    "train_step_recompute": {"fwd": 1, "fwd_idx": 0, "bwd_replay": 0, "bwd_recompute": 1, "pt": 0},
+    "pt_step": {"fwd": 0, "fwd_idx": 0, "bwd_replay": 0, "bwd_recompute": 0, "pt": 1},
 }
 RUN_OF = {  # kernel -> the run whose count its row reports
     "fwd": "inference_render",
     "fwd_idx": "train_step",
     "bwd_replay": "train_step",
     "bwd_recompute": "train_step_recompute",
+    "pt": "pt_step",
 }
 
 
@@ -83,6 +96,7 @@ def main() -> int:
     from ascendpathtracing_tpu_torch.device import gpu_name_and_power_limit
     from ascendpathtracing_tpu_torch.host import camera, oracle, scenes
     from ascendpathtracing_tpu_torch.ops import build
+    from ascendpathtracing_tpu_torch.ops import pt_kernels as ptk
     from ascendpathtracing_tpu_torch.ops import render_kernels as rk
 
     dev = torch.device("cuda")
@@ -100,15 +114,21 @@ def main() -> int:
         t = torch.float64 if dtype == np.float64 else torch.float32
         return convert.scene_planes_from_numpy(scene.soa10(dtype), device=dev, dtype=t)
 
-    # ---- 1. build ------------------------------------------------------
+    # ---- 1. build (both libraries at once) -----------------------------
     t0 = time.time()
+    libs = ("render_ref", "render_pt")
+    build.build_all(libs)
     rk.load_library()
+    ptk.load_library()
     build_s = time.time() - t0
-    log = build.library_path("render_ref").with_suffix(".log").read_text()
-    regs = [ln.split("info    : ")[-1] for ln in log.splitlines() if "Used" in ln]
-    spills = [ln.strip() for ln in log.splitlines() if "spill" in ln]
-    require(all("0 bytes spill stores, 0 bytes spill loads" in s for s in spills),
-            f"register spills: {spills}")
+    regs, spills = {}, []
+    for lib in libs:
+        log = build.library_path(lib).with_suffix(".log").read_text()
+        regs[lib] = [ln.split("info    : ")[-1] for ln in log.splitlines() if "Used" in ln]
+        spills += [ln.strip() for ln in log.splitlines() if "spill" in ln]
+    require(len(spills) >= len(libs) and all(
+        "0 bytes spill stores, 0 bytes spill loads" in s for s in spills),
+        f"register spills: {spills}")
     phase("build", seconds=build_s, gpu=gpu, torch=torch.__version__,
           cuda=torch.version.cuda, ptxas=regs)
     print(gpu, flush=True)
@@ -207,9 +227,10 @@ def main() -> int:
     def counted(run):
         torch.cuda.synchronize()
         rk.reset_launches()
+        ptk.reset_launches()
         out = run()
         torch.cuda.synchronize()
-        return out, dict(rk.LAUNCHES)
+        return out, {**rk.LAUNCHES, **ptk.LAUNCHES}
 
     def train_step(m, rays):
         out = m(rays)
@@ -221,7 +242,8 @@ def main() -> int:
     with torch.no_grad():
         out_fwd, launches["inference_render"] = counted(lambda: model(rp))
     _, launches["train_step_recompute"] = counted(lambda: train_step(model_rec, rp))
-    require(launches == RUNS, f"launches per run {launches}, expected {RUNS}")
+    want = {k: RUNS[k] for k in launches}
+    require(launches == want, f"launches per run {launches}, expected {want}")
     require(bool(torch.isfinite(out).all()), "non-finite step output")
     require(float(rays_in.grad.abs().max()) == 0.0, "ray gradient not exactly 0")
     require(torch.equal(out.detach(), out_fwd), "inference and training forward differ")
@@ -272,7 +294,7 @@ def main() -> int:
     rows = []
     for name, (ker, plain) in calls.items():
         rows.append({
-            "name": name, "route": "cuda", "source": SOURCE,
+            "name": name, "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name], "run": RUN_OF[name],
             "launches": launches[RUN_OF[name]][name],
             "max_abs_err": max_err[name], "ms": med_ms(ker),
@@ -301,6 +323,118 @@ def main() -> int:
     bench_line = json.loads(buf.getvalue().strip().splitlines()[-1])
     require(rc_bench == 0 and bench_line["value"] > 0, f"bench: {bench_line}")
     phase("entry_points", cli_render=stats, selftest="PASS", bench=bench_line)
+    del rp, idx, g1, calls
+    torch.cuda.empty_cache()
+
+    # ---- 9-13. the fused path tracer (csrc/render_pt.cu) ---------------
+    def pt_inputs(name, dtype=torch.float32):
+        s = scenes.get_scene(name)
+        return (
+            convert.scene_planes_from_numpy(s.soa10(np.float64), device=dev, dtype=dtype),
+            torch.tensor(s.material, dtype=torch.int32, device=dev),
+        )
+
+    def pt_pair(name, dtype, w, spp4, **kw):
+        planes, mats = pt_inputs(name, dtype)
+        kw = dict(width=w, height=w, spp4=spp4, bounces=BOUNCES, rr_depth=PT_RR, **kw)
+        return ptk.render_pt(planes, mats, **kw), ptk.render_pt_plain(planes, mats, **kw)
+
+    def rel_share(a, b, rtol):
+        """Share of pixels with |a - b| <= rtol * |b|."""
+        return float(((a - b).abs() <= rtol * b.abs()).float().mean())
+
+    # 9. The Philox streams and the arithmetic agree: float64, kernel vs
+    # twin, 64x64, spp4 = 16.
+    f64 = {}
+    for name in ("cornell8", "smallpt9"):
+        k, p = pt_pair(name, torch.float64, 64, 16)
+        require(bool(torch.allclose(k, p, rtol=1e-9, atol=0.0)),
+                f"pt f64 {name}: kernel vs twin not allclose at rtol 1e-9")
+        f64[name] = {"max_rel_err": max_rel(k, p), "bitwise": bool(torch.equal(k, p))}
+    phase("pt_f64_philox_64x64_spp16", tolerance="allclose rtol 1e-9", **f64)
+
+    # 10. float32, kernel vs twin, 64x64: zero uniforms, then Philox.
+    f32 = {}
+    nu = 2 + 3 * BOUNCES
+    for label, u in (("zero_uniforms", torch.zeros((16, nu, 64 * 64), device=dev)),
+                     ("philox", None)):
+        k, p = pt_pair("cornell8", torch.float32, 64, 16, uniforms=u)
+        share = rel_share(k, p, 1e-5)
+        mean_rel = abs(float(k.mean()) - float(p.mean())) / float(p.mean())
+        require(share >= 0.999 and mean_rel <= 1e-6,
+                f"pt f32 {label}: share within 1e-5 {share}, means {mean_rel}")
+        f32[label] = {"share_within_1e-5": share, "mean_rel_diff": mean_rel}
+    phase("pt_f32_64x64_spp16", tolerance="share >= 99.9% within 1e-5 rel, "
+          "means within 1e-6 rel", **f32)
+
+    # 11. Full size: kernel (seed 0) finite and >= 0; the twin's run with
+    # seed 0 for the error, and an independent run (seed 1) whose mean
+    # must be within 4 standard errors (of the paired per-pixel
+    # difference) of the kernel's; selftest check 4 on the card.
+    planes, mats = pt_inputs("cornell8")
+    full = dict(width=FULL_W, height=FULL_W, spp4=PT_SPP4, bounces=BOUNCES, rr_depth=PT_RR)
+    img = ptk.render_pt(planes, mats, **full)
+    require(bool(torch.isfinite(img).all()) and float(img.min()) >= 0.0,
+            "pt full size: non-finite or negative pixels")
+    plain_times, plain0 = bench.time_steps(
+        lambda: ptk.render_pt_plain(planes, mats, **full), iters=3, warmup=1)
+    pt_err = float((img - plain0).abs().max())
+    share0 = rel_share(img, plain0, 1e-5)
+    require(share0 >= 0.99, f"pt full size vs twin, same seed: share {share0}")
+    plain1 = ptk.render_pt_plain(planes, mats, **full, seed=1)
+    diff = (img - plain1).double()
+    se = float(diff.std()) / diff[0].numel() ** 0.5
+    z = float(diff.mean()) / se
+    require(abs(z) < 4.0, f"pt full size: kernel mean vs twin (seed 1) at {z} SE")
+    energy = cli.pt_energy_check(dev)
+    require(energy.pop("ok"), f"selftest check 4 on the card: {energy}")
+    phase("pt_full_1024x1024_spp64", mean=float(img.mean()), min=float(img.min()),
+          max_abs_err_vs_twin=pt_err, share_within_1e5_vs_twin=share0,
+          twin_seed1_mean=float(plain1.mean()), z_vs_twin_seed1=z,
+          selftest_check4=energy)
+    del plain0, plain1, diff
+
+    # 12. The fused path tracer through the bench's step and entry point.
+    pt_step = bench.make_pt_step("kernel", True, scenes.cornell8(), device=dev,
+                                 bounces=BOUNCES, spp4=PT_SPP4)
+    (out_pt, _), launches["pt_step"] = counted(pt_step)
+    require(launches["pt_step"] == RUNS["pt_step"],
+            f"pt step launches {launches['pt_step']}, expected {RUNS['pt_step']}")
+    require(torch.equal(out_pt, img), "bench pt step differs from the full-size image")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc_bench = bench.main(["--mode", "pt"])
+    pt_line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    require(rc_bench == 0 and pt_line["value"] > 0
+            and pt_line["detail"]["launches_per_step"] == 1.0, f"bench --mode pt: {pt_line}")
+    phase("pt_main_path_counted", launches=launches["pt_step"], bench=pt_line)
+    del out_pt
+
+    # 13. Times: kernel (10 runs), its twin (3 runs, above), and the plain
+    # estimator at 4,194,304 rays of smallpt9, fwd and fwd+bwd (3 runs).
+    pt_ms = statistics.median(bench.time_steps(
+        lambda: ptk.render_pt(planes, mats, **full), iters=10, warmup=2)[0])
+    rays4m = torch.tensor(camera.generate_rays_numpy(FULL_W, FULL_W, 1, seed=0)
+                          .astype(np.float32), device=dev)
+    est = {}
+    for fwd_only in (True, False):
+        st = bench.make_pt_step("plain", fwd_only, scenes.smallpt9(), device=dev,
+                                bounces=BOUNCES, rays=rays4m)
+        ms = statistics.median(bench.time_steps(st, iters=3, warmup=1)[0])
+        est["fwd" if fwd_only else "fwd+bwd"] = {
+            "ms": ms, "mrays_per_s": rays4m.shape[0] / (ms * 1e-3) / 1e6}
+        torch.cuda.empty_cache()
+    plain_ms = statistics.median(plain_times)
+    samples = FULL_W * FULL_W * PT_SPP4
+    phase("pt_times", gpu=gpu, kernel_ms=pt_ms,
+          kernel_msamples_per_s=samples / (pt_ms * 1e-3) / 1e6,
+          twin_ms=plain_ms, twin_runs=len(plain_times), plain_estimator_4M=est)
+    rows.append({
+        "name": "pt", "route": "cuda", "source": SOURCE["pt"],
+        "replaces": REPLACES["pt"], "run": RUN_OF["pt"],
+        "launches": launches[RUN_OF["pt"]]["pt"], "max_abs_err": pt_err,
+        "ms": pt_ms, "plain_ms": plain_ms,
+    })
 
     print(gpu_name_and_power_limit(), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
