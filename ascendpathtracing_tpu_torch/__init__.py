@@ -20,13 +20,23 @@ that each module's counterpart is found under the same name:
   ``RenderReference``).
 - ``ops.pt_kernels``    — the fused sphere path tracer: the hand-written
   CUDA kernel (``csrc/render_pt.cu``), its plain twin and launch count.
+- ``ops.chunk_grid``    — the chunk-grid builder (NumPy): a mesh cut into
+  fixed-size chunks under 1-3 levels of boxes.
+- ``ops.wbvh_kernels``  — the chunk-grid traversal: CUDA kernel
+  (``csrc/wbvh.cu``), plain twin, launch count.
+- ``ops.mesh_pt_kernels``— the fused sphere+mesh path tracer: CUDA kernel
+  (``csrc/mesh_pt.cu``), plain twin, launch count, tables.
+- ``accel.tri``         — brute-force ray-triangle intersection (the
+  oracle).
+- ``models.mesh``       — mesh scenes, their device tables and the
+  first-hit query.
 - ``ops.build``         — builds ``csrc/*.cu`` with nvcc at first use.
 - ``cli``, ``bench``    — the user entry points.
 
 The port imports ``torch`` and never ``jax``.  From the JAX package it
 imports only the NumPy host modules ``config``, ``scenes``, ``camera``,
-``oracle`` and ``utils.io``, so scenes, camera rays, file formats and the
-float64 oracle have one source.
+``oracle``, ``utils.io`` and ``accel.meshes``, so scenes, camera rays,
+meshes, file formats and the float64 oracle have one source.
 """
 
 from ascendpathtracing_tpu_torch.device import resolve_device

@@ -14,6 +14,7 @@ card's name and power limit, and every step time.
     python -m ascendpathtracing_tpu_torch.bench --profile     # + device busy/idle
     python -m ascendpathtracing_tpu_torch.bench --mode pt     # fused path tracer
     python -m ascendpathtracing_tpu_torch.bench --mode pt --renderer plain
+    python -m ascendpathtracing_tpu_torch.bench --mode mesh   # fused mesh path tracer
 
 ``--renderer kernel`` is the custom-VJP render on the hand-written CUDA
 kernels (replay backward); ``--renderer plain`` is the plain-torch
@@ -29,6 +30,17 @@ second, and ``detail.launches_per_step`` counts the kernel's launches.
 the plain estimator (``megakernel.render_pt_impl``) on smallpt9 at
 4,194,304 rays, 8 bounces, RR from 5, fwd+bwd by autograd to albedo,
 emission, center and r2 (``--fwd-only`` for the forward).
+
+``--mode mesh`` is the JAX bench's ``--renderer pallas-mesh --fwd-only``
+cell: the fused sphere+mesh path tracer (``ops/mesh_pt_kernels.
+render_pt_mesh``) at 1024 x 1024 pixels (from ``--rays``) x ``--spp``
+(64) samples of an icosphere of ``--subdiv`` (4: 5,120 triangles) at
+(50, 40, 60), radius 14, albedo (0.85, 0.55, 0.2) in smallpt9, cut into
+chunks of ``--chunk-tris`` (16) triangles (320 chunks under 20 supers),
+8 bounces, RR from 5, seed 0, forward only (its replay backward is not
+yet ported); ``--renderer plain`` runs the kernel's plain twin (minutes
+at full size: pass a smaller ``--spp``).  The value counts samples per
+second.
 
 Each step is timed with CUDA events after a warm-up; the value is the
 median.  It needs a CUDA device and exits 2 without one.
@@ -163,6 +175,38 @@ def make_pt_step(renderer, fwd_only, scene, *, device, bounces, width=1024,
     return step
 
 
+def mesh_scene(subdiv: int):
+    """The mesh cells' scene: an icosphere of ``subdiv`` subdivisions at
+    (50, 40, 60), radius 14, albedo (0.85, 0.55, 0.2), in smallpt9."""
+    from ascendpathtracing_tpu_torch.host import meshes
+    from ascendpathtracing_tpu_torch.models.mesh import MeshScene
+
+    v, f = meshes.icosphere(center=(50, 40, 60), radius=14.0, subdivisions=subdiv)
+    return MeshScene.cornell_with_mesh(v, f, albedo=(0.85, 0.55, 0.2), base_scene="smallpt9")
+
+
+def make_mesh_step(renderer, ms, *, device, bounces, width=1024, height=1024,
+                   spp4=64, tris_per_chunk=16):
+    """One forward step of the mesh cell -> (a callable returning (per-pixel
+    means [3, W*H], ()), the NumPy chunk grid).  kernel: the fused
+    sphere+mesh kernel; plain: its plain twin."""
+    from ascendpathtracing_tpu_torch.ops import mesh_pt_kernels as mpt
+
+    planes, cb, sb, t24, mats, grid = mpt.mesh_pt_tables(
+        ms, tris_per_chunk=tris_per_chunk, device=device
+    )
+    if renderer not in ("kernel", "plain"):
+        raise ValueError(f"unknown renderer {renderer!r}")
+    render = mpt.render_pt_mesh if renderer == "kernel" else mpt.render_pt_mesh_plain
+    kw = dict(materials=mats, width=width, height=height, spp4=spp4,
+              bounces=bounces, rr_depth=PT_RR_DEPTH, seed=0,
+              **mpt.pt_tables_kwargs(grid, device))
+
+    def step():
+        return render(planes, cb, sb, t24, **kw), ()
+    return step, grid
+
+
 def time_steps(step, *, iters, warmup):
     """Runs ``warmup`` untimed steps, then ``iters`` steps each between two
     CUDA events -> (step times in ms, the last step's result)."""
@@ -232,9 +276,13 @@ def main(argv=None) -> int:
     p.add_argument("--warmup", type=int, default=2)
     p.add_argument("--bounces", type=int, default=8)
     p.add_argument("--renderer", choices=["kernel", "plain"], default="kernel")
-    p.add_argument("--mode", choices=["reference", "pt"], default="reference")
+    p.add_argument("--mode", choices=["reference", "pt", "mesh"], default="reference")
     p.add_argument("--spp", type=int, default=64,
-                   help="pt kernel: samples per pixel (spp4, a multiple of 4)")
+                   help="pt kernel and mesh: samples per pixel (spp4, a multiple of 4)")
+    p.add_argument("--subdiv", type=int, default=4,
+                   help="mesh: icosphere subdivisions (tris = 20*4^s: 4 -> 5,120)")
+    p.add_argument("--chunk-tris", type=int, default=16,
+                   help="mesh: triangles per chunk")
     p.add_argument("--fwd-only", action="store_true")
     p.add_argument("--profile", action="store_true",
                    help="also run the steps under torch.profiler (detail.profile)")
@@ -264,7 +312,25 @@ def main(argv=None) -> int:
     n = w * h * 4
     rays = camera.generate_rays_numpy(w, h, 1, seed=0).astype(np.float32)
     extra = {}
-    if args.mode == "pt":
+    counters = None
+    if args.mode == "mesh":
+        from ascendpathtracing_tpu_torch.ops import mesh_pt_kernels
+
+        scene_name = f"mesh-icosphere s{args.subdiv}"
+        fwd_only = True
+        step, grid = make_mesh_step(
+            args.renderer, mesh_scene(args.subdiv), device=device,
+            bounces=args.bounces, width=w, height=h, spp4=args.spp,
+            tris_per_chunk=args.chunk_tris,
+        )
+        n = w * h * args.spp
+        extra = {"mode": "mesh", "width": w, "height": h, "spp4": args.spp,
+                 "rr_depth": PT_RR_DEPTH, "tris": int((grid.face_of_slot >= 0).sum()),
+                 "tris_per_chunk": args.chunk_tris, "chunks": grid.n_chunks,
+                 "supers": grid.n_supers, "supers2": grid.n_supers2}
+        counters = (mesh_pt_kernels.LAUNCHES, "mesh_pt")
+        mesh_pt_kernels.reset_launches()
+    elif args.mode == "pt":
         from ascendpathtracing_tpu_torch.ops import pt_kernels
 
         scene_name = PT_SCENES[args.renderer]
@@ -278,6 +344,7 @@ def main(argv=None) -> int:
             n = w * h * args.spp
             extra = {"width": w, "height": h, "spp4": args.spp}
         extra.update(mode="pt", rr_depth=PT_RR_DEPTH)
+        counters = (pt_kernels.LAUNCHES, "pt")
         pt_kernels.reset_launches()
     else:
         scene_name = SCENE
@@ -286,20 +353,23 @@ def main(argv=None) -> int:
                          convert.rays_planes_from_numpy(rays, device=device),
                          scenes.get_scene(SCENE), bounces=args.bounces)
     times, _ = time_steps(step, iters=args.iters, warmup=args.warmup)
-    if args.mode == "pt":
-        extra["launches_per_step"] = (
-            pt_kernels.LAUNCHES["pt"] / (args.iters + args.warmup)
-        )
+    if counters is not None:
+        launches, key = counters
+        extra["launches_per_step"] = launches[key] / (args.iters + args.warmup)
     med = statistics.median(times)
     profile = profile_steps(step, iters=args.iters) if args.profile else None
     tag = "fwd" if fwd_only else "fwd+bwd"
-    what = "samples" if args.mode == "pt" and args.renderer == "kernel" else "rays"
-    cell = f"{scene_name}, pt" if args.mode == "pt" else scene_name
+    samples = args.mode == "mesh" or (args.mode == "pt" and args.renderer == "kernel")
+    what = "samples" if samples else "rays"
+    # The mesh cell's unit is named for what it counts; the pt cell keeps
+    # the JAX bench's Mrays/s key for its samples.
+    unit = "Msamples/s" if args.mode == "mesh" else "Mrays/s"
+    cell = f"{scene_name}, pt" if args.mode != "reference" else scene_name
     print(json.dumps({
-        "metric": f"Mrays/s {tag} @ {args.bounces} bounces "
+        "metric": f"{unit} {tag} @ {args.bounces} bounces "
                   f"({cell}, cuda {args.renderer})",
         "value": n / (med * 1e-3) / 1e6,
-        "unit": "Mrays/s",
+        "unit": unit,
         "detail": {
             "backend": "cuda",
             "gpu": gpu_name_and_power_limit(),

@@ -2,9 +2,10 @@
 
 Scenes and camera rays are made once, by the JAX package's NumPy host
 modules (``scenes.SphereScene.soa10``, ``camera.generate_rays_numpy``,
-``models.megakernel.scene_to_device`` read back as NumPy).  These
-functions carry those arrays, and a test's uniform draws, over to a
-device and dtype, so that a test feeds both sides the same inputs.
+``models.megakernel.scene_to_device`` read back as NumPy; the mesh
+tables of ``pallas_mesh_pt.mesh_pt_tables``).  These functions carry
+those arrays, and a test's uniform draws, over to a device and dtype,
+so that a test feeds both sides the same inputs.
 """
 
 from __future__ import annotations
@@ -68,3 +69,27 @@ def scene_dict_from_numpy(
     )
     out["light_index"] = int(dev["light_index"])
     return out
+
+
+def mesh_tables_from_numpy(
+    planes, cboxes, sboxes, ssboxes, tris, *, device="cpu", dtype=torch.float32
+) -> tuple:
+    """The JAX package's mesh tables (``pallas_mesh_pt.mesh_pt_tables``
+    or ``pallas_wbvh.chunk_grid_to_device`` outputs, any arrays
+    ``np.asarray`` reads) -> (scene planes [10, S] in ``dtype``, cboxes,
+    sboxes, ssboxes, tris) with the tables float32, as the builder makes
+    them; ``ssboxes`` None becomes [0, 6]."""
+    boxes = []
+    for name, b in (("cboxes", cboxes), ("sboxes", sboxes), ("ssboxes", ssboxes)):
+        arr = np.zeros((0, 6), np.float32) if b is None else np.asarray(b)
+        if arr.ndim != 2 or arr.shape[1] != 6:
+            raise ValueError(f"expected [*, 6] {name}, got {arr.shape}")
+        boxes.append(torch.tensor(arr, dtype=torch.float32, device=device))
+    rows = np.asarray(tris)
+    if rows.ndim != 2:
+        raise ValueError(f"expected [C*T, F] triangle rows, got {rows.shape}")
+    return (
+        scene_planes_from_numpy(planes, device=device, dtype=dtype),
+        *boxes,
+        torch.tensor(rows, dtype=torch.float32, device=device),
+    )

@@ -1,2 +1,2 @@
-"""Renderers of the port.  ``megakernel`` holds the reference-semantics
-render in plain torch."""
+"""Renderers of the port.  ``megakernel`` holds the sphere renderers in
+plain torch, ``mesh`` the mesh scenes and their first-hit query."""

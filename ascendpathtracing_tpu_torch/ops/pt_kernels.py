@@ -32,6 +32,7 @@ import torch
 from ascendpathtracing_tpu_torch.host import camera
 from ascendpathtracing_tpu_torch.ops import build, rng
 from ascendpathtracing_tpu_torch.ops.intersect import (
+    MISS_T,
     intersect_spheres_soa,
     reduce_hit_soa,
 )
@@ -98,7 +99,8 @@ def n_uniforms(bounces: int) -> int:
     return 2 + 3 * bounces
 
 
-def _check(scene_planes, materials, width, height, spp4, bounces, rr_depth, uniforms):
+def check_inputs(scene_planes, materials, width, height, spp4, bounces, rr_depth, uniforms):
+    """Checks render_pt's inputs -> (S, whether they lie on the CPU)."""
     if scene_planes.dtype not in _DTYPES:
         raise TypeError(f"scene planes must be float32 or float64, got {scene_planes.dtype}")
     if scene_planes.dim() != 2 or scene_planes.shape[0] != 10:
@@ -131,12 +133,67 @@ def _check(scene_planes, materials, width, height, spp4, bounces, rr_depth, unif
 
 
 # ------------------------------------------------------- plain twin ----
-def _trace_layer(planes_pad, mat_pad, u, layer, i_idx, j_idx, *, width, height,
-                 spp4, bounces, rr_depth, eps, cam):
-    """One sample layer of every pixel -> radiance (lr, lg, lb), the
-    kernel's ``trace_sample`` as [P]-wide tensor ops.  A path that has
-    ended keeps computing, masked (the Pallas kernel's lanes)."""
+def sphere_hits(planes_pad, ox, oy, oz, dx, dy, dz, eps):
+    """Nearest sphere of each ray -> (tmin, win): win is the sphere
+    index, or S (the zero column of ``planes_pad`` [10, S + 1]) on a
+    miss."""
     s_count = planes_pad.shape[1] - 1
+    r2s, cx, cy, cz = planes_pad[0:4, :s_count]
+    tmin, hit, miss = reduce_hit_soa(
+        intersect_spheres_soa(ox, oy, oz, dx, dy, dz, cx, cy, cz, r2s, eps)
+    )
+    return tmin, torch.where(miss, s_count, hit.long())
+
+
+def surface(planes_pad, mat_pad, win, tmin, o3, d3, rows=None, slot=None):
+    """What the shading needs from each ray's winner at distance tmin ->
+    (hit point, unit normal, emission, albedo, r2, is_diff, is_refr), the
+    kernels' ``Surface``.  Sphere ``win`` (``mat_pad[S]`` is -1); with
+    ``rows`` [C*T, 24] and ``slot`` [N] (-1: no triangle), a triangle slot
+    takes its row's unit normal, albedo, emission and one-hots and r2 = 0."""
+    ox, oy, oz = o3
+    dx, dy, dz = d3
+    hx, hy, hz = ox + dx * tmin, oy + dy * tmin, oz + dz * tmin
+    w = planes_pad[:, win]
+    m = mat_pad[win]
+    nx, ny, nz = hx - w[1], hy - w[2], hz - w[3]
+    n2 = nx * nx + ny * ny + nz * nz
+    ninv = torch.where(n2 > 0, 1.0 / sqrt_rn(n2), 0.0)
+    n = [nx * ninv, ny * ninv, nz * ninv]
+    e = [w[4], w[5], w[6]]
+    a = [w[7], w[8], w[9]]
+    r2, is_diff, is_refr = w[0], m == DIFF, m == REFR
+    if rows is not None:
+        is_tri = slot >= 0
+        row = rows[slot.clamp_min(0)].T  # [24, N]
+        n = [torch.where(is_tri, row[13 + i], n[i]) for i in range(3)]
+        a = [torch.where(is_tri, row[16 + i], a[i]) for i in range(3)]
+        e = [torch.where(is_tri, row[19 + i], e[i]) for i in range(3)]
+        r2 = torch.where(is_tri, 0.0, r2)
+        is_diff = torch.where(is_tri, row[22] > 0.5, is_diff)
+        is_refr = torch.where(is_tri, row[23] > 0.5, is_refr)
+    return (hx, hy, hz), n, e, a, r2, is_diff, is_refr
+
+
+def pad_scene(scene_planes, materials):
+    """[10, S] planes and [S] materials -> [10, S + 1] planes with a zero
+    column and int64 materials with -1 there (a miss's winner S)."""
+    dtype, device = scene_planes.dtype, scene_planes.device
+    planes_pad = torch.cat(
+        [scene_planes, torch.zeros((10, 1), dtype=dtype, device=device)], dim=1
+    )
+    mat_pad = torch.cat(
+        [materials.long(), torch.full((1,), -1, dtype=torch.long, device=device)]
+    )
+    return planes_pad, mat_pad
+
+
+def _trace_layer(hit_fn, u, layer, i_idx, j_idx, *, width, height, spp4,
+                 bounces, rr_depth, eps, cam):
+    """One sample layer of every pixel -> radiance (lr, lg, lb), the
+    kernels' ``trace_sample`` as [P]-wide tensor ops.  ``hit_fn(o3, d3,
+    alive)`` -> (tmin, ``surface(...)``) finds each ray's winner.  A path
+    that has ended keeps computing, masked (the Pallas kernel's lanes)."""
     px, py, pz, dx0, dy0, dz0, cxx, cyx, cyy, cyz, push = cam
     s = spp4 // 4
     sy, sx = layer // (2 * s), (layer // s) % 2
@@ -158,29 +215,20 @@ def _trace_layer(planes_pad, mat_pad, u, layer, i_idx, j_idx, *, width, height,
     tr = tg = tb = torch.ones_like(dx)
     lr = lg = lb = zero
     alive = torch.ones(dx.shape, dtype=torch.bool, device=dx.device)
-    r2s, cx, cy, cz = planes_pad[0:4, :s_count]
     for k in range(bounces):
-        tmin, hit, miss = reduce_hit_soa(
-            intersect_spheres_soa(ox, oy, oz, dx, dy, dz, cx, cy, cz, r2s, eps)
-        )
-        win = torch.where(miss, s_count, hit.long())  # column S: zeros
-        w = planes_pad[:, win]
-        m = mat_pad[win]
+        tmin, ((hx, hy, hz), (nx, ny, nz), (er, eg, eb), (ar, ag, ab), r2w,
+               is_diff, is_refr) = hit_fn((ox, oy, oz), (dx, dy, dz), alive)
+        miss = tmin >= MISS_T
         live = alive & ~miss
 
-        hx, hy, hz = ox + dx * tmin, oy + dy * tmin, oz + dz * tmin
-        nx, ny, nz = hx - w[1], hy - w[2], hz - w[3]
-        n2 = nx * nx + ny * ny + nz * nz
-        ninv = torch.where(n2 > 0, 1.0 / sqrt_rn(n2), 0.0)
-        nx, ny, nz = nx * ninv, ny * ninv, nz * ninv
         dn = dx * nx + dy * ny + dz * nz
         into = dn < 0
         sgn = where_const(into, 1.0, -1.0, dx)
         nlx, nly, nlz = nx * sgn, ny * sgn, nz * sgn
 
-        lr = torch.where(live, lr + tr * w[4], lr)
-        lg = torch.where(live, lg + tg * w[5], lg)
-        lb = torch.where(live, lb + tb * w[6], lb)
+        lr = torch.where(live, lr + tr * er, lr)
+        lg = torch.where(live, lg + tg * eg, lg)
+        lb = torch.where(live, lb + tb * eb, lb)
 
         uq = u[2 + 3 * k: 5 + 3 * k]
         # Diffuse: cosine hemisphere sample, not renormalized.
@@ -220,15 +268,14 @@ def _trace_layer(planes_pad, mat_pad, u, layer, i_idx, j_idx, *, width, height,
         pick = (uq[0] < pp) | tir
         rscale = torch.where(tir, 1.0, torch.where(pick, re / pp, (1.0 - re) / (1.0 - pp)))
 
-        is_diff, is_refr = m == DIFF, m == REFR
         refr_pick = is_refr & ~pick
         ndx = torch.where(is_diff, dfx, torch.where(refr_pick, tdx, dsx))
         ndy = torch.where(is_diff, dfy, torch.where(refr_pick, tdy, dsy))
         ndz = torch.where(is_diff, dfz, torch.where(refr_pick, tdz, dsz))
         scl = torch.where(is_refr, rscale, 1.0)
-        tr = torch.where(live, tr * w[7] * scl, tr)
-        tg = torch.where(live, tg * w[8] * scl, tg)
-        tb = torch.where(live, tb * w[9] * scl, tb)
+        tr = torch.where(live, tr * ar * scl, tr)
+        tg = torch.where(live, tg * ag * scl, tg)
+        tb = torch.where(live, tb * ab * scl, tb)
 
         alive = live
         if k >= rr_depth:  # Russian roulette
@@ -240,7 +287,7 @@ def _trace_layer(planes_pad, mat_pad, u, layer, i_idx, j_idx, *, width, height,
             tb = torch.where(survive, tb * pinv, tb)
             alive = live & survive
 
-        off = torch.where(is_refr, 0.0, torch.clamp_min(REL_OFFSET * sqrt_rn(w[0]), eps))
+        off = torch.where(is_refr, 0.0, torch.clamp_min(REL_OFFSET * sqrt_rn(r2w), eps))
         ox = torch.where(live, hx + nlx * off, ox)
         oy = torch.where(live, hy + nly * off, oy)
         oz = torch.where(live, hz + nlz * off, oz)
@@ -250,33 +297,42 @@ def _trace_layer(planes_pad, mat_pad, u, layer, i_idx, j_idx, *, width, height,
     return lr, lg, lb
 
 
-def render_pt_plain(scene_planes, materials, *, width, height, spp4, bounces=8,
-                    rr_depth=5, eps=1e-4, seed=0, uniforms=None):
-    """Plain twin of :func:`render_pt`: the kernel's arithmetic and
-    random stream as torch ops, one sample layer at a time (memory stays
-    at one layer's [W*H] planes)."""
-    dtype, device = scene_planes.dtype, scene_planes.device
-    s_count = scene_planes.shape[1]
+def render_layers(hit_fn, *, dtype, device, width, height, spp4, bounces,
+                  rr_depth, eps, seed, uniforms, cam):
+    """The per-pixel mean over ``spp4`` sample layers, accumulated layer
+    by layer (memory stays at one layer's [W*H] planes) -> [3, W*H]."""
     n_pix = width * height
     pix = torch.arange(n_pix, device=device)
     i_idx, j_idx = (pix // height).to(dtype), (pix % height).to(dtype)
-    planes_pad = torch.cat(
-        [scene_planes, torch.zeros((10, 1), dtype=dtype, device=device)], dim=1
-    )
-    mat_pad = torch.cat(
-        [materials.long(), torch.full((1,), -1, dtype=torch.long, device=device)]
-    )
     kw = dict(width=width, height=height, spp4=spp4, bounces=bounces,
-              rr_depth=rr_depth, eps=eps, cam=camera_constants(width, height))
+              rr_depth=rr_depth, eps=eps, cam=cam)
     inv_spp = 1.0 / spp4
     acc = torch.zeros((3, n_pix), dtype=dtype, device=device)
     for a in range(spp4):
         u = uniforms[a] if uniforms is not None else rng.uniforms(
             seed, pix, a, n_uniforms(bounces), stream=rng.STREAM_FUSED, dtype=dtype
         )
-        lr, lg, lb = _trace_layer(planes_pad, mat_pad, u, a, i_idx, j_idx, **kw)
+        lr, lg, lb = _trace_layer(hit_fn, u, a, i_idx, j_idx, **kw)
         acc = acc + torch.stack((lr, lg, lb)) * inv_spp
     return acc
+
+
+def render_pt_plain(scene_planes, materials, *, width, height, spp4, bounces=8,
+                    rr_depth=5, eps=1e-4, seed=0, uniforms=None):
+    """Plain twin of :func:`render_pt`: the kernel's arithmetic and
+    random stream as torch ops, one sample layer at a time."""
+    planes_pad, mat_pad = pad_scene(scene_planes, materials)
+
+    def hit_fn(o3, d3, alive):
+        tmin, win = sphere_hits(planes_pad, *o3, *d3, eps)
+        return tmin, surface(planes_pad, mat_pad, win, tmin, o3, d3)
+
+    return render_layers(
+        hit_fn, dtype=scene_planes.dtype, device=scene_planes.device,
+        width=width, height=height, spp4=spp4, bounces=bounces,
+        rr_depth=rr_depth, eps=eps, seed=seed, uniforms=uniforms,
+        cam=camera_constants(width, height),
+    )
 
 
 # ---------------------------------------------------------- wrapper ----
@@ -287,7 +343,7 @@ def render_pt(scene_planes, materials, *, width, height, spp4, bounces=8,
     No ray input: each sample's camera ray is made from its uniforms.
     Pixel p is column p // height, row p % height; sample layer a is
     (sy, sx, k) = (a // (2s), (a // s) % 2, a % s) with s = spp4 / 4."""
-    s_count, cpu = _check(
+    s_count, cpu = check_inputs(
         scene_planes, materials, width, height, spp4, bounces, rr_depth, uniforms
     )
     kw = dict(width=width, height=height, spp4=spp4, bounces=bounces,

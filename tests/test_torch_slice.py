@@ -109,6 +109,9 @@ def test_importing_the_port_loads_no_jax():
         "import chip_smoke\n"
         "assert 'jax' not in sys.modules, sorted(k for k in sys.modules if 'jax' in k)\n"
         "print(len(mods))\n"
+        "new = {'accel.tri', 'models.mesh', 'ops.chunk_grid', 'ops.wbvh_kernels',\n"
+        "       'ops.mesh_pt_kernels'}\n"
+        "assert {p.__name__ + '.' + m for m in new} <= set(mods), mods\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run(
@@ -116,7 +119,7 @@ def test_importing_the_port_loads_no_jax():
         text=True, timeout=300, check=False,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 11
+    assert int(out.stdout.strip()) >= 17
 
 
 def test_backend_cuda_exits_2_without_cuda(no_cuda, tmp_path, capsys):
@@ -124,6 +127,7 @@ def test_backend_cuda_exits_2_without_cuda(no_cuda, tmp_path, capsys):
     assert cli.main(["selftest", "--backend", "cuda"]) == 2
     assert bench.main([]) == 2
     assert bench.main(["--mode", "pt"]) == 2
+    assert bench.main(["--mode", "mesh"]) == 2
     assert "CUDA" in capsys.readouterr().err
     assert not (tmp_path / "color.bin").exists()
 
@@ -132,7 +136,8 @@ def test_backend_cuda_exits_2_without_cuda(no_cuda, tmp_path, capsys):
     "argv,message",
     [
         (["render", "--renderer", "wavefront"], "not yet ported"),
-        (["render", "--scene", "mesh-cube"], "not yet ported"),
+        (["render", "--scene", "mesh-cube", "--mode", "pt", "--renderer", "plain"],
+         "not yet ported"),
         (["render", "--shard", "2"], "not yet ported"),
         (["render", "--denoise", "1"], "not yet ported"),
         (["train", "--steps", "1"], "not yet ported"),
@@ -152,8 +157,11 @@ def test_unported_modes_exit_2(argv, message, tmp_path, capsys):
 def test_selftest_passes_on_cpu(capsys):
     assert cli.main(["selftest", "--backend", "cpu"]) == 0
     lines = [json.loads(x) for x in capsys.readouterr().out.strip().splitlines()]
-    assert lines[-1] == {"selftest": "PASS", "passed": 4, "ran": 4, "backend": "cpu"}
+    assert lines[-1] == {"selftest": "PASS", "passed": 5, "ran": 5, "backend": "cpu"}
     assert lines[3]["check"] == "pt_fused_energy_vs_plain" and lines[3]["rel_diff"] < 0.025
+    assert lines[4]["check"] == "wbvh_chunks_vs_brute" and lines[4]["max_t_err"] < 1e-3
+    assert lines[5] == {"check": "mesh_pt_fused_energy_vs_xla",
+                        "skipped": "models/mesh.render_pt_mesh_impl not yet ported"}
 
 
 def test_bench_profile_summary_on_the_host():
