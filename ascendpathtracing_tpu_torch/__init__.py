@@ -25,18 +25,24 @@ that each module's counterpart is found under the same name:
 - ``ops.wbvh_kernels``  — the chunk-grid traversal: CUDA kernel
   (``csrc/wbvh.cu``), plain twin, launch count.
 - ``ops.mesh_pt_kernels``— the fused sphere+mesh path tracer: CUDA kernel
-  (``csrc/mesh_pt.cu``), plain twin, launch count, tables.
+  (``csrc/mesh_pt.cu``, with the replay residuals), plain twin, launch
+  count, tables.
+- ``ops.histogram_kernels`` — the segment-sum: CUDA kernel
+  (``csrc/segsum.cu``), plain twins, launch count.
+- ``diff.mesh_fused``   — the mesh renderer's replay backward and its
+  ``torch.autograd.Function``.
 - ``accel.tri``         — brute-force ray-triangle intersection (the
   oracle).
 - ``models.mesh``       — mesh scenes, their device tables and the
   first-hit query.
 - ``ops.build``         — builds ``csrc/*.cu`` with nvcc at first use.
 - ``cli``, ``bench``    — the user entry points.
+- ``config``, ``scenes``, ``camera``, ``oracle``, ``utils.io``,
+  ``accel.meshes`` — the NumPy host modules, copies of the JAX package's
+  modules of the same names (tests hold each against its original).
 
-The port imports ``torch`` and never ``jax``.  From the JAX package it
-imports only the NumPy host modules ``config``, ``scenes``, ``camera``,
-``oracle``, ``utils.io`` and ``accel.meshes``, so scenes, camera rays,
-meshes, file formats and the float64 oracle have one source.
+The port imports ``torch`` and never ``jax``, and nothing of the JAX
+package.
 """
 
 from ascendpathtracing_tpu_torch.device import resolve_device

@@ -14,7 +14,8 @@ card's name and power limit, and every step time.
     python -m ascendpathtracing_tpu_torch.bench --profile     # + device busy/idle
     python -m ascendpathtracing_tpu_torch.bench --mode pt     # fused path tracer
     python -m ascendpathtracing_tpu_torch.bench --mode pt --renderer plain
-    python -m ascendpathtracing_tpu_torch.bench --mode mesh   # fused mesh path tracer
+    python -m ascendpathtracing_tpu_torch.bench --mode mesh   # fused mesh, fwd+bwd
+    python -m ascendpathtracing_tpu_torch.bench --mode mesh --fwd-only
 
 ``--renderer kernel`` is the custom-VJP render on the hand-written CUDA
 kernels (replay backward); ``--renderer plain`` is the plain-torch
@@ -25,25 +26,32 @@ kernels (replay backward); ``--renderer plain`` is the plain-torch
 the fused path-tracing kernel (``ops/pt_kernels.render_pt``) on cornell8
 at 1024 x 1024 pixels x ``--spp`` (64) samples, 8 bounces, RR from 5,
 seed 0, forward only; its value counts samples (camera paths) per
-second, and ``detail.launches_per_step`` counts the kernel's launches.
+second.
 ``--mode pt --renderer plain`` is the JAX bench's ``--mode pt`` jit cell:
 the plain estimator (``megakernel.render_pt_impl``) on smallpt9 at
 4,194,304 rays, 8 bounces, RR from 5, fwd+bwd by autograd to albedo,
 emission, center and r2 (``--fwd-only`` for the forward).
 
-``--mode mesh`` is the JAX bench's ``--renderer pallas-mesh --fwd-only``
-cell: the fused sphere+mesh path tracer (``ops/mesh_pt_kernels.
-render_pt_mesh``) at 1024 x 1024 pixels (from ``--rays``) x ``--spp``
-(64) samples of an icosphere of ``--subdiv`` (4: 5,120 triangles) at
-(50, 40, 60), radius 14, albedo (0.85, 0.55, 0.2) in smallpt9, cut into
-chunks of ``--chunk-tris`` (16) triangles (320 chunks under 20 supers),
-8 bounces, RR from 5, seed 0, forward only (its replay backward is not
-yet ported); ``--renderer plain`` runs the kernel's plain twin (minutes
-at full size: pass a smaller ``--spp``).  The value counts samples per
-second.
+``--mode mesh`` is the JAX bench's ``--renderer pallas-mesh`` cell: the
+fused sphere+mesh path tracer (``ops/mesh_pt_kernels.render_pt_mesh``)
+at 1024 x 1024 pixels (from ``--rays``) x ``--spp`` (64) samples of an
+icosphere of ``--subdiv`` (4: 5,120 triangles) at (50, 40, 60), radius
+14, albedo (0.85, 0.55, 0.2) in smallpt9, cut into chunks of
+``--chunk-tris`` (16) triangles (320 chunks under 20 supers), 8 bounces,
+RR from 5, seed 0.  By default one step is the training step of
+``diff/mesh_fused.make_render_pt_mesh_diff``: the forward with replay
+residuals, then ``image.sum()``'s gradient to the scene planes, the slot
+albedos and the slot emissions by the replay backward (one segment-sum
+launch per chunk of sample layers); ``--fwd-only`` is the forward
+alone.  ``--renderer plain`` runs the plain twins (the forward with
+residuals, then the replay with the plain segment-sum; minutes at full
+size: pass a smaller ``--spp``).  The value counts samples per second.
 
 Each step is timed with CUDA events after a warm-up; the value is the
-median.  It needs a CUDA device and exits 2 without one.
+median.  In every mode ``detail.launches_per_step`` maps each kernel that
+launched to its launches per step (empty for the plain renderers), and
+``detail.max_memory_allocated`` is the peak of the timed steps.  It needs
+a CUDA device and exits 2 without one.
 
 ``--profile`` then runs the same number of steps under ``torch.profiler``
 and adds ``detail.profile``: the device's busy time per step (the union
@@ -178,7 +186,7 @@ def make_pt_step(renderer, fwd_only, scene, *, device, bounces, width=1024,
 def mesh_scene(subdiv: int):
     """The mesh cells' scene: an icosphere of ``subdiv`` subdivisions at
     (50, 40, 60), radius 14, albedo (0.85, 0.55, 0.2), in smallpt9."""
-    from ascendpathtracing_tpu_torch.host import meshes
+    from ascendpathtracing_tpu_torch.accel import meshes
     from ascendpathtracing_tpu_torch.models.mesh import MeshScene
 
     v, f = meshes.icosphere(center=(50, 40, 60), radius=14.0, subdivisions=subdiv)
@@ -186,10 +194,21 @@ def mesh_scene(subdiv: int):
 
 
 def make_mesh_step(renderer, ms, *, device, bounces, width=1024, height=1024,
-                   spp4=64, tris_per_chunk=16):
-    """One forward step of the mesh cell -> (a callable returning (per-pixel
-    means [3, W*H], ()), the NumPy chunk grid).  kernel: the fused
-    sphere+mesh kernel; plain: its plain twin."""
+                   spp4=64, tris_per_chunk=16, fwd_only=True):
+    """One step of the mesh cell -> (a callable returning (value, grads),
+    the NumPy chunk grid).
+
+    fwd_only: the per-pixel means [3, W*H] and no grads.  kernel: the
+      fused sphere+mesh kernel; plain: its plain twin.
+    otherwise: image.sum() and its gradients to (scene planes [10, S],
+      slot albedo [CT, 3], slot emission [CT, 3]).  kernel:
+      ``make_render_pt_mesh_diff`` (the kernel forward with residuals,
+      the replay through the segment-sum kernel); plain: the twin forward
+      with residuals and the replay with the plain segment-sum.
+    """
+    import torch
+
+    from ascendpathtracing_tpu_torch.diff import mesh_fused
     from ascendpathtracing_tpu_torch.ops import mesh_pt_kernels as mpt
 
     planes, cb, sb, t24, mats, grid = mpt.mesh_pt_tables(
@@ -197,13 +216,38 @@ def make_mesh_step(renderer, ms, *, device, bounces, width=1024, height=1024,
     )
     if renderer not in ("kernel", "plain"):
         raise ValueError(f"unknown renderer {renderer!r}")
-    render = mpt.render_pt_mesh if renderer == "kernel" else mpt.render_pt_mesh_plain
+    grid_kw = mpt.pt_tables_kwargs(grid, device)
     kw = dict(materials=mats, width=width, height=height, spp4=spp4,
-              bounces=bounces, rr_depth=PT_RR_DEPTH, seed=0,
-              **mpt.pt_tables_kwargs(grid, device))
+              bounces=bounces, rr_depth=PT_RR_DEPTH, seed=0, **grid_kw)
+    if fwd_only:
+        render = mpt.render_pt_mesh if renderer == "kernel" else mpt.render_pt_mesh_plain
+
+        def step():
+            return render(planes, cb, sb, t24, **kw), ()
+        return step, grid
+
+    n_slots = t24.shape[0]
+    if renderer == "kernel":
+        render = mesh_fused.make_render_pt_mesh_diff(
+            cb, sb, t24[:, :16], t24[:, 22:24], width=width, height=height,
+            spp4=spp4, materials=mats, bounces=bounces, rr_depth=PT_RR_DEPTH,
+            seed=0, **grid_kw)
+        leaves = (planes.clone().requires_grad_(True),
+                  t24[:, 16:19].clone().requires_grad_(True),
+                  t24[:, 19:22].clone().requires_grad_(True))
+
+        def step():
+            loss = render(*leaves).sum()
+            return loss, torch.autograd.grad(loss, leaves)
+        return step, grid
 
     def step():
-        return render(planes, cb, sb, t24, **kw), ()
+        img, wid, resv = mpt.render_pt_mesh_plain(planes, cb, sb, t24,
+                                                  with_residuals=True, **kw)
+        grads = mesh_fused.replay_backward(
+            wid, resv, torch.ones_like(img), n_spheres=planes.shape[1],
+            n_slots=n_slots, spp4=spp4, plain=True)
+        return img.sum(), grads
     return step, grid
 
 
@@ -298,7 +342,7 @@ def main(argv=None) -> int:
         gpu_name_and_power_limit,
         resolve_device,
     )
-    from ascendpathtracing_tpu_torch.host import camera, scenes
+    from ascendpathtracing_tpu_torch import camera, scenes
 
     try:
         device = resolve_device("cuda")
@@ -312,24 +356,22 @@ def main(argv=None) -> int:
     n = w * h * 4
     rays = camera.generate_rays_numpy(w, h, 1, seed=0).astype(np.float32)
     extra = {}
-    counters = None
     if args.mode == "mesh":
-        from ascendpathtracing_tpu_torch.ops import mesh_pt_kernels
+        from ascendpathtracing_tpu_torch.ops import histogram_kernels, mesh_pt_kernels
 
         scene_name = f"mesh-icosphere s{args.subdiv}"
-        fwd_only = True
+        fwd_only = args.fwd_only
         step, grid = make_mesh_step(
             args.renderer, mesh_scene(args.subdiv), device=device,
             bounces=args.bounces, width=w, height=h, spp4=args.spp,
-            tris_per_chunk=args.chunk_tris,
+            tris_per_chunk=args.chunk_tris, fwd_only=fwd_only,
         )
         n = w * h * args.spp
         extra = {"mode": "mesh", "width": w, "height": h, "spp4": args.spp,
                  "rr_depth": PT_RR_DEPTH, "tris": int((grid.face_of_slot >= 0).sum()),
                  "tris_per_chunk": args.chunk_tris, "chunks": grid.n_chunks,
                  "supers": grid.n_supers, "supers2": grid.n_supers2}
-        counters = (mesh_pt_kernels.LAUNCHES, "mesh_pt")
-        mesh_pt_kernels.reset_launches()
+        counted = [mesh_pt_kernels, histogram_kernels]
     elif args.mode == "pt":
         from ascendpathtracing_tpu_torch.ops import pt_kernels
 
@@ -344,18 +386,24 @@ def main(argv=None) -> int:
             n = w * h * args.spp
             extra = {"width": w, "height": h, "spp4": args.spp}
         extra.update(mode="pt", rr_depth=PT_RR_DEPTH)
-        counters = (pt_kernels.LAUNCHES, "pt")
-        pt_kernels.reset_launches()
+        counted = [pt_kernels]
     else:
+        from ascendpathtracing_tpu_torch.ops import render_kernels
+
+        counted = [render_kernels]
         scene_name = SCENE
         fwd_only = args.fwd_only
         step = make_step(args.renderer, fwd_only,
                          convert.rays_planes_from_numpy(rays, device=device),
                          scenes.get_scene(SCENE), bounces=args.bounces)
+    for mod in counted:
+        mod.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
     times, _ = time_steps(step, iters=args.iters, warmup=args.warmup)
-    if counters is not None:
-        launches, key = counters
-        extra["launches_per_step"] = launches[key] / (args.iters + args.warmup)
+    steps = args.iters + args.warmup
+    extra["launches_per_step"] = {key: count / steps for mod in counted
+                                  for key, count in mod.LAUNCHES.items() if count}
+    extra["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     med = statistics.median(times)
     profile = profile_steps(step, iters=args.iters) if args.profile else None
     tag = "fwd" if fwd_only else "fwd+bwd"

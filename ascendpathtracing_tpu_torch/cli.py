@@ -31,7 +31,8 @@ A mesh render's color.bin holds each pixel's mean repeated over its
 4 * samples slots, as the JAX CLI's fused mesh render writes it.
 
 Ported so far: ``render`` in reference and pt mode with the AOVs, mesh
-scenes through the fused kernel, and checks 1-5 of ``selftest``.  Mesh
+scenes through the fused kernel, and ``selftest`` (all but the check
+against the XLA-loop mesh renderer, which prints as skipped).  Mesh
 scenes with ``--renderer plain``, the wavefront renderer, ``--shard``,
 post-processing and the ``train`` and ``oracle`` commands exit 2 with
 "not yet ported".
@@ -116,7 +117,7 @@ def _unported_render_option(args) -> str | None:
 
 
 def cmd_render(args) -> int:
-    from ascendpathtracing_tpu_torch.host import config
+    from ascendpathtracing_tpu_torch import config
 
     try:
         config.RenderConfig(
@@ -159,7 +160,8 @@ def cmd_render(args) -> int:
     import torch
 
     from ascendpathtracing_tpu_torch import convert
-    from ascendpathtracing_tpu_torch.host import camera, io, oracle, scenes
+    from ascendpathtracing_tpu_torch import camera, oracle, scenes
+    from ascendpathtracing_tpu_torch.utils import io
     from ascendpathtracing_tpu_torch.models import megakernel
     from ascendpathtracing_tpu_torch.ops import render_kernels
 
@@ -253,7 +255,7 @@ def _mesh_scene(kind: str):
     for an unknown kind: a cube, an icosphere (1,280 triangles), or an
     OBJ file fitted into the Cornell box; albedo (0.85, 0.55, 0.2) in
     smallpt9."""
-    from ascendpathtracing_tpu_torch.host import meshes
+    from ascendpathtracing_tpu_torch.accel import meshes
     from ascendpathtracing_tpu_torch.models.mesh import MeshScene
 
     if kind == "cube":
@@ -261,9 +263,7 @@ def _mesh_scene(kind: str):
     elif kind == "icosphere":
         v, f = meshes.icosphere(center=(50, 40, 60), radius=14.0, subdivisions=3)
     elif kind.startswith("obj:"):
-        # The native loader is reached through the JAX package's accel
-        # package, which imports jax; the Python parser is tested equal.
-        v, f = meshes.load_obj(kind[len("obj:"):], native="never")
+        v, f = meshes.load_obj(kind[len("obj:"):])
         lo, hi = v.min(axis=0), v.max(axis=0)
         scale = 28.0 / max(float((hi - lo).max()), 1e-9)
         v = meshes.transform(v - (lo + hi) / 2.0, scale=scale, translate=(50.0, 35.0, 60.0))
@@ -278,7 +278,7 @@ def _write_aovs(aov, rays_t, dev, w, h, s, out) -> None:
     albedo.ppm; ``gbuffer`` writes all three."""
     import numpy as np
 
-    from ascendpathtracing_tpu_torch.host import io
+    from ascendpathtracing_tpu_torch.utils import io
     from ascendpathtracing_tpu_torch.models import megakernel
 
     gbuf = megakernel.render_gbuffer_impl(rays_t, dev)
@@ -312,7 +312,7 @@ def pt_energy_check(device) -> dict:
     import torch
 
     from ascendpathtracing_tpu_torch import convert
-    from ascendpathtracing_tpu_torch.host import camera, scenes
+    from ascendpathtracing_tpu_torch import camera, scenes
     from ascendpathtracing_tpu_torch.models import megakernel
     from ascendpathtracing_tpu_torch.ops import pt_kernels
 
@@ -346,7 +346,7 @@ def wbvh_check(device) -> dict:
     import torch
 
     from ascendpathtracing_tpu_torch.accel import tri
-    from ascendpathtracing_tpu_torch.host import meshes
+    from ascendpathtracing_tpu_torch.accel import meshes
     from ascendpathtracing_tpu_torch.ops import chunk_grid, wbvh_kernels
 
     v32, fcs = meshes.icosphere(subdivisions=2)
@@ -374,14 +374,44 @@ def wbvh_check(device) -> dict:
             "max_t_err": terr, "device": device.type}
 
 
+def mesh_vjp_check(device) -> dict:
+    """Selftest check ``mesh_fused_vjp_grads`` (the JAX CLI's
+    cli.py:594-619): the fused mesh render's replay backward
+    (``diff/mesh_fused``: the CUDA kernels on a card, the plain twins on
+    the CPU) on an icosphere s2 in smallpt9 at 32x32, spp4 8, 4 bounces,
+    RR from 3.  The gradients of image.sum() must be finite, the
+    geometry rows 0-3 of the scene planes exactly zero, and rows 4-9, the
+    slot albedo and the slot emission gradients nonzero."""
+    import torch
+
+    from ascendpathtracing_tpu_torch import bench
+    from ascendpathtracing_tpu_torch.diff import mesh_fused
+    from ascendpathtracing_tpu_torch.ops import mesh_pt_kernels as mpt
+
+    planes, cb, sb, t24, mats, grid = mpt.mesh_pt_tables(bench.mesh_scene(2), device=device)
+    render = mesh_fused.make_render_pt_mesh_diff(
+        cb, sb, t24[:, :16], t24[:, 22:24], width=32, height=32, spp4=8,
+        materials=mats, bounces=4, rr_depth=3, **mpt.pt_tables_kwargs(grid, device))
+    leaves = (planes.clone().requires_grad_(True), t24[:, 16:19].clone().requires_grad_(True),
+              t24[:, 19:22].clone().requires_grad_(True))
+    gp, ga, ge = torch.autograd.grad(render(*leaves).sum(), leaves)
+    finite = all(bool(torch.isfinite(x).all()) for x in (gp, ga, ge))
+    geom_zero = float(gp[0:4].abs().max()) == 0.0
+    ok = (finite and geom_zero and float(gp[4:10].abs().max()) > 0
+          and float(ga.abs().max()) > 0 and float(ge.abs().max()) > 0)
+    return {"ok": ok, "plane_grad_max": float(gp.abs().max()),
+            "slot_albedo_grad_max": float(ga.abs().max()), "geom_rows_zero": geom_zero}
+
+
 def cmd_selftest(args) -> int:
-    """Checks 1-5 of the JAX package's ``selftest`` on the chosen backend:
-    plain path vs the NumPy oracle, kernel forward vs plain path, the
-    kernel custom-VJP gradients vs plain autograd, the fused path
-    tracer's energy vs the plain estimator's, and the chunk-grid
-    traversal vs brute force.  Check 6 (the fused mesh path tracer vs the
-    XLA-loop mesh renderer) prints as skipped: that renderer is not yet
-    ported.  One JSON line per check; exit 0 iff all that ran pass."""
+    """The JAX package's ``selftest`` on the chosen backend: plain path vs
+    the NumPy oracle, kernel forward vs plain path, the kernel custom-VJP
+    gradients vs plain autograd, the fused path tracer's energy vs the
+    plain estimator's, the chunk-grid traversal vs brute force, and the
+    fused mesh render's replay gradients.  ``mesh_pt_fused_energy_vs_xla``
+    (the fused mesh path tracer vs the XLA-loop mesh renderer) prints as
+    skipped: that renderer is not yet ported.  One JSON line per check;
+    exit 0 iff all that ran pass."""
     device = _device(args.backend)
     if device is None:
         return 2
@@ -390,7 +420,7 @@ def cmd_selftest(args) -> int:
     import torch
 
     from ascendpathtracing_tpu_torch import convert
-    from ascendpathtracing_tpu_torch.host import camera, oracle, scenes
+    from ascendpathtracing_tpu_torch import camera, oracle, scenes
     from ascendpathtracing_tpu_torch.models import megakernel
     from ascendpathtracing_tpu_torch.ops import render_kernels as rk
 
@@ -450,6 +480,10 @@ def cmd_selftest(args) -> int:
     # 6. needs the XLA-loop mesh renderer.
     print(json.dumps({"check": "mesh_pt_fused_energy_vs_xla",
                       "skipped": "models/mesh.render_pt_mesh_impl not yet ported"}))
+
+    # 6b. the fused mesh render's replay backward.
+    res = mesh_vjp_check(device)
+    report("mesh_fused_vjp_grads", res.pop("ok"), **res)
 
     n_ok = sum(checks)
     print(json.dumps({"selftest": "PASS" if n_ok == len(checks) else "FAIL",

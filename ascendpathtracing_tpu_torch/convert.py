@@ -1,11 +1,13 @@
-"""The JAX package's scene parameters and rays, as the port's tensors.
+"""The JAX package's scene parameters, rays and residuals, as the port's
+tensors.
 
-Scenes and camera rays are made once, by the JAX package's NumPy host
-modules (``scenes.SphereScene.soa10``, ``camera.generate_rays_numpy``,
-``models.megakernel.scene_to_device`` read back as NumPy; the mesh
-tables of ``pallas_mesh_pt.mesh_pt_tables``).  These functions carry
-those arrays, and a test's uniform draws, over to a device and dtype,
-so that a test feeds both sides the same inputs.
+Scenes and camera rays are NumPy arrays (``scenes.SphereScene.soa10``,
+``camera.generate_rays_numpy``, ``models.megakernel.scene_to_device``
+read back as NumPy; the mesh tables of ``pallas_mesh_pt.mesh_pt_tables``).
+These functions carry those arrays, a test's uniform draws and the fused
+mesh kernel's replay residuals over to a device, dtype and layout, so
+that a test feeds both sides the same inputs.  Nothing here imports the
+JAX package: the callers hand in arrays.
 """
 
 from __future__ import annotations
@@ -93,3 +95,25 @@ def mesh_tables_from_numpy(
         *boxes,
         torch.tensor(rows, dtype=torch.float32, device=device),
     )
+
+
+def residuals_from_jax(wid, resv, *, spp4, tile, device="cpu", dtype=torch.float32):
+    """The Pallas mesh kernel's replay residuals (``render_pt_mesh_pallas(
+    with_residuals=True)``: wid [B, nb*spp4, 8, tile//8] float32 codes,
+    resv [B, 7, nb*spp4, 8, tile//8]; cell = b*spp4 + a, pixel = b*tile +
+    sub*(tile//8) + lane) -> the port's layout: wid int32 [B, spp4, W*H]
+    and resv [B, 7, spp4, W*H] in ``dtype``."""
+    w = np.asarray(wid)
+    r = np.asarray(resv)
+    if w.ndim != 4 or r.ndim != 5 or w.shape[2] * w.shape[3] != tile:
+        raise ValueError(f"expected wid [B, cells, 8, {tile // 8}] and resv "
+                         f"[B, 7, cells, 8, {tile // 8}], got {w.shape}, {r.shape}")
+    b, cells = w.shape[:2]
+    if cells % spp4 or r.shape != (b, 7, cells) + w.shape[2:]:
+        raise ValueError(f"wid {w.shape} and resv {r.shape} do not match spp4={spp4}")
+    nb = cells // spp4
+    w = w.reshape(b, nb, spp4, tile).transpose(0, 2, 1, 3).reshape(b, spp4, nb * tile)
+    r = r.reshape(b, 7, nb, spp4, tile).transpose(0, 1, 3, 2, 4).reshape(
+        b, 7, spp4, nb * tile)
+    return (torch.tensor(np.rint(w).astype(np.int32), device=device),
+            torch.tensor(np.ascontiguousarray(r), dtype=dtype, device=device))

@@ -3,8 +3,9 @@
 // of a triangle mesh, diffuse/mirror/glass shading, Russian roulette and
 // the per-pixel mean over the sample layers, in one launch, for float
 // and double.  It replaces _mesh_pt_kernel of
-// ascendpathtracing_tpu/ops/pallas_mesh_pt.py (forward; the residual,
-// camera, stats and debug outputs are not ported).
+// ascendpathtracing_tpu/ops/pallas_mesh_pt.py, with its replay residuals
+// (with_residuals: wid and resv, pt_trace.cuh's Residuals); the camera,
+// stats and debug outputs are not ported.
 //
 // Build (ops/build.py runs this at first use, into build/):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false \
@@ -38,6 +39,13 @@
 // sample-bounce ~14*S flops for the spheres, ~20 per box tested and ~30
 // per triangle tested; paths in a warp walk different chunk lists and
 // end at different bounces, so a warp runs as long as its longest path.
+// The residual stores add 32 bytes per sample-bounce (17.2 GB at
+// 1024^2 x 64 spp x 8 bounces): coalesced, one write per value.
+//
+// The residual store is a template parameter (the Sink), not a runtime
+// branch: render_pt_mesh_kernel<T, NoResiduals> is the forward-only
+// kernel, unchanged, and <T, Residuals<T>> the training forward.  The
+// build log shows the registers of both.
 
 #include <cuda_runtime.h>
 
@@ -99,14 +107,14 @@ struct MeshScene {
 // __launch_bounds__(BLOCK, 1): with the block size alone, ptxas (CUDA
 // 12.9) caps this kernel at 48 (f32) / 80 (f64) registers and spills;
 // one resident block per SM lifts the cap (75 / 106 registers, no spills).
-template <typename T>
+template <typename T, typename Sink>
 __global__ void __launch_bounds__(BLOCK, 1)
     render_pt_mesh_kernel(const T* __restrict__ scene,
                           const int32_t* __restrict__ materials,
                           const float* __restrict__ tris,
                           T* __restrict__ out, const PtParams<T> p,
                           const ChunkGrid grid, int s_count, int tpc,
-                          bool shared_boxes) {
+                          bool shared_boxes, const Sink sink) {
   __shared__ T sc[PLANES][MAX_S];
   __shared__ int mat[MAX_S];
   extern __shared__ float smem[];
@@ -123,19 +131,21 @@ __global__ void __launch_bounds__(BLOCK, 1)
   world.sph.count = s_count;
   world.tris = tris;
   world.tpc = tpc;
-  render_pixel(world, p, pix, out);
+  render_pixel(world, p, pix, out, sink);
 }
 
 template <typename T>
 int launch_mesh_pt(const void* scene, const void* materials,
                    const void* cboxes, const void* sboxes,
                    const void* ssboxes, const void* tris,
-                   const void* uniforms, void* out, int width, int height,
+                   const void* uniforms, void* out, void* wid, void* resv,
+                   int width, int height,
                    int spp4, int s_count, int n_chunks, int n_supers,
                    int n_supers2, int tris_per_chunk, int supers_per,
                    int supers2_per, int bounces, int rr_depth, double eps,
                    unsigned seed, const double* cam, void* stream) {
-  if (s_count < 1 || s_count > MAX_S || tris == nullptr) {
+  if (s_count < 1 || s_count > MAX_S || tris == nullptr ||
+      (wid == nullptr) != (resv == nullptr)) {
     return cudaErrorInvalidValue;
   }
   ChunkGrid g;
@@ -156,11 +166,25 @@ int launch_mesh_pt(const void* scene, const void* materials,
   const bool shared_boxes = boxes_fit_shared(g);
   const size_t smem = shared_boxes ? static_cast<size_t>(box_bytes(g)) : 0;
   const auto grid = static_cast<unsigned>((p.n_pix + BLOCK - 1) / BLOCK);
-  render_pt_mesh_kernel<T>
-      <<<grid, BLOCK, smem, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const T*>(scene), static_cast<const int32_t*>(materials),
-          static_cast<const float*>(tris), static_cast<T*>(out), p, g,
-          s_count, tris_per_chunk, shared_boxes);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto sc = static_cast<const T*>(scene);
+  const auto mt = static_cast<const int32_t*>(materials);
+  const auto tr = static_cast<const float*>(tris);
+  const auto o = static_cast<T*>(out);
+  if (wid == nullptr) {
+    render_pt_mesh_kernel<T, NoResiduals><<<grid, BLOCK, smem, st>>>(
+        sc, mt, tr, o, p, g, s_count, tris_per_chunk, shared_boxes,
+        NoResiduals());
+  } else {
+    Residuals<T> res;
+    res.wid = static_cast<int32_t*>(wid);
+    res.resv = static_cast<T*>(resv);
+    res.plane = static_cast<long long>(spp4) * p.n_pix;
+    res.at = 0;
+    res.s_count = s_count;
+    render_pt_mesh_kernel<T, Residuals<T>><<<grid, BLOCK, smem, st>>>(
+        sc, mt, tr, o, p, g, s_count, tris_per_chunk, shared_boxes, res);
+  }
   return cudaGetLastError();
 }
 
@@ -169,6 +193,7 @@ int launch_mesh_pt(const void* scene, const void* materials,
 // Plain C interface, loaded with ctypes.  Returns cudaGetLastError()
 // after the launch (0 = success); the wrapper raises on anything else.
 // cam points at 11 host doubles; pointers and the stream arrive as void*.
+// wid and resv are both null (forward only) or both set (residuals).
 extern "C" {
 
 int apt_mesh_pt_max_spheres() { return MAX_S; }
@@ -180,13 +205,15 @@ const char* apt_mesh_pt_error_string(int err) {
   int apt_render_pt_mesh_##SUFFIX(                                             \
       const void* scene, const void* materials, const void* cboxes,           \
       const void* sboxes, const void* ssboxes, const void* tris,              \
-      const void* uniforms, void* out, int width, int height, int spp4,       \
+      const void* uniforms, void* out, void* wid, void* resv, int width,     \
+      int height, int spp4,                                                   \
       int s_count, int n_chunks, int n_supers, int n_supers2,                 \
       int tris_per_chunk, int supers_per, int supers2_per, int bounces,       \
       int rr_depth, double eps, unsigned seed, const double* cam,             \
       void* stream) {                                                         \
     return launch_mesh_pt<T>(scene, materials, cboxes, sboxes, ssboxes, tris, \
-                             uniforms, out, width, height, spp4, s_count,     \
+                             uniforms, out, wid, resv, width, height, spp4,   \
+                             s_count,                                         \
                              n_chunks, n_supers, n_supers2, tris_per_chunk,   \
                              supers_per, supers2_per, bounces, rr_depth, eps, \
                              seed, cam, stream);                              \

@@ -110,14 +110,66 @@ struct Spheres {
   }
 };
 
+// Where the bounce loop puts its replay residuals.  NoResiduals (the
+// default) stores nothing and compiles to the forward-only kernel;
+// Residuals writes each bounce's winner code and the values the replay
+// backward needs (pallas_mesh_pt.py:514-532).
+struct NoResiduals {
+  __device__ __forceinline__ void begin(long long, int, long long) {}
+  template <typename T>
+  __device__ __forceinline__ void store(int, const Winner&, const Surface<T>&,
+                                        T) const {}
+  __device__ __forceinline__ void fill_dead(int, int) const {}
+};
+
+// wid [bounces, spp4, n_pix] int32: the winner code of each bounce (sphere
+// index, S + triangle slot, -1 where the path took no bounce); resv
+// [bounces, 7, spp4, n_pix]: the winner's albedo and emission and the
+// detached scalar s = glass rscale x RR weight, zeros on dead bounces.
+// Offsets are 64-bit: resv has more than 2^31 elements at full size.
+// Neighbouring threads are neighbouring pixels, so the stores coalesce.
+template <typename T>
+struct Residuals {
+  int32_t* wid;
+  T* resv;
+  long long plane;  // spp4 * n_pix: the stride of one bounce, one resv row
+  long long at;     // layer * n_pix + pixel
+  int s_count;      // S: triangle slot c has the code S + c
+
+  __device__ __forceinline__ void begin(long long pix, int layer,
+                                        long long n_pix) {
+    at = static_cast<long long>(layer) * n_pix + pix;
+  }
+  __device__ __forceinline__ void store(int k, const Winner& w,
+                                        const Surface<T>& sf, T s) const {
+    wid[k * plane + at] = w.slot >= 0 ? s_count + w.slot : w.sphere;
+    T* r = resv + 7LL * k * plane + at;
+    r[0] = sf.ar;
+    r[plane] = sf.ag;
+    r[2 * plane] = sf.ab;
+    r[3 * plane] = sf.er;
+    r[4 * plane] = sf.eg;
+    r[5 * plane] = sf.eb;
+    r[6 * plane] = s;
+  }
+  __device__ __forceinline__ void fill_dead(int k0, int k1) const {
+    for (int k = k0; k < k1; ++k) {
+      wid[k * plane + at] = -1;
+      T* r = resv + 7LL * k * plane + at;
+      for (int j = 0; j < 7; ++j) r[j * plane] = T(0);
+    }
+  }
+};
+
 // One sample of pixel (pi, pj) in sample layer `layer` -> its radiance.
 // The surfaces' material flags are exclusive (a sphere has one code; a
 // triangle row's one-hots come from one code).
-template <typename T, typename Scene>
+template <typename T, typename Scene, typename Sink>
 __device__ __forceinline__ void trace_sample(const Scene& scene,
                                              const PtParams<T>& p, int layer,
                                              T pi, T pj, SampleUniforms<T>& u,
-                                             T& lr, T& lg, T& lb) {
+                                             T& lr, T& lg, T& lb,
+                                             const Sink& sink) {
   // ---- camera ray: tent-filter jitter on the (sy, sx) sub-pixel -------
   const int s = p.spp4 / 4;
   const int sy = layer / (2 * s);
@@ -142,7 +194,8 @@ __device__ __forceinline__ void trace_sample(const Scene& scene,
   lr = T(0);
   lg = T(0);
   lb = T(0);
-  for (int k = 0; k < p.bounces; ++k) {
+  int k = 0;
+  for (; k < p.bounces; ++k) {
     T tmin;
     Winner w;
     if (!scene.hit(ox, oy, oz, dx, dy, dz, p.eps, tmin, w)) break;  // a miss ends the path
@@ -229,14 +282,23 @@ __device__ __forceinline__ void trace_sample(const Scene& scene,
     tg = tg * sf.ag * scl;
     tb = tb * sf.ab * scl;
 
+    T s_res = scl;  // the residual's detached scalar
     if (k >= p.rr_depth) {  // Russian roulette (pallas :469-476)
       const T pmax = minv(maxv(maxv(maxv(tr, tg), tb), T(0.1)), T(0.95));
-      if (!(u(q + 2) < pmax)) break;
+      if (!(u(q + 2) < pmax)) {
+        // The bounce on which RR ends the path is live: its winner is
+        // stored with s = scl and no 1/pmax.
+        sink.store(k, w, sf, scl);
+        ++k;
+        break;
+      }
       const T pinv = T(1) / pmax;
       tr = tr * pinv;
       tg = tg * pinv;
       tb = tb * pinv;
+      s_res = scl * pinv;
     }
+    sink.store(k, w, sf, s_res);
 
     // Scale-aware offset, 0 for glass (pallas :482-491); the float32
     // REL_OFFSET in both instantiations; r2 = 0 keeps the eps floor.
@@ -248,16 +310,18 @@ __device__ __forceinline__ void trace_sample(const Scene& scene,
     dy = ndy;
     dz = ndz;
   }
+  sink.fill_dead(k, p.bounces);  // after a miss or RR's end
 }
 
 // One thread's pixel: the spp4 sample layers in order, each adding
 // L / spp4 to registers written once to out [3, W*H] (pixel p is column
 // p / H, row p % H, as the Pallas kernels'): no atomics, and an image
-// that repeats bit for bit.
-template <typename T, typename Scene>
+// that repeats bit for bit.  `sink` takes the replay residuals.
+template <typename T, typename Scene, typename Sink = NoResiduals>
 __device__ __forceinline__ void render_pixel(const Scene& scene,
                                              const PtParams<T>& p,
-                                             long long pix, T* out) {
+                                             long long pix, T* out,
+                                             Sink sink = Sink()) {
   SampleUniforms<T> u;
   u.stride = p.n_pix;
   u.pixel = static_cast<uint32_t>(pix);
@@ -271,8 +335,9 @@ __device__ __forceinline__ void render_pixel(const Scene& scene,
                 : p.uniforms + static_cast<long long>(a) * p.nu * p.n_pix + pix;
     u.layer = static_cast<uint32_t>(a);
     u.block = 0xffffffffu;
+    sink.begin(pix, a, p.n_pix);
     T lr, lg, lb;
-    trace_sample(scene, p, a, pi, pj, u, lr, lg, lb);
+    trace_sample(scene, p, a, pi, pj, u, lr, lg, lb, sink);
     ar = ar + lr * p.inv_spp;
     ag = ag + lg * p.inv_spp;
     ab = ab + lb * p.inv_spp;

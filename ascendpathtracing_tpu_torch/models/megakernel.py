@@ -29,7 +29,7 @@ import math
 import torch
 
 from ascendpathtracing_tpu_torch import convert
-from ascendpathtracing_tpu_torch.host import scenes
+from ascendpathtracing_tpu_torch import scenes
 from ascendpathtracing_tpu_torch.ops import rng, shade
 from ascendpathtracing_tpu_torch.ops.intersect import (
     intersect_spheres_soa,

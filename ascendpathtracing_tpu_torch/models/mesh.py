@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from ascendpathtracing_tpu_torch.accel import tri as tri_mod
-from ascendpathtracing_tpu_torch.host import scenes
+from ascendpathtracing_tpu_torch import scenes
 from ascendpathtracing_tpu_torch.models import megakernel
 from ascendpathtracing_tpu_torch.ops import chunk_grid as cg
 from ascendpathtracing_tpu_torch.ops import wbvh_kernels

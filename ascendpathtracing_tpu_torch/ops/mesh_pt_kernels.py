@@ -1,8 +1,8 @@
 """The fused sphere+mesh path tracer: CUDA wrapper, plain twin and tables.
 
 Counterpart of ``ascendpathtracing_tpu/ops/pallas_mesh_pt.py``
-(``render_pt_mesh_pallas`` and its kernel ``_mesh_pt_kernel``; forward
-only: the residual, camera, stats and debug outputs are not ported).
+(``render_pt_mesh_pallas`` and its kernel ``_mesh_pt_kernel``, with its
+replay residuals; the camera, stats and debug outputs are not ported).
 :func:`render_pt_mesh` checks its inputs, then:
 
 - for tensors on the CPU, runs :func:`render_pt_mesh_plain`;
@@ -20,6 +20,18 @@ strictly smaller t.  A triangle winner shades with its row's unit
 normal, albedo, emission and material one-hots and an origin offset of
 eps.  A mesh that no ray reaches gives ``render_pt``'s image bit for
 bit.
+
+``with_residuals=True`` also returns the replay residuals of
+``diff/mesh_fused`` (``pallas_mesh_pt.py:514-532``) in the port's own
+layout, pixel-minor: ``wid`` int32 [bounces, spp4, W*H], the winner code
+of each bounce (sphere index, S + triangle slot, -1 where the path took
+no bounce: after a miss or after Russian roulette ended it), and ``resv``
+[bounces, 7, spp4, W*H] in the compute dtype: the winner's albedo and
+emission and s = glass rscale x RR weight (1/pmax where the path
+survived RR; the bounce on which RR ends the path is live with s =
+rscale), zeros on dead bounces.  ``convert.residuals_from_jax`` maps the
+Pallas kernel's tiled layout onto this one.  The image is the same bit
+for bit with or without residuals.
 """
 
 from __future__ import annotations
@@ -29,7 +41,7 @@ import ctypes
 import numpy as np
 import torch
 
-from ascendpathtracing_tpu_torch.host import scenes
+from ascendpathtracing_tpu_torch import scenes
 from ascendpathtracing_tpu_torch.ops import build, pt_kernels
 from ascendpathtracing_tpu_torch.ops import chunk_grid as cg
 from ascendpathtracing_tpu_torch.ops.render_kernels import MAX_S, on_cpu
@@ -47,7 +59,7 @@ LAUNCHES = {"mesh_pt": 0}
 _DTYPES = {torch.float32: "f32", torch.float64: "f64"}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURE = (_P,) * 8 + (_I,) * 12 + (
+_SIGNATURE = (_P,) * 10 + (_I,) * 12 + (
     ctypes.c_double, ctypes.c_uint32, ctypes.POINTER(ctypes.c_double), _P,
 )
 
@@ -154,17 +166,28 @@ def _check(scene_planes, materials, cboxes, sboxes, ssboxes, tris24, *, width,
 
 
 # ------------------------------------------------------- plain twin ----
+def residual_buffers(bounces, spp4, n_pix, dtype, device):
+    """(wid, resv) of the residual layout, unfilled."""
+    return (torch.empty((bounces, spp4, n_pix), dtype=torch.int32, device=device),
+            torch.empty((bounces, 7, spp4, n_pix), dtype=dtype, device=device))
+
+
 def render_pt_mesh_plain(scene_planes, cboxes, sboxes, tris24, ssboxes=None, *,
                          materials, width, height, spp4, tris_per_chunk,
                          supers_per=0, supers2_per=0, bounces=8, rr_depth=5,
-                         eps=1e-4, seed=0, cam=None, uniforms=None):
+                         eps=1e-4, seed=0, cam=None, uniforms=None,
+                         with_residuals=False, walk_counts=None):
     """Plain twin of :func:`render_pt_mesh`: the kernel's arithmetic and
     random stream as torch ops, one sample layer at a time; the mesh is
-    walked for the live paths only."""
+    walked for the live paths only.  ``walk_counts``, an int64 [4] tensor
+    when given, is added to in place: the rays walked and, summed over
+    them, ``walk_plain``'s counts (chunks tested, supers hit, super-supers
+    hit), the walk's work for a bound."""
     *_, ssboxes = check_grid(cboxes, sboxes, ssboxes, tris24,
                              tris_per_chunk=tris_per_chunk, supers_per=supers_per,
                              supers2_per=supers2_per, widths=(TRI_PT_F,))
     dtype = scene_planes.dtype
+    s_count = scene_planes.shape[1]
     planes_pad, mat_pad = pt_kernels.pad_scene(scene_planes, materials)
     grid = plain_grid(cboxes, sboxes, ssboxes, tris24, dtype,
                       tris_per_chunk=tris_per_chunk, supers_per=supers_per,
@@ -177,28 +200,41 @@ def render_pt_mesh_plain(scene_planes, cboxes, sboxes, tris24, ssboxes=None, *,
         if ids.numel():
             tsub = tmin[ids]
             gate = tsub.clone()  # the tmin after the spheres, before the triangles
+            counts = (None if walk_counts is None else
+                      torch.zeros((3, ids.numel()), dtype=torch.int32, device=tmin.device))
             slot[ids] = walk_plain(grid, tuple(c[ids] for c in o3),
-                                   tuple(c[ids] for c in d3), tsub, eps=eps, gate=gate)
+                                   tuple(c[ids] for c in d3), tsub, eps=eps, gate=gate,
+                                   counts=counts)
             tmin = tmin.index_put((ids,), tsub)
+            if counts is not None:
+                walk_counts[0] += ids.numel()
+                walk_counts[1:] += counts.sum(dim=1)
+        code = torch.where(slot >= 0, s_count + slot, win)
         return tmin, pt_kernels.surface(planes_pad, mat_pad, win, tmin, o3, d3,
-                                        grid.rows, slot)
+                                        grid.rows, slot), code
 
-    return pt_kernels.render_layers(
+    res = (residual_buffers(bounces, spp4, width * height, dtype, scene_planes.device)
+           if with_residuals else None)
+    img = pt_kernels.render_layers(
         hit_fn, dtype=dtype, device=scene_planes.device, width=width,
         height=height, spp4=spp4, bounces=bounces, rr_depth=rr_depth, eps=eps,
         seed=seed, uniforms=uniforms, cam=camera_vector(cam, width, height),
+        res=res,
     )
+    return (img, *res) if with_residuals else img
 
 
 # ---------------------------------------------------------- wrapper ----
 def render_pt_mesh(scene_planes, cboxes, sboxes, tris24, ssboxes=None, *,
                    materials, width, height, spp4, tris_per_chunk,
                    supers_per=0, supers2_per=0, bounces=8, rr_depth=5,
-                   eps=1e-4, seed=0, cam=None, uniforms=None):
+                   eps=1e-4, seed=0, cam=None, uniforms=None,
+                   with_residuals=False):
     """Fully fused sphere+mesh path trace: scene [10, S] (float32 or
     float64; the compute dtype), materials [S] int32, a chunk grid of
     float32 boxes and [C*T, 24] rows (``mesh_pt_tables``) -> per-pixel
-    means [3, W*H] in the scene's dtype.  ``cam`` is the 11-float camera
+    means [3, W*H] in the scene's dtype; with ``with_residuals``, (image,
+    wid, resv) as the module's head describes.  ``cam`` is the 11-float camera
     vector (None: the default smallpt camera); ``uniforms`` [spp4, 2 + 3 *
     bounces, W*H] replaces the Philox stream.  Pixel p is column p //
     height, row p % height; sample layer a is (sy, sx, k) = (a // (2s),
@@ -215,9 +251,12 @@ def render_pt_mesh(scene_planes, cboxes, sboxes, tris24, ssboxes=None, *,
               supers2_per=supers2_per, bounces=bounces, rr_depth=rr_depth,
               eps=eps, seed=seed, cam=cam_vals, uniforms=uniforms)
     if cpu:
-        return render_pt_mesh_plain(scene_planes, cboxes, sboxes, tris24, ssboxes, **kw)
+        return render_pt_mesh_plain(scene_planes, cboxes, sboxes, tris24, ssboxes,
+                                    with_residuals=with_residuals, **kw)
     out = torch.empty((3, width * height), dtype=scene_planes.dtype,
                       device=scene_planes.device)
+    res = (residual_buffers(bounces, spp4, width * height, out.dtype, out.device)
+           if with_residuals else (None, None))
     lib = load_library()
 
     def ptr(t):
@@ -229,6 +268,7 @@ def render_pt_mesh(scene_planes, cboxes, sboxes, tris24, ssboxes=None, *,
             scene_planes.data_ptr(), materials.data_ptr(), cboxes.data_ptr(),
             ptr(sboxes), ptr(ssboxes), tris24.data_ptr(),
             None if uniforms is None else uniforms.data_ptr(), out.data_ptr(),
+            *(None if t is None else t.data_ptr() for t in res),
             width, height, spp4, s_count, c, cs, css, tris_per_chunk,
             supers_per, supers2_per, bounces, rr_depth, eps, seed & 0xFFFFFFFF,
             (ctypes.c_double * 11)(*cam_vals), stream,
@@ -239,4 +279,4 @@ def render_pt_mesh(scene_planes, cboxes, sboxes, tris24, ssboxes=None, *,
             f"({lib.apt_mesh_pt_error_string(err).decode()})"
         )
     LAUNCHES["mesh_pt"] += 1
-    return out
+    return (out, *res) if with_residuals else out

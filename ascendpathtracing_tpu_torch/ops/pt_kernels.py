@@ -29,7 +29,7 @@ import ctypes
 
 import torch
 
-from ascendpathtracing_tpu_torch.host import camera
+from ascendpathtracing_tpu_torch import camera
 from ascendpathtracing_tpu_torch.ops import build, rng
 from ascendpathtracing_tpu_torch.ops.intersect import (
     MISS_T,
@@ -189,11 +189,14 @@ def pad_scene(scene_planes, materials):
 
 
 def _trace_layer(hit_fn, u, layer, i_idx, j_idx, *, width, height, spp4,
-                 bounces, rr_depth, eps, cam):
+                 bounces, rr_depth, eps, cam, res=None):
     """One sample layer of every pixel -> radiance (lr, lg, lb), the
     kernels' ``trace_sample`` as [P]-wide tensor ops.  ``hit_fn(o3, d3,
-    alive)`` -> (tmin, ``surface(...)``) finds each ray's winner.  A path
-    that has ended keeps computing, masked (the Pallas kernel's lanes)."""
+    alive)`` -> (tmin, ``surface(...)``, winner code) finds each ray's
+    winner.  A path that has ended keeps computing, masked (the Pallas
+    kernel's lanes).  ``res`` = (wid [bounces, P], resv [bounces, 7, P])
+    views take the replay residuals: the winner code, albedo, emission and
+    s = scl x RR weight on live bounces, -1 and zeros on dead ones."""
     px, py, pz, dx0, dy0, dz0, cxx, cyx, cyy, cyz, push = cam
     s = spp4 // 4
     sy, sx = layer // (2 * s), (layer // s) % 2
@@ -217,7 +220,7 @@ def _trace_layer(hit_fn, u, layer, i_idx, j_idx, *, width, height, spp4,
     alive = torch.ones(dx.shape, dtype=torch.bool, device=dx.device)
     for k in range(bounces):
         tmin, ((hx, hy, hz), (nx, ny, nz), (er, eg, eb), (ar, ag, ab), r2w,
-               is_diff, is_refr) = hit_fn((ox, oy, oz), (dx, dy, dz), alive)
+               is_diff, is_refr), code = hit_fn((ox, oy, oz), (dx, dy, dz), alive)
         miss = tmin >= MISS_T
         live = alive & ~miss
 
@@ -278,6 +281,7 @@ def _trace_layer(hit_fn, u, layer, i_idx, j_idx, *, width, height, spp4,
         tb = torch.where(live, tb * ab * scl, tb)
 
         alive = live
+        s_res = scl
         if k >= rr_depth:  # Russian roulette
             pmax = torch.clamp(torch.maximum(torch.maximum(tr, tg), tb), 0.1, 0.95)
             survive = uq[2] < pmax
@@ -286,6 +290,11 @@ def _trace_layer(hit_fn, u, layer, i_idx, j_idx, *, width, height, spp4,
             tg = torch.where(survive, tg * pinv, tg)
             tb = torch.where(survive, tb * pinv, tb)
             alive = live & survive
+            s_res = scl * torch.where(survive, pinv, 1.0)
+        if res is not None:
+            res[0][k] = torch.where(live, code, -1)
+            for j, v in enumerate((ar, ag, ab, er, eg, eb, s_res)):
+                res[1][k, j] = torch.where(live, v, 0.0)
 
         off = torch.where(is_refr, 0.0, torch.clamp_min(REL_OFFSET * sqrt_rn(r2w), eps))
         ox = torch.where(live, hx + nlx * off, ox)
@@ -298,9 +307,11 @@ def _trace_layer(hit_fn, u, layer, i_idx, j_idx, *, width, height, spp4,
 
 
 def render_layers(hit_fn, *, dtype, device, width, height, spp4, bounces,
-                  rr_depth, eps, seed, uniforms, cam):
+                  rr_depth, eps, seed, uniforms, cam, res=None):
     """The per-pixel mean over ``spp4`` sample layers, accumulated layer
-    by layer (memory stays at one layer's [W*H] planes) -> [3, W*H]."""
+    by layer (memory stays at one layer's [W*H] planes) -> [3, W*H].
+    ``res`` = (wid [bounces, spp4, W*H], resv [bounces, 7, spp4, W*H])
+    takes the replay residuals of every layer."""
     n_pix = width * height
     pix = torch.arange(n_pix, device=device)
     i_idx, j_idx = (pix // height).to(dtype), (pix % height).to(dtype)
@@ -312,7 +323,8 @@ def render_layers(hit_fn, *, dtype, device, width, height, spp4, bounces,
         u = uniforms[a] if uniforms is not None else rng.uniforms(
             seed, pix, a, n_uniforms(bounces), stream=rng.STREAM_FUSED, dtype=dtype
         )
-        lr, lg, lb = _trace_layer(hit_fn, u, a, i_idx, j_idx, **kw)
+        res_a = None if res is None else (res[0][:, a], res[1][:, :, a])
+        lr, lg, lb = _trace_layer(hit_fn, u, a, i_idx, j_idx, res=res_a, **kw)
         acc = acc + torch.stack((lr, lg, lb)) * inv_spp
     return acc
 
@@ -325,7 +337,7 @@ def render_pt_plain(scene_planes, materials, *, width, height, spp4, bounces=8,
 
     def hit_fn(o3, d3, alive):
         tmin, win = sphere_hits(planes_pad, *o3, *d3, eps)
-        return tmin, surface(planes_pad, mat_pad, win, tmin, o3, d3)
+        return tmin, surface(planes_pad, mat_pad, win, tmin, o3, d3), win
 
     return render_layers(
         hit_fn, dtype=scene_planes.dtype, device=scene_planes.device,

@@ -1,0 +1,2 @@
+"""Host-side utilities of the port: the binary SoA formats and the PPM codec
+(``io``, a copy of the JAX package's ``utils.io``)."""

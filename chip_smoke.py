@@ -13,14 +13,21 @@ from 5) through the bench's step, then the mesh path: the chunk-grid
 traversal (4,194,304 camera rays against a 5,120-triangle icosphere, and a
 3-level grid) through the first-hit query and selftest check 5, and the
 fused sphere+mesh path tracer (1024 x 1024 x 64 samples of that
-icosphere in smallpt9) through the bench's mesh step and the CLI.  It
-proves through the launch counters, reset before each run, that each path
-went through its kernels, and times kernels and plain versions with CUDA
-events.  One line per phase; the first failed check raises and the script
-exits non-zero.  Before the last line it prints the card's name and power
-limit (nvidia-smi) and one JSON object with a row per kernel (its
-``launches`` are counted in the run its ``run`` field names); the last
-line is
+icosphere in smallpt9) through the bench's mesh step and the CLI, then
+the mesh path's training step: the fused kernel's replay residuals, the
+segment-sum kernel (csrc/segsum.cu) on the test shapes, a 1,310,720-slot
+stream and the real replay stream, the full-size step through
+``diff/mesh_fused.make_render_pt_mesh_diff`` and the bench, and a float64
+finite-difference gate.  It proves through the launch counters, reset
+before each run, that each path went through its kernels, and times
+kernels, plain versions and, where one PyTorch call computes the same
+function, that call (``library_ms``) with CUDA events.  One line per
+phase; the first failed check raises and the script exits non-zero.
+Before the last line it prints the card's name and power limit
+(nvidia-smi) and one JSON object with a row per kernel (its ``launches``
+are counted in the run its ``run`` field names; ``bound_ms`` is the
+larger of its bytes over 3.35 TB/s and its operations over 67 TFLOP/s,
+reckoned from this run's inputs); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device it prints no result and exits 1.
 """
@@ -42,6 +49,17 @@ BOUNCES = 8
 PT_SPP4, PT_RR = 64, 5  # the fused path tracer's cell: 1024 x 1024 x 64
 MESH_SUBDIV = 4  # the mesh cell: icosphere s4, 5,120 triangles, 16 per chunk
 MESH_TWIN_SPP4 = 4  # the mesh twin's samples at full resolution (1/16 of the cell)
+MESH_CHUNKS = 8  # replay chunks of diff/mesh_fused.LAYER_CHUNK (8) layers of 64
+SEG_TOL = 1e-5  # segment-sum: |kernel - twin| <= SEG_TOL * sum of |rows| per segment
+# The H100 SXM's published peaks (NVIDIA's data sheet, dense, 700 W): HBM
+# bytes/s and float32 outside the tensor cores.
+HBM_BPS, FP32_OPS = 3.35e12, 67e12
+# Operation counts of the bound: a ray-sphere test (3 sub, two dots, the
+# discriminant, sqrt, two roots, the compares and selects), a live
+# path-tracing bounce's shading (normal, BSDF sample, throughput, RR,
+# offset), the reference bounce's shading, a camera ray, a triangle test
+# and a box test.
+SPHERE_OPS, PT_SHADE_OPS, REF_SHADE_OPS, CAM_OPS, TRI_OPS, BOX_OPS = 20, 60, 30, 40, 30, 20
 CSRC = "ascendpathtracing_tpu_torch/csrc"
 PALLAS = "ascendpathtracing_tpu/ops/pallas_kernels.py"
 SOURCE = {  # launch counter -> its CUDA source
@@ -52,6 +70,7 @@ SOURCE = {  # launch counter -> its CUDA source
     "pt": f"{CSRC}/render_pt.cu",
     "wbvh": f"{CSRC}/wbvh.cu",
     "mesh_pt": f"{CSRC}/mesh_pt.cu",
+    "segsum": f"{CSRC}/segsum.cu",
 }
 REPLACES = {  # launch counter -> the TPU kernel it replaces
     "fwd": f"{PALLAS}:41",
@@ -61,6 +80,9 @@ REPLACES = {  # launch counter -> the TPU kernel it replaces
     "pt": f"{PALLAS}:226",
     "wbvh": "ascendpathtracing_tpu/ops/pallas_wbvh.py:528",
     "mesh_pt": "ascendpathtracing_tpu/ops/pallas_mesh_pt.py:111",
+    # _paged_kernel (segment_rows_paged) and _hist_kernel (segment_rows_matmul)
+    "segsum": "ascendpathtracing_tpu/ops/pallas_histogram.py:127, "
+              "ascendpathtracing_tpu/ops/pallas_histogram.py:46",
 }
 # The user-facing runs, each counted from zero, and the launches each
 # must make.  ``train_step`` is the main path (fwd + replay bwd); the
@@ -68,7 +90,9 @@ REPLACES = {  # launch counter -> the TPU kernel it replaces
 # replay=False training step the recompute backward (phase 6).
 # ``pt_step`` is one step of the bench's fused path-tracing cell (phase
 # 12); ``first_hit_mesh`` the mesh first-hit query in chunks mode and
-# ``mesh_step`` one step of the bench's mesh cell (phase 17).
+# ``mesh_step`` one forward step of the bench's mesh cell (phase 17);
+# ``mesh_train_step`` one training step of that cell: the forward with
+# residuals and one segment-sum per replay chunk (phase 21).
 _NONE = dict.fromkeys(SOURCE, 0)
 RUNS = {
     "train_step": {**_NONE, "fwd_idx": 1, "bwd_replay": 1},
@@ -77,6 +101,7 @@ RUNS = {
     "pt_step": {**_NONE, "pt": 1},
     "first_hit_mesh": {**_NONE, "wbvh": 1},
     "mesh_step": {**_NONE, "mesh_pt": 1},
+    "mesh_train_step": {**_NONE, "mesh_pt": 1, "segsum": MESH_CHUNKS},
 }
 RUN_OF = {  # kernel -> the run whose count its row reports
     "fwd": "inference_render",
@@ -86,6 +111,7 @@ RUN_OF = {  # kernel -> the run whose count its row reports
     "pt": "pt_step",
     "wbvh": "first_hit_mesh",
     "mesh_pt": "mesh_step",
+    "segsum": "mesh_train_step",
 }
 
 
@@ -116,6 +142,56 @@ def spills_by_kernel(log: str) -> dict:
     return out
 
 
+def bound(nbytes, ops) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    HBM_BPS and the operations over FP32_OPS."""
+    b_ms, o_ms = nbytes / HBM_BPS * 1e3, ops / FP32_OPS * 1e3
+    return ({"bound_ms": b_ms, "bound_by": "bytes"} if b_ms >= o_ms
+            else {"bound_ms": o_ms, "bound_by": "operations"})
+
+
+def walk_ops(counts, n_rays, grid) -> int:
+    """Operations of a chunk-grid walk: each ray tests the top level's
+    boxes, each box it hits its children's boxes, each chunk it enters
+    that chunk's triangles.  ``counts`` = (chunks tested, supers hit,
+    super-supers hit) summed over the rays."""
+    chunks, supers, supers2 = counts
+    if grid.n_supers2:
+        boxes = n_rays * grid.n_supers2 + supers2 * grid.supers2_per + supers * grid.supers_per
+    elif grid.n_supers:
+        boxes = n_rays * grid.n_supers + supers * grid.supers_per
+    else:
+        boxes = n_rays * grid.n_chunks
+    return boxes * BOX_OPS + chunks * grid.tris_per_chunk * TRI_OPS
+
+
+def image_from_residuals(wid, resv, spp4, chunk):
+    """The per-pixel mean image [3, W*H] rebuilt in float64 from the replay
+    residuals alone, ``chunk`` sample layers at a time:
+    L = sum_b live_b tput_{b-1} e_b with tput_b = tput_{b-1} a_b s_b.
+    Checks on the way that a dead bounce is followed by dead bounces only
+    and holds zeros."""
+    import torch
+
+    img = torch.zeros((3, wid.shape[2]), dtype=torch.float64, device=wid.device)
+    for a0 in range(0, spp4, chunk):
+        tput, rad, prev = None, 0.0, None
+        for b in range(wid.shape[0]):
+            live = wid[b, a0:a0 + chunk] >= 0  # [L, P]
+            r = resv[b, :, a0:a0 + chunk].double()  # [7, L, P]
+            require(prev is None or not bool((live & ~prev).any()),
+                    f"residuals: a live bounce {b} after a dead one")
+            require(not bool(r[:, ~live].any()), f"residuals: bounce {b} dead but not zero")
+            if tput is None:
+                tput = torch.ones((3,) + tuple(live.shape), dtype=torch.float64,
+                                  device=wid.device)
+            rad = rad + torch.where(live, tput * r[3:6], 0.0)
+            tput = tput * torch.where(live, r[0:3] * r[6], 1.0)
+            prev = live
+        img += rad.sum(dim=1)
+    return img / spp4
+
+
 def main() -> int:
     import torch
 
@@ -128,10 +204,13 @@ def main() -> int:
 
     from ascendpathtracing_tpu_torch import bench, cli, convert
     from ascendpathtracing_tpu_torch.device import gpu_name_and_power_limit
-    from ascendpathtracing_tpu_torch.host import camera, meshes, oracle, scenes
+    from ascendpathtracing_tpu_torch import camera, oracle, scenes
+    from ascendpathtracing_tpu_torch.accel import meshes
     from ascendpathtracing_tpu_torch.accel import tri
+    from ascendpathtracing_tpu_torch.diff import mesh_fused as mf
     from ascendpathtracing_tpu_torch.models import mesh as mm
     from ascendpathtracing_tpu_torch.ops import build, chunk_grid
+    from ascendpathtracing_tpu_torch.ops import histogram_kernels as segk
     from ascendpathtracing_tpu_torch.ops import mesh_pt_kernels as mpt
     from ascendpathtracing_tpu_torch.ops import pt_kernels as ptk
     from ascendpathtracing_tpu_torch.ops import render_kernels as rk
@@ -152,12 +231,13 @@ def main() -> int:
         t = torch.float64 if dtype == np.float64 else torch.float32
         return convert.scene_planes_from_numpy(scene.soa10(dtype), device=dev, dtype=t)
 
-    # ---- 1. build (all four libraries at once) -------------------------
+    # ---- 1. build (all five libraries at once) -------------------------
     t0 = time.time()
-    libs = ("render_ref", "render_pt", "wbvh", "mesh_pt")
+    libs = ("render_ref", "render_pt", "wbvh", "mesh_pt", "segsum")
     build.build_all(libs)
-    for mod in (rk, ptk, wk, mpt):
+    for mod in (rk, ptk, wk, mpt, segk):
         mod.load_library()
+    require(mf.LAYER_CHUNK * MESH_CHUNKS == PT_SPP4, "replay chunks per step")
     build_s = time.time() - t0
     regs, spills = {}, {}
     for lib in libs:
@@ -268,11 +348,12 @@ def main() -> int:
 
     def counted(run):
         torch.cuda.synchronize()
-        for mod in (rk, ptk, wk, mpt):
+        for mod in (rk, ptk, wk, mpt, segk):
             mod.reset_launches()
         out = run()
         torch.cuda.synchronize()
-        return out, {**rk.LAUNCHES, **ptk.LAUNCHES, **wk.LAUNCHES, **mpt.LAUNCHES}
+        return out, {**rk.LAUNCHES, **ptk.LAUNCHES, **wk.LAUNCHES, **mpt.LAUNCHES,
+                     **segk.LAUNCHES}
 
     def train_step(m, rays):
         out = m(rays)
@@ -333,6 +414,16 @@ def main() -> int:
         "bwd_recompute": (lambda: rk.render_ref_bwd(rp, sp, g1, **kw),
                           lambda: rk.render_ref_bwd_plain(rp, sp, g1, **kw)),
     }
+    # Bounds at this run's inputs: n rays x 8 bounces of cornell8 (8
+    # spheres); reference mode runs every bounce of every ray.
+    s8 = scene.n_spheres
+    ray_ops = n * BOUNCES * (SPHERE_OPS * s8 + REF_SHADE_OPS)
+    bounds = {
+        "fwd": bound(n * (24 + 12) + 40 * s8, ray_ops),
+        "fwd_idx": bound(n * (24 + 12 + 4 * BOUNCES) + 40 * s8, ray_ops),
+        "bwd_replay": bound(n * (4 * BOUNCES + 12) + 80 * s8, n * BOUNCES * 10),
+        "bwd_recompute": bound(n * (24 + 12) + 80 * s8, ray_ops + n * BOUNCES * 10),
+    }
     rows = []
     for name, (ker, plain) in calls.items():
         rows.append({
@@ -340,7 +431,7 @@ def main() -> int:
             "replaces": REPLACES[name], "run": RUN_OF[name],
             "launches": launches[RUN_OF[name]][name],
             "max_abs_err": max_err[name], "ms": med_ms(ker),
-            "plain_ms": med_ms(plain),
+            "plain_ms": med_ms(plain), **bounds[name], "library_ms": None,
         })
         torch.cuda.empty_cache()
     phase("kernel_times_4M_8bounce", gpu=gpu,
@@ -363,7 +454,9 @@ def main() -> int:
     with contextlib.redirect_stdout(buf):
         rc_bench = bench.main([])
     bench_line = json.loads(buf.getvalue().strip().splitlines()[-1])
-    require(rc_bench == 0 and bench_line["value"] > 0, f"bench: {bench_line}")
+    require(rc_bench == 0 and bench_line["value"] > 0
+            and bench_line["detail"]["launches_per_step"] == {"fwd_idx": 1.0, "bwd_replay": 1.0},
+            f"bench: {bench_line}")
     phase("entry_points", cli_render=stats, selftest="PASS", bench=bench_line)
     del rp, idx, g1, calls
     torch.cuda.empty_cache()
@@ -448,7 +541,8 @@ def main() -> int:
         rc_bench = bench.main(["--mode", "pt"])
     pt_line = json.loads(buf.getvalue().strip().splitlines()[-1])
     require(rc_bench == 0 and pt_line["value"] > 0
-            and pt_line["detail"]["launches_per_step"] == 1.0, f"bench --mode pt: {pt_line}")
+            and pt_line["detail"]["launches_per_step"] == {"pt": 1.0},
+            f"bench --mode pt: {pt_line}")
     phase("pt_main_path_counted", launches=launches["pt_step"], bench=pt_line)
     del out_pt
 
@@ -468,14 +562,30 @@ def main() -> int:
         torch.cuda.empty_cache()
     plain_ms = statistics.median(plain_times)
     samples = FULL_W * FULL_W * PT_SPP4
+    # The bound counts this run's live sample-bounces: the same paths
+    # through the mesh kernel with residuals, with a cube no ray reaches
+    # (the image is render_pt's bit for bit, so the paths are).
+    behind8 = mm.MeshScene.cornell_with_mesh(*meshes.cube(center=(50, 40, 250), size=25.0),
+                                             base_scene="cornell8")
+    tb = mpt.mesh_pt_tables(behind8, device=dev)
+    img_b, wid_b, _ = mpt.render_pt_mesh(*tb[:4], materials=tb[4], with_residuals=True,
+                                         **full, **mpt.pt_tables_kwargs(tb[5], dev))
+    require(torch.equal(img_b, img), "cornell8 + unreachable cube is not render_pt's image")
+    pt_live = int((wid_b >= 0).sum())
+    del img_b, wid_b, tb
+    torch.cuda.empty_cache()
     phase("pt_times", gpu=gpu, kernel_ms=pt_ms,
           kernel_msamples_per_s=samples / (pt_ms * 1e-3) / 1e6,
-          twin_ms=plain_ms, twin_runs=len(plain_times), plain_estimator_4M=est)
+          twin_ms=plain_ms, twin_runs=len(plain_times), plain_estimator_4M=est,
+          live_sample_bounces=pt_live)
     rows.append({
         "name": "pt", "route": "cuda", "source": SOURCE["pt"],
         "replaces": REPLACES["pt"], "run": RUN_OF["pt"],
         "launches": launches[RUN_OF["pt"]]["pt"], "max_abs_err": pt_err,
         "ms": pt_ms, "plain_ms": plain_ms,
+        **bound(12 * FULL_W * FULL_W,
+                pt_live * (SPHERE_OPS * s8 + PT_SHADE_OPS) + samples * CAM_OPS),
+        "library_ms": None,
     })
 
     del planes, mats, rays4m
@@ -580,6 +690,7 @@ def main() -> int:
               "chunks_tested_max": int(st4m[0].max())},
           s5_3level_65536={"grid": [g3.n_chunks, g3.n_supers, g3.n_supers2], **brute3,
                            "chunks_tested_mean": float(st3[0].float().mean())})
+    wbvh_walk = st4m.long().sum(dim=1).tolist()
     del st4m, st3, rp_rand, tgk, hgk
     torch.cuda.empty_cache()
 
@@ -643,31 +754,42 @@ def main() -> int:
 
     # 16. Full size: kernel 1024x1024 x 64 spp on s4 (seed 0), finite and
     # >= 0.  The twin runs at full resolution with 4 samples (a
-    # full-sample twin takes minutes): with seed 0 against the kernel at
-    # the same 4 samples for the error, and with seed 1 as an independent
-    # run whose mean must be within 4 standard errors (of the per-pixel
-    # difference, both images' noise) of the kernel's 64-sample mean.
+    # full-sample twin takes minutes): with seed 0 and residuals against
+    # the kernel at the same 4 samples (8 bounces, RR from 5: wid and resv
+    # bitwise, so every RR-death bounce too), counting its walk for the
+    # bound; and with seed 1 as an independent run whose mean must be
+    # within 4 standard errors (of the per-pixel difference, both images'
+    # noise) of the kernel's 64-sample mean.
     full = dict(materials=m_mats, width=FULL_W, height=FULL_W, bounces=BOUNCES,
                 rr_depth=PT_RR, **m_kw)
     m_img = mpt.render_pt_mesh(m_planes, m_cb, m_sb, m_t24, spp4=PT_SPP4, **full)
     require(bool(torch.isfinite(m_img).all()) and float(m_img.min()) >= 0.0,
             "mesh_pt full size: non-finite or negative pixels")
-    k4 = mpt.render_pt_mesh(m_planes, m_cb, m_sb, m_t24, spp4=MESH_TWIN_SPP4, **full)
-    twin_times, p4 = bench.time_steps(lambda: mpt.render_pt_mesh_plain(
-        m_planes, m_cb, m_sb, m_t24, spp4=MESH_TWIN_SPP4, **full), iters=1, warmup=0)
+    k4, kwid4, kresv4 = mpt.render_pt_mesh(m_planes, m_cb, m_sb, m_t24, spp4=MESH_TWIN_SPP4,
+                                           with_residuals=True, **full)
+    walk4 = torch.zeros(4, dtype=torch.int64, device=dev)
+    p4, pwid4, presv4 = mpt.render_pt_mesh_plain(m_planes, m_cb, m_sb, m_t24,
+                                                 spp4=MESH_TWIN_SPP4, with_residuals=True,
+                                                 walk_counts=walk4, **full)
+    require(torch.equal(kwid4, pwid4) and torch.equal(kresv4, presv4),
+            "mesh_pt full resolution vs twin, same seed: residuals (wid, resv) not bitwise")
+    twin_live4 = int((pwid4 >= 0).sum())
+    rr_death4 = int(((kwid4[PT_RR:-1] >= 0) & (kwid4[PT_RR + 1:] < 0)).sum())
+    del kwid4, kresv4, pwid4, presv4
     mesh_err = float((k4 - p4).abs().max())
     share4 = rel_share(k4, p4, 1e-5)
     require(share4 >= 0.99, f"mesh_pt full resolution vs twin, same seed: share {share4}")
-    t1_times, p1 = bench.time_steps(lambda: mpt.render_pt_mesh_plain(
+    twin_times, p1 = bench.time_steps(lambda: mpt.render_pt_mesh_plain(
         m_planes, m_cb, m_sb, m_t24, spp4=MESH_TWIN_SPP4, seed=1, **full), iters=1, warmup=0)
-    twin_times += t1_times
     diff = (m_img - p1).double()
     se = float(diff.std()) / diff[0].numel() ** 0.5
     z_mesh = float(diff.mean()) / se
     require(abs(z_mesh) < 4.0, f"mesh_pt full size: kernel mean vs twin (seed 1) at {z_mesh} SE")
     phase("mesh_pt_full_1024x1024_spp64", mean=float(m_img.mean()), min=float(m_img.min()),
           twin_spp4=MESH_TWIN_SPP4, max_abs_err_vs_twin_spp4=mesh_err,
-          bitwise_vs_twin_spp4=bool(torch.equal(k4, p4)),
+          bitwise_vs_twin_spp4=bool(torch.equal(k4, p4)), residuals_bitwise_vs_twin_spp4=True,
+          live_sample_bounces_spp4=twin_live4, paths_ended_in_rr_bounces_spp4=rr_death4,
+          twin_walk_spp4=walk4.tolist(),
           share_within_1e5_vs_twin=share4, twin_seed1_mean=float(p1.mean()),
           z_vs_twin_seed1=z_mesh)
     del k4, p4, p1, diff
@@ -698,10 +820,11 @@ def main() -> int:
     require(torch.equal(out_mesh, m_img), "bench mesh step differs from the full-size image")
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rc_bench = bench.main(["--mode", "mesh"])
+        rc_bench = bench.main(["--mode", "mesh", "--fwd-only"])
     mesh_line = json.loads(buf.getvalue().strip().splitlines()[-1])
     require(rc_bench == 0 and mesh_line["value"] > 0
-            and mesh_line["detail"]["launches_per_step"] == 1.0, f"bench --mode mesh: {mesh_line}")
+            and mesh_line["detail"]["launches_per_step"] == {"mesh_pt": 1.0},
+            f"bench --mode mesh --fwd-only: {mesh_line}")
     with tempfile.TemporaryDirectory() as tmp:
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
@@ -715,17 +838,19 @@ def main() -> int:
     with contextlib.redirect_stdout(buf):
         rc_self, self_launches = counted(lambda: cli.main(["selftest", "--backend", "cuda"]))
     self_lines = [json.loads(x) for x in buf.getvalue().strip().splitlines()]
-    require(rc_self == 0 and self_lines[-1]["passed"] == 5 and self_launches["wbvh"] == 1,
+    require(rc_self == 0 and self_lines[-1]["passed"] == 6 and self_lines[-1]["ran"] == 6
+            and self_launches["wbvh"] == 1 and self_launches["segsum"] >= 1
+            and self_lines[6]["check"] == "mesh_fused_vjp_grads" and self_lines[6]["ok"],
             f"cli selftest: {self_lines}, launches {self_launches}")
     phase("mesh_entry_points_counted", first_hit_mesh=launches["first_hit_mesh"],
           triangle_pixels=int(tri_px.sum()), mesh_step=launches["mesh_step"],
           bench=mesh_line, cli_render=mesh_cli, selftest_check5=self_lines[4],
-          selftest_launches=self_launches)
+          selftest_mesh_vjp=self_lines[6], selftest_launches=self_launches)
     del out_mesh, ft, fk, fh, tc, hc, dev_chunks
 
     # 18. Times: wbvh kernel (10 runs) vs twin (3) at 4,194,304 camera
     # rays with attrs, as first_hit_mesh calls it; mesh_pt kernel (10
-    # runs) at the full size; its twin at phase 16's size (2 runs, above).
+    # runs) at the full size; its twin at phase 16's size (1 run, above).
     wbvh_call = (lambda: wk.intersect_chunks(rp_cam, m_cb, m_sb, m_t24, attrs=True, **m_kw))
     wbvh_plain = (lambda: wk.intersect_chunks_plain(rp_cam, m_cb, m_sb, m_t24, attrs=True,
                                                     **m_kw))
@@ -740,14 +865,282 @@ def main() -> int:
           mesh_pt_ms=mesh_ms, mesh_pt_msamples_per_s=m_samples / (mesh_ms * 1e-3) / 1e6,
           mesh_twin_ms=mesh_plain_ms,
           mesh_twin_size=f"{FULL_W}x{FULL_W}x{MESH_TWIN_SPP4}", twin_runs=len(twin_times))
+    # wbvh: 4M camera rays with attrs, the walk of phase 14's counts.
+    n_cam = rp_cam.shape[1]
+    mesh_rows = {}
     for name, err, ms_k, ms_p in (("wbvh", wbvh_err, wbvh_ms, wbvh_plain_ms),
                                   ("mesh_pt", mesh_err, mesh_ms, mesh_plain_ms)):
-        rows.append({
+        mesh_rows[name] = {
             "name": name, "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name], "run": RUN_OF[name],
             "launches": launches[RUN_OF[name]][name], "max_abs_err": err,
-            "ms": ms_k, "plain_ms": ms_p,
-        })
+            "ms": ms_k, "plain_ms": ms_p, "library_ms": None,
+        }
+        rows.append(mesh_rows[name])
+    mesh_rows["wbvh"].update(bound(n_cam * (24 + 8 + 44), walk_ops(wbvh_walk, n_cam, m_grid)))
+    del rp_cam
+    torch.cuda.empty_cache()
+
+    # ---- 19-22. the mesh training step (csrc/mesh_pt.cu residuals,
+    # csrc/segsum.cu, diff/mesh_fused) -----------------------------------
+    # 19. Residuals, 64x64, spp4 16, 4 bounces, RR from 2, the mixed
+    # scene: kernel vs twin bitwise in image, wid and resv (f32 and f64,
+    # zero uniforms and Philox); the image with residuals is the image
+    # without, bit for bit.
+    res19 = {}
+    for tdt in (torch.float32, torch.float64):
+        tables = mpt.mesh_pt_tables(mixed, device=dev, dtype=tdt)
+        kw = dict(materials=tables[4], width=64, height=64, spp4=16, bounces=4, rr_depth=2,
+                  **mpt.pt_tables_kwargs(tables[5], dev))
+        for label, u in (("zero_uniforms", torch.zeros((16, 2 + 3 * 4, 64 * 64), dtype=tdt,
+                                                       device=dev)),
+                         ("philox", None)):
+            name = f"{str(tdt).split('.')[-1]}_{label}"
+            k = mpt.render_pt_mesh(*tables[:4], uniforms=u, with_residuals=True, **kw)
+            p = mpt.render_pt_mesh_plain(*tables[:4], uniforms=u, with_residuals=True, **kw)
+            same = [torch.equal(a, b) for a, b in zip(k, p)]
+            require(all(same), f"residuals {name}: kernel vs twin (image, wid, resv) {same}")
+            require(torch.equal(k[0], mpt.render_pt_mesh(*tables[:4], uniforms=u, **kw)),
+                    f"residuals {name}: the image changed")
+            wid19 = k[1]
+            res19[name] = {"dead_share": float((wid19 < 0).float().mean()),
+                           "triangle_share": float((wid19 >= 9).float().mean()),
+                           "rr_bounce_s_gt_1_share": float((k[2][2:, 6][wid19[2:] >= 0] > 1)
+                                                           .float().mean())}
+    phase("mesh_pt_residuals_64x64_spp16", tolerance="bitwise (image, wid, resv); image "
+          "with residuals == without", **res19)
+
+    # The full-size residuals (1024x1024 x 64 spp of s4, seed 0): the
+    # same paths as phase 16's forward, and the real replay stream.
+    n_slots = m_t24.shape[0]
+    img_r, wid_r, resv_r = mpt.render_pt_mesh(m_planes, m_cb, m_sb, m_t24, spp4=PT_SPP4,
+                                              with_residuals=True, **full)
+    require(torch.equal(img_r, m_img), "full-size image with residuals differs from without")
+    # The image rebuilt from the residuals alone reads every offset of
+    # wid and resv (resv has 3.76e9 elements, past 2^31).
+    rebuilt = image_from_residuals(wid_r, resv_r, PT_SPP4, mf.LAYER_CHUNK)
+    rebuild_err = float(((img_r.double() - rebuilt).abs() / rebuilt.clamp_min(1e-300)).max())
+    require(bool(((img_r.double() - rebuilt).abs() <= 1e-5 * rebuilt).all()),
+            f"full-size image vs its rebuild from the residuals: max rel err {rebuild_err}")
+    del rebuilt
+    mesh_live = int((wid_r >= 0).sum())
+    # The walk's operations: phase 16's twin count over its 4 layers,
+    # scaled by the live sample-bounces of the 64.
+    mesh_walk = walk_ops(walk4[1:].tolist(), int(walk4[0]), m_grid) * mesh_live / twin_live4
+    mesh_rows["mesh_pt"].update(bound(12 * FULL_W * FULL_W,
+                                      mesh_live * (SPHERE_OPS * 9 + PT_SHADE_OPS)
+                                      + FULL_W * FULL_W * PT_SPP4 * CAM_OPS + mesh_walk))
+    n_seg = 9 + n_slots
+
+    # 20. The segment-sum kernel vs its twin in float64: kocc equal, each
+    # segment within SEG_TOL x (sum of |vals| over its rows).
+    def seg_check(seg, vals, n_slots, f64_too=False):
+        ref = segk.segment_rows_plain(seg, vals.double(), n_slots=n_slots)
+        mag = segk.segment_rows_plain(seg, vals.double().abs(), n_slots=n_slots)
+        kocc_ref = segk.occupancy_plain(seg, n_slots=n_slots)
+        out = {}
+        runs = [("paged_f32", vals)] + ([("paged_f64", vals.double())] if f64_too else [])
+        for label, v in runs:
+            acc, kocc = segk.segment_rows_paged(seg, v, n_slots=n_slots)
+            require(torch.equal(kocc, kocc_ref), f"segsum {label}: kocc differs")
+            err = (acc.double() - ref).abs()
+            out[label] = float((err / mag.clamp_min(1e-300)).max())
+            require(bool((err <= SEG_TOL * mag).all()),
+                    f"segsum {label}: beyond tolerance, max err / sum|vals| {out[label]}")
+        acc = segk.segment_rows_matmul(seg, vals, n_slots=n_slots)
+        err = (acc.double() - ref).abs()
+        out["matmul_f32"] = float((err / mag.clamp_min(1e-300)).max())
+        require(bool((err <= SEG_TOL * mag).all()),
+                f"segsum matmul: beyond tolerance, max err / sum|vals| {out['matmul_f32']}")
+        out["max_abs_err"] = float((segk.segment_rows_paged(seg, vals, n_slots=n_slots)[0].double()
+                                    - ref).abs().max())
+        out["kocc_mean"] = float(kocc_ref.float().mean())
+        return out
+
+    rng = np.random.RandomState(0)
+    seg20 = {}
+    for label, n_rows, s, r in (("random", 10000, 700, 6), ("random", 4096, 513, 3),
+                                ("random", 2048, 2048, 8), ("backward", 1 << 16, 5121, 6),
+                                ("clustered", 20000, 20000, 6), ("clustered", 4096, 9000, 3),
+                                ("wide", 1 << 14, 6000, 6)):
+        if label == "clustered":
+            seg = (rng.randint(0, 20, n_rows) * (s // 20) + rng.randint(0, s // 40, n_rows))
+            seg[: n_rows // 100] = -1
+            seg[n_rows // 100: n_rows // 50] = s + 7
+        else:
+            lo, hi = {"random": (-1, s), "backward": (0, s + 200), "wide": (-5, s + 100)}[label]
+            seg = rng.randint(lo, hi, n_rows)
+        seg_t = torch.tensor(seg.astype(np.int32), device=dev)
+        vals_t = torch.tensor(rng.randn(r, n_rows).astype(np.float32), device=dev)
+        seg20[f"{label}_{n_rows}x{s}x{r}"] = seg_check(seg_t, vals_t, s, f64_too=True)
+    acc = segk.segment_rows_matmul(torch.tensor([0, 5, 100, -3, 2], dtype=torch.int32, device=dev),
+                                 torch.ones((2, 5), device=dev), n_slots=6)
+    require(acc[[0, 5, 2]].eq(1).all() and float(acc.sum()) == 6.0, "out-of-range ids kept")
+    # A synthetic 1,310,720-slot stream (icosphere s8's slot count, where
+    # the TPU left its VMEM kernel): 2^25 rows, 60% in runs of sphere ids,
+    # the rest in runs of 64 rows over neighbouring slots.
+    s8_slots = 1310720
+    n8 = 1 << 25
+    row = torch.arange(n8, device=dev)
+    region = (row >> 6) * 2654435761 % (s8_slots // 16) * 16
+    tri_ids = 9 + region + torch.randint(0, 16, (n8,), device=dev)
+    seg8 = torch.where(torch.rand(n8, device=dev) < 0.6, (row >> 10) % 9, tri_ids).int()
+    vals8 = torch.rand((6, n8), device=dev)
+    seg20["synthetic_s8_33554432x1310729x6"] = seg_check(seg8, vals8, 9 + s8_slots)
+    del row, region, tri_ids, seg8, vals8
+    # The real replay stream: chunk 0 of the full-size training step
+    # (8 layers x 8 bounces x 1,048,576 pixels), cotangent ones.
+    g_cell = torch.full((3, 1, FULL_W * FULL_W), 1.0 / PT_SPP4, device=dev)
+    seg_real = wid_r[:, :mf.LAYER_CHUNK].reshape(-1)
+    vals_real = mf.replay_rows(wid_r[:, :mf.LAYER_CHUNK], resv_r[:, :, :mf.LAYER_CHUNK],
+                               g_cell).reshape(6, -1)
+    real = seg_check(seg_real, vals_real, n_seg)
+    seg20["replay_chunk0"] = real
+    n_real = seg_real.shape[0]
+    seg_ms = med_ms(lambda: segk.segment_rows_paged(seg_real, vals_real, n_slots=n_seg))
+    seg_plain_ms = med_ms(lambda: segk.segment_rows_plain(seg_real, vals_real, n_slots=n_seg),
+                          iters=5)
+    # library_ms: one index_add_ call on the same stream, the dropped rows
+    # sent to a dump row (index and rows made contiguous beforehand).
+    idx_lib = torch.where((seg_real >= 0) & (seg_real < n_seg), seg_real,
+                          n_seg).long()
+    src_lib = vals_real.T.contiguous()
+    acc_lib = torch.zeros((n_seg + 1, 6), device=dev)
+    seg_lib_ms = med_ms(lambda: acc_lib.index_add_(0, idx_lib, src_lib))
+    del idx_lib, src_lib, acc_lib
+    seg_bound = bound(n_real * (4 + 6 * 4) + n_seg * 6 * 4, n_real * 6)
+    phase("segsum_kernel_vs_twin", gpu=gpu, tolerance=f"kocc equal; per segment "
+          f"|kernel - f64 twin| <= {SEG_TOL} x sum |vals|", streams=seg20,
+          replay_rows=n_real, kernel_ms=seg_ms, twin_ms=seg_plain_ms,
+          index_add_ms=seg_lib_ms, **seg_bound)
+    del seg_real, vals_real
+    torch.cuda.empty_cache()
+
+    # 21. The full training step (1024x1024 x 64 spp of s4, 8 bounces, RR
+    # from 5) through make_render_pt_mesh_diff, counted from zero.
+    train_step, _ = bench.make_mesh_step("kernel", ms, device=dev, bounces=BOUNCES,
+                                         spp4=PT_SPP4, fwd_only=False)
+    del img_r
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()  # phase 20's residuals among them
+    torch.cuda.reset_peak_memory_stats()
+    (loss_t, (gp, ga, ge)), launches["mesh_train_step"] = counted(train_step)
+    peak_step = torch.cuda.max_memory_allocated() - resident
+    require(launches["mesh_train_step"] == RUNS["mesh_train_step"],
+            f"mesh train step launches {launches['mesh_train_step']}")
+    require(all(bool(torch.isfinite(x).all()) for x in (loss_t, gp, ga, ge)),
+            "mesh train step: non-finite gradients")
+    pad = fos < 0
+    require(float(gp[0:4].abs().max()) == 0.0, "mesh train step: plane rows 0-3 not 0")
+    require(float(ga[pad].abs().sum()) == 0.0 and float(ge[pad].abs().sum()) == 0.0,
+            "pad slots carry gradient")
+    require(float(gp[4:10].abs().max()) > 0 and float(ga.abs().max()) > 0
+            and float(ge.abs().max()) > 0, "mesh train step: zero gradients")
+    # The same residuals replayed by the kernel and by the twin (f64
+    # sums); every row is >= 0 for g = ones, so sum |rows| is the twin's
+    # value and the gate is relative.
+    g_ones = torch.ones((3, FULL_W * FULL_W), device=dev)
+    rkw = dict(n_spheres=9, n_slots=n_slots, spp4=PT_SPP4)
+    rep_k = mf.replay_backward(wid_r, resv_r, g_ones, **rkw)
+    rep_p = mf.replay_backward(wid_r, resv_r, g_ones, plain=True, **rkw)
+    rep_err = {}
+    for name, a, b in zip(("d_planes", "d_slot_albedo", "d_slot_emission"), rep_k, rep_p):
+        err = (a.double() - b.double()).abs()
+        require(bool((err <= SEG_TOL * b.double().abs()).all()),
+                f"replay {name}: kernel vs twin beyond {SEG_TOL}")
+        rep_err[name] = float((err / b.double().abs().clamp_min(1e-300)).max())
+    replay_ms = med_ms(lambda: mf.replay_backward(wid_r, resv_r, g_ones, **rkw), iters=3)
+    replay_plain_ms = med_ms(lambda: mf.replay_backward(wid_r, resv_r, g_ones, plain=True,
+                                                        **rkw), iters=3)
+    dead_share = float((wid_r < 0).float().mean())
+    del wid_r, resv_r, rep_k, rep_p
+    torch.cuda.empty_cache()
+    fwd_res_ms = med_ms(lambda: mpt.render_pt_mesh(m_planes, m_cb, m_sb, m_t24, spp4=PT_SPP4,
+                                                   with_residuals=True, **full)[0], iters=3)
+    step_times, _ = bench.time_steps(train_step, iters=5, warmup=1)
+    step_ms = statistics.median(step_times)
+    phase("mesh_train_step_1024x1024_spp64", gpu=gpu, launches=launches["mesh_train_step"],
+          finite=True, plane_rows_0_3_zero=True, pad_slots_zero=int(pad.sum()),
+          replay_kernel_vs_twin_max_rel=rep_err, tolerance=f"rtol {SEG_TOL} (rows >= 0)",
+          step_ms_median=step_ms, step_ms=step_times, step_peak_memory_bytes=peak_step,
+          fwd_only_ms=mesh_ms, fwd_with_residuals_ms=fwd_res_ms,
+          replay_ms=replay_ms, replay_twin_ms=replay_plain_ms,
+          segsum_ms_per_step=seg_ms * MESH_CHUNKS, live_sample_bounces=mesh_live,
+          image_vs_rebuild_from_residuals_max_rel=rebuild_err,
+          rebuild_tolerance="rtol 1e-5 per pixel (f64 rebuild)", mesh_walk_ops=mesh_walk,
+          dead_bounce_share=dead_share,
+          residual_bytes=FULL_W * FULL_W * PT_SPP4 * BOUNCES * 32,
+          msamples_per_s=FULL_W * FULL_W * PT_SPP4 / (step_ms * 1e-3) / 1e6)
+    rows.append({
+        "name": "segsum", "route": "cuda", "source": SOURCE["segsum"],
+        "replaces": REPLACES["segsum"], "run": RUN_OF["segsum"],
+        "launches": launches[RUN_OF["segsum"]]["segsum"], "max_abs_err": real["max_abs_err"],
+        "ms": seg_ms, "plain_ms": seg_plain_ms, **seg_bound, "library_ms": seg_lib_ms,
+    })
+    del loss_t, gp, ga, ge, train_step
+    torch.cuda.empty_cache()
+
+    # 22. Finite differences on the card (test_pallas_mesh_pt_tpu.py:127-
+    # 180): float64, 32x32, spp4 8, bounces = rr_depth = 3, seed 11, the
+    # mixed scene in chunks of 8.  At fixed Philox draws the estimator is
+    # a polynomial of degree <= 3 in each leaf, so central differences
+    # with h = 1e-4 are exact to ~1e-9 relative; the slot leaves ride in
+    # the float32 row table, so their step is the realized float32 one.
+    p64, cb64, sb64, t64, mats64, grid64 = mpt.mesh_pt_tables(
+        mixed, device=dev, dtype=torch.float64, tris_per_chunk=8, supers_per=0)
+    render64 = mf.make_render_pt_mesh_diff(
+        cb64, sb64, t64[:, :16], t64[:, 22:24], width=32, height=32, spp4=8,
+        materials=mats64, bounces=3, rr_depth=3, seed=11, **mpt.pt_tables_kwargs(grid64, dev))
+    wgt = torch.tensor(np.random.RandomState(1).rand(3, 32 * 32), device=dev)
+    leaves0 = (p64, t64[:, 16:19].double(), t64[:, 19:22].double())
+
+    def loss64(*xs):
+        return (wgt * render64(*xs)).sum()
+
+    leaves = tuple(x.clone().requires_grad_(True) for x in leaves0)
+    g64 = torch.autograd.grad(loss64(*leaves), leaves)
+    require(float(g64[0][0:4].abs().max()) == 0.0, "FD setup: plane rows 0-3 not 0")
+
+    def fd(which, idx, h=1e-4):
+        plus = [x.clone() for x in leaves0]
+        minus = [x.clone() for x in leaves0]
+        plus[which][idx] += h
+        minus[which][idx] -= h
+        if which > 0:
+            plus[which] = plus[which].float().double()
+            minus[which] = minus[which].float().double()
+        with torch.no_grad():
+            return (float(loss64(*plus) - loss64(*minus))
+                    / float(plus[which][idx] - minus[which][idx]))
+
+    fd_rows = []
+    for which, count in ((0, 3), (1, 2)):
+        sel = g64[which].abs().clone()
+        if which == 0:
+            sel[0:4] = 0
+        for _ in range(count):
+            idx = np.unravel_index(int(sel.argmax()), tuple(sel.shape))
+            sel[idx] = 0
+            est = fd(which, idx)
+            got = float(g64[which][idx])
+            require(abs(got - est) <= 1e-6 * max(abs(est), 1e-2),
+                    f"FD gate leaf {which} {idx}: grad {got} vs fd {est}")
+            fd_rows.append({"leaf": ["planes", "slot_albedo"][which],
+                            "index": [int(i) for i in idx], "grad": got, "fd": est,
+                            "rel_err": abs(got - est) / max(abs(est), 1e-2)})
+    phase("mesh_fd_gate_f64_32x32", tolerance="|grad - fd| <= 1e-6 x max(|fd|, 1e-2)",
+          probes=fd_rows)
+
+    # The training step's entry point: bench --mode mesh (fwd+bwd).
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc_bench = bench.main(["--mode", "mesh"])
+    train_line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    require(rc_bench == 0 and train_line["value"] > 0
+            and train_line["detail"]["launches_per_step"]
+            == {"mesh_pt": 1.0, "segsum": float(MESH_CHUNKS)},
+            f"bench --mode mesh: {train_line}")
+    phase("mesh_train_entry_points", bench=train_line, bench_fwd_only=mesh_line)
 
     print(gpu_name_and_power_limit(), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -20,7 +20,7 @@ from ascendpathtracing_tpu.ops import pallas_wbvh as W
 from ascendpathtracing_tpu.utils import io
 from ascendpathtracing_tpu_torch import convert
 from ascendpathtracing_tpu_torch.accel import tri
-from ascendpathtracing_tpu_torch.host import meshes
+from ascendpathtracing_tpu_torch.accel import meshes
 from ascendpathtracing_tpu_torch.models import mesh as mm
 from ascendpathtracing_tpu_torch.ops import chunk_grid as cg
 from ascendpathtracing_tpu_torch.ops import wbvh_kernels as wk
@@ -136,7 +136,7 @@ def test_host_meshes_are_the_jax_package_meshes(tmp_path):
         np.testing.assert_array_equal(a[1], b[1])
     v, f = meshes.icosphere(subdivisions=1)
     meshes.save_obj(tmp_path / "m.obj", v, f)
-    got = meshes.load_obj(tmp_path / "m.obj", native="never")
+    got = meshes.load_obj(tmp_path / "m.obj")
     ref = jax_meshes.load_obj(tmp_path / "m.obj", native="never")
     np.testing.assert_array_equal(got[0], ref[0])
     np.testing.assert_array_equal(got[1], ref[1])

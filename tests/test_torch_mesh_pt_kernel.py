@@ -18,7 +18,8 @@ from ascendpathtracing_tpu import cli as jax_cli
 from ascendpathtracing_tpu.ops import pallas_mesh_pt as jax_mpt
 from ascendpathtracing_tpu.utils import io
 from ascendpathtracing_tpu_torch import bench, cli, convert
-from ascendpathtracing_tpu_torch.host import meshes, scenes
+from ascendpathtracing_tpu_torch import scenes
+from ascendpathtracing_tpu_torch.accel import meshes
 from ascendpathtracing_tpu_torch.models import mesh as mm
 from ascendpathtracing_tpu_torch.ops import mesh_pt_kernels as mpt
 from ascendpathtracing_tpu_torch.ops import pt_kernels as ptk

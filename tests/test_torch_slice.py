@@ -101,16 +101,25 @@ def test_fwd_bwd_step_matches_jax_value_and_grad():
 
 
 def test_importing_the_port_loads_no_jax():
+    """Importing every module of the port and chip_smoke, and a CPU mesh
+    render with its replay backward, load no jax and no module of the
+    JAX package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import ascendpathtracing_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "import chip_smoke\n"
+        "from ascendpathtracing_tpu_torch import cli\n"
+        "assert cli.mesh_vjp_check(__import__('torch').device('cpu'))['ok']\n"
         "assert 'jax' not in sys.modules, sorted(k for k in sys.modules if 'jax' in k)\n"
+        "ref = sorted(k for k in sys.modules if k == 'ascendpathtracing_tpu'\n"
+        "             or k.startswith('ascendpathtracing_tpu.'))\n"
+        "assert not ref, ref\n"
         "print(len(mods))\n"
         "new = {'accel.tri', 'models.mesh', 'ops.chunk_grid', 'ops.wbvh_kernels',\n"
-        "       'ops.mesh_pt_kernels'}\n"
+        "       'ops.mesh_pt_kernels', 'ops.histogram_kernels', 'diff.mesh_fused',\n"
+        "       'config', 'scenes', 'camera', 'oracle', 'utils.io', 'accel.meshes'}\n"
         "assert {p.__name__ + '.' + m for m in new} <= set(mods), mods\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -119,7 +128,7 @@ def test_importing_the_port_loads_no_jax():
         text=True, timeout=300, check=False,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 17
+    assert int(out.stdout.strip()) >= 27
 
 
 def test_backend_cuda_exits_2_without_cuda(no_cuda, tmp_path, capsys):
@@ -157,11 +166,12 @@ def test_unported_modes_exit_2(argv, message, tmp_path, capsys):
 def test_selftest_passes_on_cpu(capsys):
     assert cli.main(["selftest", "--backend", "cpu"]) == 0
     lines = [json.loads(x) for x in capsys.readouterr().out.strip().splitlines()]
-    assert lines[-1] == {"selftest": "PASS", "passed": 5, "ran": 5, "backend": "cpu"}
+    assert lines[-1] == {"selftest": "PASS", "passed": 6, "ran": 6, "backend": "cpu"}
     assert lines[3]["check"] == "pt_fused_energy_vs_plain" and lines[3]["rel_diff"] < 0.025
     assert lines[4]["check"] == "wbvh_chunks_vs_brute" and lines[4]["max_t_err"] < 1e-3
     assert lines[5] == {"check": "mesh_pt_fused_energy_vs_xla",
                         "skipped": "models/mesh.render_pt_mesh_impl not yet ported"}
+    assert lines[6]["check"] == "mesh_fused_vjp_grads" and lines[6]["geom_rows_zero"]
 
 
 def test_bench_profile_summary_on_the_host():
