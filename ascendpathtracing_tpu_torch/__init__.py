@@ -29,12 +29,20 @@ that each module's counterpart is found under the same name:
   count, tables.
 - ``ops.histogram_kernels`` — the segment-sum: CUDA kernel
   (``csrc/segsum.cu``), plain twins, launch count.
+- ``ops.bvh_kernels``   — the stackless BVH traversal: CUDA kernel
+  (``csrc/bvh.cu``), plain twin, launch count, packed tables.
+- ``ops.sort``          — Morton ray-sort keys for traversal coherence.
 - ``diff.mesh_fused``   — the mesh renderer's replay backward and its
   ``torch.autograd.Function``.
+- ``diff.mesh``         — the differentiable bounce-loop mesh render
+  (vertices and face attributes as leaves) and the stale-table guard.
 - ``accel.tri``         — brute-force ray-triangle intersection (the
   oracle).
-- ``models.mesh``       — mesh scenes, their device tables and the
-  first-hit query.
+- ``accel.bvh``         — the binned-SAH BVH builder (NumPy) and the
+  per-ray stackless walk in plain torch.
+- ``models.mesh``       — mesh scenes, their device tables in four
+  traversal modes, the first-hit query and the bounce-loop mesh path
+  tracer.
 - ``ops.build``         — builds ``csrc/*.cu`` with nvcc at first use.
 - ``cli``, ``bench``    — the user entry points.
 - ``config``, ``scenes``, ``camera``, ``oracle``, ``utils.io``,

@@ -1,2 +1,3 @@
 """Triangle intersection of the port.  ``tri`` holds the brute-force
-Moller-Trumbore oracle (the chunk-grid kernels are in ``ops``)."""
+Moller-Trumbore oracle, ``bvh`` the BVH builder and per-ray walk (the
+traversal kernels are in ``ops``)."""

@@ -4,7 +4,8 @@ Counterpart of ``ascendpathtracing_tpu/accel/tri.py``, op for op:
 branch-free, a miss is the 1e20 sentinel, and the lowest index wins a
 tie downstream (``torch.argmin`` returns the first minimum).  It is the
 brute-force oracle of the chunk-grid traversal (``ops/wbvh_kernels``)
-and of ``models/mesh`` in its ``brute`` mode.
+and of ``models/mesh`` in its ``brute`` mode, and the triangle test of
+the BVH walk (``accel/bvh``).
 """
 
 from __future__ import annotations
@@ -15,16 +16,14 @@ import torch
 MISS_T = 1e20
 
 
-def intersect_triangles_brute(o3, d3, v0, e1, e2, eps):
-    """N rays (``o3``, ``d3``: (x, y, z) tuples of [N] planes) against F
-    triangles (``v0``, ``e1``, ``e2``: (x, y, z) tuples of [F] planes, the
-    first vertex and the edges v1 - v0, v2 - v0) -> t [F, N], 1e20 where
-    missed.  Both orientations hit (no backface culling)."""
-    ox, oy, oz = (c[None, :] for c in o3)
-    dx, dy, dz = (c[None, :] for c in d3)
-    v0 = tuple(c[:, None] for c in v0)
-    e1 = tuple(c[:, None] for c in e1)
-    e2 = tuple(c[:, None] for c in e2)
+def moller_trumbore(o3, d3, v0, e1, e2, eps):
+    """Rays against triangles, any broadcastable shapes: ``o3``, ``d3``
+    the rays' (x, y, z), ``v0``, ``e1``, ``e2`` the triangles' first vertex
+    and edges v1 - v0, v2 - v0 -> t, 1e20 where missed.  Both orientations
+    hit (no backface culling).  The op order of the JAX package's
+    ``accel/tri.py`` and of the Pallas BVH kernel."""
+    ox, oy, oz = o3
+    dx, dy, dz = d3
     # pvec = d x e2
     px = dy * e2[2] - dz * e2[1]
     py = dz * e2[0] - dx * e2[2]
@@ -45,6 +44,18 @@ def intersect_triangles_brute(o3, d3, v0, e1, e2, eps):
     t = (e2[0] * qx + e2[1] * qy + e2[2] * qz) * inv_det
     hit = (~parallel) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > eps)
     return torch.where(hit, t, MISS_T)
+
+
+def intersect_triangles_brute(o3, d3, v0, e1, e2, eps):
+    """N rays (``o3``, ``d3``: (x, y, z) tuples of [N] planes) against F
+    triangles (``v0``, ``e1``, ``e2``: (x, y, z) tuples of [F] planes, the
+    first vertex and the edges v1 - v0, v2 - v0) -> t [F, N], 1e20 where
+    missed."""
+    return moller_trumbore(
+        tuple(c[None, :] for c in o3), tuple(c[None, :] for c in d3),
+        tuple(c[:, None] for c in v0), tuple(c[:, None] for c in e1),
+        tuple(c[:, None] for c in e2), eps,
+    )
 
 
 def triangle_planes(vertices, faces, dtype=None):

@@ -16,6 +16,9 @@ card's name and power limit, and every step time.
     python -m ascendpathtracing_tpu_torch.bench --mode pt --renderer plain
     python -m ascendpathtracing_tpu_torch.bench --mode mesh   # fused mesh, fwd+bwd
     python -m ascendpathtracing_tpu_torch.bench --mode mesh --fwd-only
+    python -m ascendpathtracing_tpu_torch.bench --mode mesh --renderer xla  # bounce loop
+    python -m ascendpathtracing_tpu_torch.bench --mode mesh --renderer xla --fwd-only \
+        --traversal lockstep
 
 ``--renderer kernel`` is the custom-VJP render on the hand-written CUDA
 kernels (replay backward); ``--renderer plain`` is the plain-torch
@@ -46,6 +49,19 @@ launch per chunk of sample layers); ``--fwd-only`` is the forward
 alone.  ``--renderer plain`` runs the plain twins (the forward with
 residuals, then the replay with the plain segment-sum; minutes at full
 size: pass a smaller ``--spp``).  The value counts samples per second.
+
+``--mode mesh --renderer xla`` is the JAX bench's ``xla-mesh`` cell: the
+same scene through the bounce-loop renderer (``models/mesh``), 1024 x
+1024 pixels at spp4 = ``min(--spp, 4)`` (4,194,304 camera rays, every ray
+held in device memory), 8 bounces, RR from 5, a new seed every step, one
+traversal launch per bounce: the chunk-grid kernel (``--traversal
+chunks``, the default) or the BVH kernel (``--traversal lockstep``,
+forward only: ``diff/mesh`` refuses the BVH's leaf order).
+``--fwd-only`` times ``models/mesh.render_pt_mesh``; otherwise the step is
+``sum(diff/mesh.render_pt_mesh_params(...))`` and its gradients to the
+vertices, face albedo and face emission by autograd (whose plane gathers
+sum their cotangents with the segment-sum kernel: 4 launches per bounce,
+less 2 at the last, whose hit distance no output reads).
 
 Each step is timed with CUDA events after a warm-up; the value is the
 median.  In every mode ``detail.launches_per_step`` maps each kernel that
@@ -251,6 +267,46 @@ def make_mesh_step(renderer, ms, *, device, bounces, width=1024, height=1024,
     return step, grid
 
 
+def make_xla_mesh_step(ms, *, device, traversal, bounces, width=1024, height=1024,
+                       spp4=4, tris_per_chunk=16, fwd_only=True):
+    """One step of the bounce-loop mesh cell -> (a callable returning
+    (value, grads), the device tables).  Rays: ``generate_rays_numpy(
+    width, height, spp4 // 4, seed=0)``; each step draws with the next
+    seed.  fwd_only: the colors [N, 3] and no grads; otherwise the sum of
+    the colors and its gradients to (vertices, face albedo, face
+    emission)."""
+    import numpy as np
+    import torch
+
+    from ascendpathtracing_tpu_torch import camera
+    from ascendpathtracing_tpu_torch.diff import mesh as dmesh
+    from ascendpathtracing_tpu_torch.models import mesh as mesh_mod
+
+    mdev = mesh_mod.mesh_scene_to_device(ms, device=device, pallas_bvh_kernel=True,
+                                         pallas_kernel=traversal,
+                                         tris_per_chunk=tris_per_chunk)
+    rays = torch.tensor(camera.generate_rays_numpy(width, height, spp4 // 4, seed=0)
+                        .astype(np.float32), device=device)
+    seeds = iter(range(1 << 30))
+    kw = dict(bounces=bounces, rr_depth=PT_RR_DEPTH)
+    if fwd_only:
+        def step():
+            return mesh_mod.render_pt_mesh(rays, mdev, seed=next(seeds), **kw), ()
+        return step, mdev
+    if traversal != "chunks":
+        raise ValueError(f"the {traversal} traversal has no differentiable step "
+                         "(diff/mesh.build_traced_dev refuses the BVH's leaf order)")
+    params = {k: v.requires_grad_(True)
+              for k, v in dmesh.mesh_params(ms, device=device).items()}
+    faces = torch.tensor(ms.faces, device=device)
+
+    def step():
+        loss = dmesh.render_pt_mesh_params(rays, params, mdev, faces, seed=next(seeds),
+                                           **kw).sum()
+        return loss, torch.autograd.grad(loss, tuple(params.values()))
+    return step, mdev
+
+
 def time_steps(step, *, iters, warmup):
     """Runs ``warmup`` untimed steps, then ``iters`` steps each between two
     CUDA events -> (step times in ms, the last step's result)."""
@@ -319,7 +375,10 @@ def main(argv=None) -> int:
     p.add_argument("--iters", type=int, default=10, help="timed steps (>= 10)")
     p.add_argument("--warmup", type=int, default=2)
     p.add_argument("--bounces", type=int, default=8)
-    p.add_argument("--renderer", choices=["kernel", "plain"], default="kernel")
+    p.add_argument("--renderer", choices=["kernel", "plain", "xla"], default="kernel",
+                   help="xla: the bounce-loop mesh renderer (--mode mesh only)")
+    p.add_argument("--traversal", choices=["chunks", "lockstep"], default="chunks",
+                   help="--renderer xla: the traversal kernel")
     p.add_argument("--mode", choices=["reference", "pt", "mesh"], default="reference")
     p.add_argument("--spp", type=int, default=64,
                    help="pt kernel and mesh: samples per pixel (spp4, a multiple of 4)")
@@ -333,6 +392,12 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
     if args.iters < 10:
         p.error("--iters must be >= 10 for a median")
+    if args.renderer == "xla" and args.mode != "mesh":
+        p.error("--renderer xla needs --mode mesh")
+    if args.renderer == "xla" and args.traversal == "lockstep" and not args.fwd_only:
+        print("error: --traversal lockstep is forward only: diff/mesh refuses the BVH's "
+              "leaf order (pass --fwd-only)", file=sys.stderr)
+        return 2
 
     import numpy as np
     import torch
@@ -356,7 +421,23 @@ def main(argv=None) -> int:
     n = w * h * 4
     rays = camera.generate_rays_numpy(w, h, 1, seed=0).astype(np.float32)
     extra = {}
-    if args.mode == "mesh":
+    if args.mode == "mesh" and args.renderer == "xla":
+        from ascendpathtracing_tpu_torch.ops import bvh_kernels, histogram_kernels, wbvh_kernels
+
+        fwd_only = args.fwd_only
+        spp4 = min(args.spp, 4)
+        ms = mesh_scene(args.subdiv)
+        step, mdev = make_xla_mesh_step(
+            ms, device=device, traversal=args.traversal, bounces=args.bounces, width=w,
+            height=h, spp4=spp4, tris_per_chunk=args.chunk_tris, fwd_only=fwd_only)
+        scene_name = f"mesh-icosphere s{args.subdiv}"
+        n = w * h * spp4
+        conf = mdev["static"]
+        extra = {"mode": "mesh", "traversal": conf.traversal, "width": w, "height": h,
+                 "spp4": spp4, "rr_depth": PT_RR_DEPTH, "tris": int(ms.faces.shape[0]),
+                 "tris_per_chunk": conf.tris_per_chunk, "max_leaf": conf.max_leaf}
+        counted = [wbvh_kernels, bvh_kernels, histogram_kernels]
+    elif args.mode == "mesh":
         from ascendpathtracing_tpu_torch.ops import histogram_kernels, mesh_pt_kernels
 
         scene_name = f"mesh-icosphere s{args.subdiv}"
@@ -413,6 +494,8 @@ def main(argv=None) -> int:
     # the JAX bench's Mrays/s key for its samples.
     unit = "Msamples/s" if args.mode == "mesh" else "Mrays/s"
     cell = f"{scene_name}, pt" if args.mode != "reference" else scene_name
+    if args.renderer == "xla":
+        cell += f", {args.traversal}"
     print(json.dumps({
         "metric": f"{unit} {tag} @ {args.bounces} bounces "
                   f"({cell}, cuda {args.renderer})",

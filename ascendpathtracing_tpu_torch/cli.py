@@ -27,13 +27,18 @@ match the JAX package's only statistically.
 Artifacts, in the JAX package's formats (shared ``utils/io``):
   <out>/rays.bin  <out>/spheres.bin  <out>/color.bin  <out>/color.ppm
   with --aov: <out>/depth.ppm  <out>/normal.ppm  <out>/albedo.ppm
-A mesh render's color.bin holds each pixel's mean repeated over its
-4 * samples slots, as the JAX CLI's fused mesh render writes it.
+A fused mesh render's color.bin holds each pixel's mean repeated over
+its 4 * samples slots, as the JAX CLI's fused mesh render writes it; the
+bounce-loop renderer's holds one color per ray.
+
+Mesh scenes with ``--renderer plain`` go through the bounce-loop mesh
+renderer (``models/mesh.render_pt_mesh_impl``): the chunk-grid traversal
+kernel on a card, the per-ray BVH walk (``jnp`` mode) with ``--backend
+cpu``, as the JAX CLI's jit renderer picks its traversal.
 
 Ported so far: ``render`` in reference and pt mode with the AOVs, mesh
-scenes through the fused kernel, and ``selftest`` (all but the check
-against the XLA-loop mesh renderer, which prints as skipped).  Mesh
-scenes with ``--renderer plain``, the wavefront renderer, ``--shard``,
+scenes through the fused kernel and the bounce-loop renderer, and
+``selftest`` (all seven checks).  The wavefront renderer, ``--shard``,
 post-processing and the ``train`` and ``oracle`` commands exit 2 with
 "not yet ported".
 """
@@ -134,8 +139,6 @@ def cmd_render(args) -> int:
     if mesh and args.mode != "pt":
         print("error: mesh scenes require --mode pt", file=sys.stderr)
         return 2
-    if mesh and args.renderer == "plain":
-        return _not_ported("the plain mesh renderer (models/mesh.render_pt_mesh_impl)")
     if not mesh and args.renderer == "kernel" and args.mode != "reference":
         # The JAX CLI's refusal for its kernel renderer (cli.py:253-256).
         print("error: --renderer kernel supports --mode reference only",
@@ -185,7 +188,15 @@ def cmd_render(args) -> int:
     t0 = time.time()
     rays_t = torch.tensor(rays, device=device)
     dev = megakernel.scene_to_device(scene, device=device)
-    if mesh_scene is not None:
+    if mesh_scene is not None and args.renderer == "plain":
+        from ascendpathtracing_tpu_torch.models import mesh as mesh_mod
+
+        # the chunk-grid kernel on a card; the per-ray BVH walk on the CPU
+        # (cli.py:287-296 of the JAX package)
+        mdev = mesh_mod.mesh_scene_to_device(
+            mesh_scene, device=device, pallas_bvh_kernel=device.type == "cuda")
+        colors = mesh_mod.render_pt_mesh(rays_t, mdev, bounces=args.bounces, seed=args.seed)
+    elif mesh_scene is not None:
         from ascendpathtracing_tpu_torch.ops import mesh_pt_kernels as mpt
 
         planes, cb, sb, t24, mats, grid = mpt.mesh_pt_tables(mesh_scene, device=device)
@@ -374,6 +385,38 @@ def wbvh_check(device) -> dict:
             "max_t_err": terr, "device": device.type}
 
 
+def mesh_xla_energy_check(device) -> dict:
+    """Selftest check 6 (the JAX CLI's cli.py:562-592): the fused mesh
+    path tracer (``ops/mesh_pt_kernels.render_pt_mesh``) against the
+    bounce-loop mesh renderer (``models/mesh.render_pt_mesh``, chunks
+    mode), mean energy on an icosphere s2 in smallpt9 at 64x64, spp4 32,
+    4 bounces, RR from 3 (the CUDA kernels on a card, the twins on the
+    CPU; both draw from the port's Philox streams).  The means must agree
+    within 3% relative, ~3x the Monte-Carlo floor at this sample count."""
+    import numpy as np
+    import torch
+
+    from ascendpathtracing_tpu_torch import bench, camera
+    from ascendpathtracing_tpu_torch.models import mesh as mesh_mod
+    from ascendpathtracing_tpu_torch.ops import mesh_pt_kernels as mpt
+
+    ms = bench.mesh_scene(2)
+    w = h = 64
+    spp4 = 32
+    planes, cb, sb, t24, mats, grid = mpt.mesh_pt_tables(ms, device=device)
+    img_f = mpt.render_pt_mesh(planes, cb, sb, t24, width=w, height=h, spp4=spp4,
+                               materials=mats, bounces=4, rr_depth=3,
+                               **mpt.pt_tables_kwargs(grid, device))
+    rays = camera.generate_rays_numpy(w, h, spp4 // 4, seed=0).astype(np.float32)
+    mdev = mesh_mod.mesh_scene_to_device(ms, device=device, pallas_bvh_kernel=True)
+    img_x = mesh_mod.render_pt_mesh(torch.tensor(rays, device=device), mdev, bounces=4,
+                                    rr_depth=3)
+    mf, mx = float(img_f.mean()), float(img_x.mean())
+    rel = abs(mf - mx) / max(mx, 1e-9)
+    return {"ok": rel < 0.03 and np.isfinite(mf), "fused_mean": mf, "xla_mean": mx,
+            "rel_diff": rel}
+
+
 def mesh_vjp_check(device) -> dict:
     """Selftest check ``mesh_fused_vjp_grads`` (the JAX CLI's
     cli.py:594-619): the fused mesh render's replay backward
@@ -407,11 +450,10 @@ def cmd_selftest(args) -> int:
     """The JAX package's ``selftest`` on the chosen backend: plain path vs
     the NumPy oracle, kernel forward vs plain path, the kernel custom-VJP
     gradients vs plain autograd, the fused path tracer's energy vs the
-    plain estimator's, the chunk-grid traversal vs brute force, and the
-    fused mesh render's replay gradients.  ``mesh_pt_fused_energy_vs_xla``
-    (the fused mesh path tracer vs the XLA-loop mesh renderer) prints as
-    skipped: that renderer is not yet ported.  One JSON line per check;
-    exit 0 iff all that ran pass."""
+    plain estimator's, the chunk-grid traversal vs brute force, the fused
+    mesh path tracer's energy vs the bounce-loop mesh renderer's, and the
+    fused mesh render's replay gradients.  One JSON line per check; exit 0
+    iff all pass."""
     device = _device(args.backend)
     if device is None:
         return 2
@@ -477,9 +519,9 @@ def cmd_selftest(args) -> int:
     res = wbvh_check(device)
     report("wbvh_chunks_vs_brute", res.pop("ok"), **res)
 
-    # 6. needs the XLA-loop mesh renderer.
-    print(json.dumps({"check": "mesh_pt_fused_energy_vs_xla",
-                      "skipped": "models/mesh.render_pt_mesh_impl not yet ported"}))
+    # 6. fused mesh path tracer vs the bounce-loop mesh renderer.
+    res = mesh_xla_energy_check(device)
+    report("mesh_pt_fused_energy_vs_xla", res.pop("ok"), **res)
 
     # 6b. the fused mesh render's replay backward.
     res = mesh_vjp_check(device)

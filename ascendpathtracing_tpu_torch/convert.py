@@ -4,9 +4,10 @@ tensors.
 Scenes and camera rays are NumPy arrays (``scenes.SphereScene.soa10``,
 ``camera.generate_rays_numpy``, ``models.megakernel.scene_to_device``
 read back as NumPy; the mesh tables of ``pallas_mesh_pt.mesh_pt_tables``).
-These functions carry those arrays, a test's uniform draws and the fused
-mesh kernel's replay residuals over to a device, dtype and layout, so
-that a test feeds both sides the same inputs.  Nothing here imports the
+These functions carry those arrays, a test's uniform draws, the fused
+mesh kernel's replay residuals, a BVH's tables and a whole mesh device
+dict over to a device, dtype and layout, so that a test feeds both sides
+the same inputs.  Nothing here imports the
 JAX package: the callers hand in arrays.
 """
 
@@ -95,6 +96,71 @@ def mesh_tables_from_numpy(
         *boxes,
         torch.tensor(rows, dtype=torch.float32, device=device),
     )
+
+
+def flat_bvh_from_numpy(bvh):
+    """A JAX ``accel/bvh.FlatBVH`` (any object with its array fields and
+    ``max_leaf``) -> the port's ``FlatBVH`` with the same arrays, so that
+    both packages walk the same tables (the JAX package's C++ builder and
+    the NumPy builder give different ones)."""
+    from ascendpathtracing_tpu_torch.accel.bvh import FlatBVH
+
+    fields = {"bmin": np.float32, "bmax": np.float32, "first": np.int32,
+              "count": np.int32, "miss": np.int32, "tri_order": np.int32}
+    arrays = {k: np.array(getattr(bvh, k), dt) for k, dt in fields.items()}
+    m = arrays["bmin"].shape[0]
+    if arrays["bmin"].shape != (m, 3) or arrays["bmax"].shape != (m, 3) or any(
+            arrays[k].shape != (m,) for k in ("first", "count", "miss")):
+        raise ValueError(f"inconsistent BVH arrays: {({k: a.shape for k, a in arrays.items()})}")
+    return FlatBVH(**arrays, max_leaf=int(bvh.max_leaf))
+
+
+def bvh_tables_from_numpy(nodesf, nodesi, tris9, *, device="cpu") -> tuple:
+    """``pack_bvh_for_pallas``'s three arrays (any arrays ``np.asarray``
+    reads) -> the lockstep kernel's tables: nodesf [M, 6] float32, nodesi
+    [M, 3] int32, tris9 [F, 9] float32."""
+    out = []
+    for name, a, dtype, width in (("nodesf", nodesf, torch.float32, 6),
+                                  ("nodesi", nodesi, torch.int32, 3),
+                                  ("tris9", tris9, torch.float32, 9)):
+        arr = np.asarray(a)
+        if arr.ndim != 2 or arr.shape[1] != width:
+            raise ValueError(f"expected [*, {width}] {name}, got {arr.shape}")
+        out.append(torch.tensor(arr, dtype=dtype, device=device))
+    return tuple(out)
+
+
+_PLANE_KEYS = ("v0", "e1", "e2", "fnormal", "f_albedo", "f_emission")
+
+
+def mesh_dev_from_jax(dev: Mapping, *, device="cpu") -> dict:
+    """The JAX package's ``models/mesh.mesh_scene_to_device`` dict (arrays
+    ``np.asarray`` reads) -> the port's, table for table, each in its own
+    dtype: the sphere dict (in the planes' dtype), the plane tuples,
+    ``f_material``, ``bvh``, ``pallas_bvh``, ``wbvh``, ``wbvh_bounds``,
+    ``face_of_slot``, and ``static`` as the port's ``StaticConf``."""
+    from ascendpathtracing_tpu_torch.models.mesh import StaticConf
+
+    def t(a):
+        return torch.tensor(np.asarray(a), device=device)
+
+    planes = {k: tuple(t(c) for c in dev[k]) for k in _PLANE_KEYS}
+    out = {
+        "spheres": scene_dict_from_numpy(dev["spheres"], device=device,
+                                         dtype=planes["v0"][0].dtype),
+        **planes,
+        "f_material": t(dev["f_material"]).to(torch.int32),
+        "bvh": None if dev.get("bvh") is None else {k: t(a) for k, a in dev["bvh"].items()},
+        "pallas_bvh": (None if dev.get("pallas_bvh") is None
+                       else bvh_tables_from_numpy(*dev["pallas_bvh"], device=device)),
+        "static": StaticConf(*tuple(dev["static"])),
+        "max_leaf": int(dev.get("max_leaf", 0)),
+    }
+    if dev.get("wbvh") is not None:
+        out["wbvh"] = tuple(t(a) for a in dev["wbvh"])
+        out["wbvh_bounds"] = tuple(t(a) for a in dev["wbvh_bounds"])
+        out["face_of_slot"] = t(dev["face_of_slot"]).to(torch.int32)
+    return out
 
 
 def residuals_from_jax(wid, resv, *, spp4, tile, device="cpu", dtype=torch.float32):

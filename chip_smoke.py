@@ -18,7 +18,13 @@ the mesh path's training step: the fused kernel's replay residuals, the
 segment-sum kernel (csrc/segsum.cu) on the test shapes, a 1,310,720-slot
 stream and the real replay stream, the full-size step through
 ``diff/mesh_fused.make_render_pt_mesh_diff`` and the bench, and a float64
-finite-difference gate.  It proves through the launch counters, reset
+finite-difference gate, then the bounce-loop mesh renderer: the BVH
+traversal kernel (csrc/bvh.cu) against its twin, the chunk kernel and
+brute force on the camera rays and the bounced rays of the s4 cell, the
+render at 1024 x 1024 x 4 samples x 8 bounces with either traversal
+kernel, its fwd+bwd step through ``diff/mesh`` with a float64
+finite-difference gate, and its CLI and bench entry points.  It proves
+through the launch counters, reset
 before each run, that each path went through its kernels, and times
 kernels, plain versions and, where one PyTorch call computes the same
 function, that call (``library_ms``) with CUDA events.  One line per
@@ -71,6 +77,7 @@ SOURCE = {  # launch counter -> its CUDA source
     "wbvh": f"{CSRC}/wbvh.cu",
     "mesh_pt": f"{CSRC}/mesh_pt.cu",
     "segsum": f"{CSRC}/segsum.cu",
+    "bvh": f"{CSRC}/bvh.cu",
 }
 REPLACES = {  # launch counter -> the TPU kernel it replaces
     "fwd": f"{PALLAS}:41",
@@ -83,6 +90,7 @@ REPLACES = {  # launch counter -> the TPU kernel it replaces
     # _paged_kernel (segment_rows_paged) and _hist_kernel (segment_rows_matmul)
     "segsum": "ascendpathtracing_tpu/ops/pallas_histogram.py:127, "
               "ascendpathtracing_tpu/ops/pallas_histogram.py:46",
+    "bvh": "ascendpathtracing_tpu/ops/pallas_bvh.py:39",
 }
 # The user-facing runs, each counted from zero, and the launches each
 # must make.  ``train_step`` is the main path (fwd + replay bwd); the
@@ -93,6 +101,8 @@ REPLACES = {  # launch counter -> the TPU kernel it replaces
 # ``mesh_step`` one forward step of the bench's mesh cell (phase 17);
 # ``mesh_train_step`` one training step of that cell: the forward with
 # residuals and one segment-sum per replay chunk (phase 21).
+# ``xla_mesh_*`` are the bounce-loop mesh renderer at the bench's xla-mesh
+# cell: one traversal launch per bounce (phases 24-25).
 _NONE = dict.fromkeys(SOURCE, 0)
 RUNS = {
     "train_step": {**_NONE, "fwd_idx": 1, "bwd_replay": 1},
@@ -102,6 +112,12 @@ RUNS = {
     "first_hit_mesh": {**_NONE, "wbvh": 1},
     "mesh_step": {**_NONE, "mesh_pt": 1},
     "mesh_train_step": {**_NONE, "mesh_pt": 1, "segsum": MESH_CHUNKS},
+    "xla_mesh_fwd_chunks": {**_NONE, "wbvh": BOUNCES},
+    "xla_mesh_fwd_lockstep": {**_NONE, "bvh": BOUNCES},
+    # + 2 segment-sums per 9-plane gather's backward, 2 gathers a bounce;
+    # the last bounce's hit distance moves only the next origin, which no
+    # output reads, so its recompute gather has no backward
+    "xla_mesh_train_step": {**_NONE, "wbvh": BOUNCES, "segsum": 4 * BOUNCES - 2},
 }
 RUN_OF = {  # kernel -> the run whose count its row reports
     "fwd": "inference_render",
@@ -112,7 +128,9 @@ RUN_OF = {  # kernel -> the run whose count its row reports
     "wbvh": "first_hit_mesh",
     "mesh_pt": "mesh_step",
     "segsum": "mesh_train_step",
+    "bvh": "xla_mesh_fwd_lockstep",
 }
+BVH_SLICE = 262144  # rays of the BVH twin's check and timing (the twin is slow)
 
 
 class SmokeFailure(RuntimeError):
@@ -206,10 +224,13 @@ def main() -> int:
     from ascendpathtracing_tpu_torch.device import gpu_name_and_power_limit
     from ascendpathtracing_tpu_torch import camera, oracle, scenes
     from ascendpathtracing_tpu_torch.accel import meshes
+    from ascendpathtracing_tpu_torch.accel import bvh as bvh_mod
     from ascendpathtracing_tpu_torch.accel import tri
+    from ascendpathtracing_tpu_torch.diff import mesh as dmesh
     from ascendpathtracing_tpu_torch.diff import mesh_fused as mf
     from ascendpathtracing_tpu_torch.models import mesh as mm
     from ascendpathtracing_tpu_torch.ops import build, chunk_grid
+    from ascendpathtracing_tpu_torch.ops import bvh_kernels as bk
     from ascendpathtracing_tpu_torch.ops import histogram_kernels as segk
     from ascendpathtracing_tpu_torch.ops import mesh_pt_kernels as mpt
     from ascendpathtracing_tpu_torch.ops import pt_kernels as ptk
@@ -231,11 +252,12 @@ def main() -> int:
         t = torch.float64 if dtype == np.float64 else torch.float32
         return convert.scene_planes_from_numpy(scene.soa10(dtype), device=dev, dtype=t)
 
-    # ---- 1. build (all five libraries at once) -------------------------
+    # ---- 1. build (all six libraries at once) --------------------------
     t0 = time.time()
-    libs = ("render_ref", "render_pt", "wbvh", "mesh_pt", "segsum")
+    libs = ("render_ref", "render_pt", "wbvh", "mesh_pt", "segsum", "bvh")
     build.build_all(libs)
-    for mod in (rk, ptk, wk, mpt, segk):
+    kernel_mods = (rk, ptk, wk, mpt, segk, bk)
+    for mod in kernel_mods:
         mod.load_library()
     require(mf.LAYER_CHUNK * MESH_CHUNKS == PT_SPP4, "replay chunks per step")
     build_s = time.time() - t0
@@ -348,12 +370,11 @@ def main() -> int:
 
     def counted(run):
         torch.cuda.synchronize()
-        for mod in (rk, ptk, wk, mpt, segk):
+        for mod in kernel_mods:
             mod.reset_launches()
         out = run()
         torch.cuda.synchronize()
-        return out, {**rk.LAUNCHES, **ptk.LAUNCHES, **wk.LAUNCHES, **mpt.LAUNCHES,
-                     **segk.LAUNCHES}
+        return out, {k: v for mod in kernel_mods for k, v in mod.LAUNCHES.items()}
 
     def train_step(m, rays):
         out = m(rays)
@@ -647,7 +668,8 @@ def main() -> int:
     require(eq4m, "wbvh 4M camera rays: kernel and twin differ")
     fos = torch.tensor(m_grid.face_of_slot, device=dev)
     v_s4 = np.asarray(ms.vertices, np.float32)
-    brute4m = vs_brute(tk, hk, fos, *brute_first_hit(rp_cam, v_s4, ms.faces))
+    bt_cam, bf_cam = brute_first_hit(rp_cam, v_s4, ms.faces)
+    brute4m = vs_brute(tk, hk, fos, bt_cam, bf_cam)
     require(brute_ok(brute4m), f"wbvh 4M vs brute: {brute4m}")
     wbvh_err = float((tk - wk.intersect_chunks_plain(rp_cam, m_cb, m_sb, m_t24, **m_kw)[0]).abs().max())
 
@@ -838,14 +860,18 @@ def main() -> int:
     with contextlib.redirect_stdout(buf):
         rc_self, self_launches = counted(lambda: cli.main(["selftest", "--backend", "cuda"]))
     self_lines = [json.loads(x) for x in buf.getvalue().strip().splitlines()]
-    require(rc_self == 0 and self_lines[-1]["passed"] == 6 and self_lines[-1]["ran"] == 6
-            and self_launches["wbvh"] == 1 and self_launches["segsum"] >= 1
+    # check 5 launches the chunk kernel once, check 6's bounce-loop render
+    # once per bounce (4)
+    require(rc_self == 0 and self_lines[-1]["passed"] == 7 and self_lines[-1]["ran"] == 7
+            and self_launches["wbvh"] == 5 and self_launches["segsum"] >= 1
+            and self_lines[5]["check"] == "mesh_pt_fused_energy_vs_xla" and self_lines[5]["ok"]
             and self_lines[6]["check"] == "mesh_fused_vjp_grads" and self_lines[6]["ok"],
             f"cli selftest: {self_lines}, launches {self_launches}")
     phase("mesh_entry_points_counted", first_hit_mesh=launches["first_hit_mesh"],
           triangle_pixels=int(tri_px.sum()), mesh_step=launches["mesh_step"],
           bench=mesh_line, cli_render=mesh_cli, selftest_check5=self_lines[4],
-          selftest_mesh_vjp=self_lines[6], selftest_launches=self_launches)
+          selftest_mesh_xla=self_lines[5], selftest_mesh_vjp=self_lines[6],
+          selftest_launches=self_launches)
     del out_mesh, ft, fk, fh, tc, hc, dev_chunks
 
     # 18. Times: wbvh kernel (10 runs) vs twin (3) at 4,194,304 camera
@@ -1141,6 +1167,239 @@ def main() -> int:
             == {"mesh_pt": 1.0, "segsum": float(MESH_CHUNKS)},
             f"bench --mode mesh: {train_line}")
     phase("mesh_train_entry_points", bench=train_line, bench_fwd_only=mesh_line)
+    torch.cuda.empty_cache()
+
+    # ---- 23-26. the bounce-loop mesh renderer (csrc/bvh.cu, csrc/wbvh.cu,
+    # models/mesh, diff/mesh) --------------------------------------------
+    # 23. The BVH kernel on the lockstep tables of the s4 cell (max_leaf
+    # 64): the 4,194,304 camera rays and the 4,194,304 rays that leave
+    # bounce 1 of the bounce-loop render (incoherent).  Kernel == twin
+    # bitwise on the first BVH_SLICE rays of each; kernel vs the chunk
+    # kernel and vs brute force on all rays: the same hit set, and the
+    # same face (through tri_order and face_of_slot) and t within 1e-3 on
+    # >= 99.99% of the hit rays (the chunk kernel's plane-form test is not
+    # watertight; Moller-Trumbore ties at shared edges go to the first
+    # face in leaf order, not the lowest face index).
+    dev_lock = mm.mesh_scene_to_device(ms, device=dev, pallas_bvh_kernel=True,
+                                       pallas_kernel="lockstep")
+    b_tabs = dev_lock["pallas_bvh"]
+    max_leaf = dev_lock["static"].max_leaf
+    tri_order = torch.tensor(bvh_mod.build_bvh(v_s4, ms.faces, max_leaf=max_leaf).tri_order,
+                             device=dev).long()
+    rp_cam = convert.rays_planes_from_numpy(rays_np, device=dev)
+    grabbed = []
+    mesh_hit = mm._mesh_hit
+
+    def grab(o3, d3, *args, **kwargs):  # keeps the rays of each bounce's query
+        grabbed.append(torch.stack([*o3, *d3]).float().contiguous())
+        return mesh_hit(o3, d3, *args, **kwargs)
+
+    mm._mesh_hit = grab
+    try:
+        mm.render_pt_mesh(torch.tensor(rays_np, device=dev),
+                          mm.mesh_scene_to_device(ms, device=dev, pallas_bvh_kernel=True),
+                          bounces=2, rr_depth=PT_RR)
+    finally:
+        mm._mesh_hit = mesh_hit
+    require(len(grabbed) == 2, f"bounce-loop render queried the mesh {len(grabbed)} times")
+    rp_bounce1 = grabbed.pop()
+    del grabbed
+
+    def face_ok(r, n):
+        """brute_ok, and the same face on >= 99.99% of the n rays."""
+        return brute_ok(r) and r["n_other_face"] <= 1e-4 * r["hit_frac"] * n
+
+    bvh_sets = {}
+    for name, rp in (("camera", rp_cam), ("bounce1", rp_bounce1)):
+        tk, hk = bk.intersect_bvh(rp, *b_tabs, max_leaf=max_leaf)
+        sl = rp[:, :BVH_SLICE].contiguous()
+        walk_b = torch.zeros((2, BVH_SLICE), dtype=torch.int64, device=dev)
+        twin_times, (tp, hp) = bench.time_steps(
+            lambda: bk.intersect_bvh_plain(sl, *b_tabs, max_leaf=max_leaf, counts=walk_b),
+            iters=1, warmup=0)
+        require(torch.equal(tk[:BVH_SLICE], tp) and torch.equal(hk[:BVH_SLICE], hp),
+                f"bvh {name}: kernel and twin differ on the first {BVH_SLICE} rays")
+        bt, bf = (bt_cam, bf_cam) if name == "camera" else brute_first_hit(rp, v_s4, ms.faces)
+        tw, sw = wk.intersect_chunks(rp, m_cb, m_sb, m_t24, **m_kw)
+        # vs_brute maps hk to faces through tri_order
+        res = {"vs_brute": vs_brute(tk, hk, tri_order, bt, bf),
+               "vs_wbvh": vs_brute(tk, hk, tri_order, tw, fos[sw.long()])}
+        n_r = rp.shape[1]
+        require(face_ok(res["vs_brute"], n_r) and face_ok(res["vs_wbvh"], n_r),
+                f"bvh {name}: {res}")
+        bvh_sets[name] = {
+            **res, "kernel_ms": med_ms(lambda: bk.intersect_bvh(rp, *b_tabs, max_leaf=max_leaf)),
+            "wbvh_ms": med_ms(lambda: wk.intersect_chunks(rp, m_cb, m_sb, m_t24, **m_kw)),
+            "twin_ms_slice": twin_times[0],
+            "walk_slice": {"nodes": int(walk_b[0].sum()), "triangles": int(walk_b[1].sum()),
+                           "nodes_max": int(walk_b[0].max())}}
+        del tk, hk, tp, hp, tw, sw, bt, bf, walk_b
+    n_b = rp_cam.shape[1]
+    del rp, rp_cam, rp_bounce1, bt_cam, bf_cam
+    torch.cuda.empty_cache()
+    phase("bvh_kernel_vs_twin_and_brute", gpu=gpu, rays=n_b, slice=BVH_SLICE,
+          nodes=dev_lock["pallas_bvh"][0].shape[0], max_leaf=max_leaf,
+          tolerance="bitwise vs twin on the slice; vs brute and wbvh: same hit set; same "
+          "face and t within 1e-3 on >= 99.99% of hit rays", **bvh_sets)
+
+    # 24. The bounce-loop render at the JAX bench's xla-mesh cell (s4,
+    # 1024x1024 x 4 samples = 4,194,304 rays, 8 bounces, RR from 5) with
+    # the chunk kernel and with the BVH kernel, each counted from zero:
+    # one traversal launch per bounce.  The per-pixel means of chunks
+    # (seed 0), lockstep (seed 1) and the fused kernel at the same size
+    # agree within 4 standard errors of their per-pixel differences.
+    xla_img, xla_fwd = {}, {}
+    for trav in ("chunks", "lockstep"):
+        step, _ = bench.make_xla_mesh_step(ms, device=dev, traversal=trav, bounces=BOUNCES)
+        run = f"xla_mesh_fwd_{trav}"
+        (img, _), launches[run] = counted(step)
+        require(launches[run] == RUNS[run], f"{run} launches {launches[run]}")
+        require(bool(torch.isfinite(img).all()) and float(img.min()) >= 0.0,
+                f"{run}: non-finite or negative colors")
+        if trav == "lockstep":
+            img, _ = step()  # the next seed: independent of the chunks image
+        xla_img[trav] = img.reshape(-1, 4, 3).mean(dim=1).T  # per-pixel means [3, W*H]
+        xla_fwd[trav] = {"ms": statistics.median(bench.time_steps(step, iters=5, warmup=0)[0]),
+                         "mean": float(img.mean())}
+        del img, step
+    fused4 = mpt.render_pt_mesh(m_planes, m_cb, m_sb, m_t24, spp4=4, **full)
+
+    def z_score(a, b):
+        diff = (a - b).double()
+        return float(diff.mean()) / (float(diff.std()) / diff[0].numel() ** 0.5)
+
+    zs = {"chunks_vs_lockstep": z_score(xla_img["chunks"], xla_img["lockstep"]),
+          "chunks_vs_fused": z_score(xla_img["chunks"], fused4),
+          "lockstep_vs_fused": z_score(xla_img["lockstep"], fused4)}
+    require(all(abs(z) < 4.0 for z in zs.values()), f"xla mesh image means: {zs}")
+    phase("xla_mesh_fwd_1024x1024_spp4", gpu=gpu, launches={
+        k: launches[f"xla_mesh_fwd_{k}"] for k in ("chunks", "lockstep")}, z=zs,
+        fused_mean=float(fused4.mean()), finite=True, **xla_fwd,
+        msamples_per_s={k: n_b / (v["ms"] * 1e-3) / 1e6 for k, v in xla_fwd.items()})
+    del xla_img, fused4
+    torch.cuda.empty_cache()
+
+    # 25. Its fwd+bwd step (chunks, diff): sum of the colors, gradients to
+    # vertices, face albedo and face emission through diff/mesh; eager
+    # autograd keeps every bounce's graph (no checkpointing).
+    train, _ = bench.make_xla_mesh_step(ms, device=dev, traversal="chunks", bounces=BOUNCES,
+                                        fwd_only=False)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    (loss_x, grads_x), launches["xla_mesh_train_step"] = counted(train)
+    peak_x = torch.cuda.max_memory_allocated() - resident
+    require(launches["xla_mesh_train_step"] == RUNS["xla_mesh_train_step"],
+            f"xla mesh train step launches {launches['xla_mesh_train_step']}")
+    require(bool(torch.isfinite(loss_x)) and all(
+        bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0 for g in grads_x),
+        "xla mesh train step: non-finite or zero gradients")
+    grad_max = dict(zip(("vertices", "face_albedo", "face_emission"),
+                        (float(g.abs().max()) for g in grads_x)))
+    del loss_x, grads_x
+    train_times, _ = bench.time_steps(train, iters=3, warmup=0)
+    del train
+    torch.cuda.empty_cache()
+
+    # Finite differences on the card (tests/test_mesh_grad.py:50-84):
+    # float64 brute force, 24x24 camera rays, icosphere s1 (r 12) in
+    # smallpt9, 4 bounces, the Philox stream (seed 7): the largest face
+    # albedo and emission gradients of the mean radiance (rtol 1e-5) and
+    # vertex gradients of the first-hit depth (rtol 1e-4).
+    fd_ms = mm.MeshScene.cornell_with_mesh(*meshes.icosphere(
+        center=(50, 40, 60), radius=12.0, subdivisions=1), albedo=(0.6, 0.5, 0.4))
+    fd_dev = mm.mesh_scene_to_device(fd_ms, device=dev, dtype=torch.float64, use_bvh=False)
+    fd_params = dmesh.mesh_params(fd_ms, torch.float64, device=dev)
+    fd_faces = torch.tensor(fd_ms.faces, device=dev)
+    fd_rays = torch.tensor(camera.generate_rays_numpy(24, 24, 1, seed=0), device=dev)
+
+    def radiance(p):
+        return dmesh.render_pt_mesh_params(fd_rays, p, fd_dev, fd_faces, bounces=4,
+                                           seed=7).mean()
+
+    def depth(p):
+        d = dmesh.depth_aov_params(fd_rays, p, fd_dev, fd_faces)
+        return (d * (d < 1e19).double()).sum()
+
+    fd_rows = []
+    for loss_fn, name, count, rtol, atol in ((radiance, "face_albedo", 2, 1e-5, 1e-10),
+                                             (radiance, "face_emission", 2, 1e-5, 1e-10),
+                                             (depth, "vertices", 3, 1e-4, 1e-8)):
+        leaves = {k: v.clone().requires_grad_(k == name) for k, v in fd_params.items()}
+        (g,) = torch.autograd.grad(loss_fn(leaves), (leaves[name],))
+        for fi in torch.argsort(g.abs().flatten(), descending=True)[:count].tolist():
+            idx = divmod(fi, 3)
+            plus = {k: v.clone() for k, v in fd_params.items()}
+            minus = {k: v.clone() for k, v in fd_params.items()}
+            plus[name][idx] += 1e-6
+            minus[name][idx] -= 1e-6
+            with torch.no_grad():
+                est = (float(loss_fn(plus)) - float(loss_fn(minus))) / 2e-6
+            got = float(g[idx])
+            require(abs(got - est) <= atol + rtol * abs(est),
+                    f"xla FD gate {name} {idx}: grad {got} vs fd {est}")
+            fd_rows.append({"leaf": name, "index": list(idx), "grad": got, "fd": est,
+                            "rel_err": abs(got - est) / max(abs(est), 1e-300)})
+    phase("xla_mesh_train_step", gpu=gpu, launches=launches["xla_mesh_train_step"],
+          finite=True, grad_max=grad_max, checkpoint="none (eager autograd)",
+          step_ms_median=statistics.median(train_times), step_ms=train_times,
+          step_peak_memory_bytes=peak_x,
+          msamples_per_s=n_b / (statistics.median(train_times) * 1e-3) / 1e6,
+          fd_gate_f64_24x24=fd_rows, fd_tolerance="face attributes rtol 1e-5, vertices 1e-4")
+
+    # 26. Entry points: cli render of a mesh scene with --renderer plain
+    # (one chunk-kernel launch per bounce), the selftest (phase 17, 7 of
+    # 7), and the xla-mesh bench fwd+bwd, --fwd-only and --traversal
+    # lockstep --fwd-only; lockstep fwd+bwd is refused (exit 2).
+    with tempfile.TemporaryDirectory() as tmp:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc, cli_launches = counted(lambda: cli.main(
+                ["render", "--scene", "mesh-icosphere", "--mode", "pt", "--renderer", "plain",
+                 "--backend", "cuda", "--width", "256", "--height", "256", "--samples", "4",
+                 "--bounces", str(BOUNCES), "--check-finite", "--out", tmp]))
+        xla_cli = json.loads(buf.getvalue().strip().splitlines()[-1])
+        require(rc == 0 and (Path(tmp) / "color.ppm").exists()
+                and cli_launches == {**_NONE, "wbvh": BOUNCES},
+                f"cli mesh render --renderer plain: {xla_cli}, launches {cli_launches}")
+    xla_bench = {}
+    for label, argv, want in (
+            ("fwd+bwd", [], {"wbvh": float(BOUNCES), "segsum": 4.0 * BOUNCES - 2}),
+            ("fwd_only", ["--fwd-only"], {"wbvh": float(BOUNCES)}),
+            ("lockstep_fwd_only", ["--traversal", "lockstep", "--fwd-only"],
+             {"bvh": float(BOUNCES)})):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc_bench = bench.main(["--mode", "mesh", "--renderer", "xla", *argv])
+        line = json.loads(buf.getvalue().strip().splitlines()[-1])
+        require(rc_bench == 0 and line["value"] > 0
+                and line["detail"]["launches_per_step"] == want,
+                f"bench --mode mesh --renderer xla {argv}: {line}")
+        xla_bench[label] = line
+    with contextlib.redirect_stderr(io.StringIO()):
+        rc_refused = bench.main(["--mode", "mesh", "--renderer", "xla", "--traversal",
+                                 "lockstep"])
+    require(rc_refused == 2, f"lockstep fwd+bwd bench: exit {rc_refused}, expected 2")
+    phase("xla_mesh_entry_points", cli_render=xla_cli, cli_launches=cli_launches,
+          selftest="7 of 7 (phase 17)", bench=xla_bench, lockstep_fwd_bwd_exit=rc_refused)
+
+    # The BVH kernel's row: launches of the lockstep render, kernel ms on
+    # the bounced rays (the render's bounces 1-7) and on the camera rays,
+    # the twin's ms on its slice, the bound at the bounced rays: bytes of
+    # rays, outputs and tables; box and triangle tests from the twin's walk
+    # on its slice, scaled to all rays.
+    walk_b1 = bvh_sets["bounce1"]["walk_slice"]
+    n_nodes, n_tris = b_tabs[0].shape[0], b_tabs[2].shape[0]
+    rows.append({
+        "name": "bvh", "route": "cuda", "source": SOURCE["bvh"], "replaces": REPLACES["bvh"],
+        "run": RUN_OF["bvh"], "launches": launches[RUN_OF["bvh"]]["bvh"],
+        "max_abs_err": 0.0, "ms": bvh_sets["bounce1"]["kernel_ms"],
+        "ms_camera_rays": bvh_sets["camera"]["kernel_ms"],
+        "plain_ms": bvh_sets["bounce1"]["twin_ms_slice"], "plain_rays": BVH_SLICE,
+        **bound(n_b * (24 + 8) + 36 * (n_nodes + n_tris),
+                (walk_b1["nodes"] * BOX_OPS + walk_b1["triangles"] * TRI_OPS) * n_b / BVH_SLICE),
+        "library_ms": None, "library": "none: no single PyTorch call traverses a BVH",
+    })
 
     print(gpu_name_and_power_limit(), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

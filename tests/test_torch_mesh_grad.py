@@ -22,6 +22,7 @@ from ascendpathtracing_tpu_torch.diff import mesh_fused as mf
 from ascendpathtracing_tpu_torch.ops import mesh_pt_kernels as mpt
 from ascendpathtracing_tpu_torch.ops import pt_kernels as ptk
 from tests.test_pallas_mesh_pt import _scene as jax_mixed_scene
+from tests.test_torch_slice import one_cpu_thread  # noqa: F401  (autouse)
 
 W = H = 32
 SPP4 = 4
@@ -325,3 +326,232 @@ def test_inverse_rendering_recovers_slot_albedo(jax_tables):
         alb = (alb - 6.0 * g).clamp(0.0, 1.0).detach().requires_grad_(True)
     l1 = float(loss_fn(alb.detach()))
     assert np.isfinite(l1) and l1 < l0 / 5, (l0, l1)
+
+
+# ------------------------------ the bounce-loop renderer (diff/mesh) ----
+# tests/test_mesh_grad.py's scene: icosphere s1 (r 12) in smallpt9, 24x24
+# camera rays.  Face attributes reach the radiance; vertices reach the
+# first-hit depth AOV (at fixed uniforms the radiance of this all-diffuse
+# scene is piecewise constant in the vertices).
+def _xla_setup(traversal, dtype=torch.float64):
+    from ascendpathtracing_tpu_torch.accel import meshes
+    from ascendpathtracing_tpu_torch.camera import generate_rays_numpy
+    from ascendpathtracing_tpu_torch.diff import mesh as dm
+    from ascendpathtracing_tpu_torch.models import mesh as mm
+
+    v, f = meshes.icosphere(center=(50, 40, 60), radius=12.0, subdivisions=1)
+    ms = mm.MeshScene.cornell_with_mesh(v, f, albedo=(0.6, 0.5, 0.4))
+    kw = dict(pallas_bvh_kernel=True) if traversal == "chunks" else dict(use_bvh=False)
+    dev = mm.mesh_scene_to_device(ms, dtype=dtype, **kw)
+    rays = torch.tensor(generate_rays_numpy(24, 24, 1, seed=0), dtype=dtype)
+    return ms, dev, dm.mesh_params(ms, dtype), torch.tensor(f), rays
+
+
+def _xla_radiance(params, rays, dev, faces, **kw):
+    from ascendpathtracing_tpu_torch.diff import mesh as dm
+
+    return dm.render_pt_mesh_params(rays, params, dev, faces, bounces=4, **kw).mean()
+
+
+def _xla_depth(params, rays, dev, faces):
+    from ascendpathtracing_tpu_torch.diff import mesh as dm
+
+    d = dm.depth_aov_params(rays, params, dev, faces)
+    return (d * (d < 1e19).to(d.dtype)).sum()
+
+
+def _grads(fn, params, names):
+    leaves = {k: v.detach().clone().requires_grad_(k in names) for k, v in params.items()}
+    return dict(zip(names, torch.autograd.grad(fn(leaves), [leaves[k] for k in names])))
+
+
+def test_xla_mesh_grads_match_jax_grad():
+    """Brute, float64, the same uniforms (4 bounces): the port's gradients
+    of the mean radiance to face albedo and emission vs jax.grad of JAX's
+    build_traced_dev + render_pt_mesh_impl, rtol 1e-9 (0 and 7e-18
+    absolute measured); vertex gradients of the first-hit depth, rtol 1e-9.
+    The radiance's vertex gradient is finite and exactly 0 in the port;
+    JAX's is NaN in every entry (ROADMAP queue 3)."""
+    from ascendpathtracing_tpu.diff import mesh as jax_dm
+    from ascendpathtracing_tpu.models import mesh as jax_mm
+
+    ms, dev, params, faces, rays = _xla_setup("brute")
+    u = np.random.RandomState(0).rand(4, 3, rays.shape[0])
+    jms = jax_mm.MeshScene.cornell_with_mesh(ms.vertices, ms.faces, albedo=(0.6, 0.5, 0.4))
+    traced, static = jax_mm._split_static(
+        jax_mm.mesh_scene_to_device(jms, dtype=jnp.float64, use_bvh=False))
+    jfaces, jrays = jnp.asarray(ms.faces), jnp.asarray(rays.numpy())
+
+    def jloss(p):
+        d = jax_dm.build_traced_dev(p, traced, jfaces, static)
+        return jnp.mean(jax_mm.render_pt_mesh_impl(
+            jax.random.PRNGKey(0), jrays, d, bounces=4, static=static, uniforms=jnp.asarray(u)))
+
+    def jdepth(p):
+        d = jax_dm.depth_aov_params_impl(jrays, p, traced, jfaces, static=static)
+        return jnp.sum(d * jax.lax.stop_gradient(d < 1e19).astype(d.dtype))
+
+    jp = jax_dm.mesh_params(jms, jnp.float64)
+    ref = jax.jit(jax.grad(jloss))(jp)
+    ref_v = np.asarray(jax.jit(jax.grad(jdepth))(jp)["vertices"])
+    got = _grads(lambda p: _xla_radiance(p, rays, dev, faces, uniforms=torch.tensor(u)),
+                 params, ("vertices", "face_albedo", "face_emission"))
+    for name in ("face_albedo", "face_emission"):
+        b = np.asarray(ref[name])
+        assert np.abs(b).max() > 0, name
+        np.testing.assert_allclose(got[name].numpy(), b, rtol=1e-9, atol=1e-12 * np.abs(b).max())
+    assert bool(torch.isfinite(got["vertices"]).all()) and float(got["vertices"].abs().max()) == 0
+    got_v = _grads(lambda p: _xla_depth(p, rays, dev, faces), params, ("vertices",))["vertices"]
+    assert np.abs(ref_v).max() > 0
+    np.testing.assert_allclose(got_v.numpy(), ref_v, rtol=1e-9, atol=1e-12 * np.abs(ref_v).max())
+
+
+def _fd_params(loss, params, name, idx, h):
+    plus = {k: v.clone() for k, v in params.items()}
+    minus = {k: v.clone() for k, v in params.items()}
+    plus[name][idx] += h
+    minus[name][idx] -= h
+    with torch.no_grad():
+        return (float(loss(plus)) - float(loss(minus))) / (2 * h)
+
+
+def test_xla_face_attribute_grads_match_fd_float64():
+    """tests/test_mesh_grad.py:50-67 on the port (its Philox stream, seed
+    7): the five largest face albedo and emission gradients vs central
+    differences, rtol 1e-5."""
+    _, dev, params, faces, rays = _xla_setup("brute")
+
+    def loss(p):
+        return _xla_radiance(p, rays, dev, faces, seed=7)
+
+    g = _grads(loss, params, ("face_albedo", "face_emission"))
+    for name, arr in g.items():
+        assert float(arr.abs().max()) > 0, name
+        for fi in np.argsort(-arr.abs().numpy().ravel())[:5]:
+            idx = divmod(int(fi), 3)
+            np.testing.assert_allclose(float(arr[idx]), _fd_params(loss, params, name, idx, 1e-6),
+                                       rtol=1e-5, atol=1e-10)
+
+
+def test_xla_vertex_grads_via_depth_match_fd_float64():
+    """tests/test_mesh_grad.py:70-84 on the port: the six largest vertex
+    gradients of the first-hit depth vs central differences, rtol 1e-4."""
+    _, dev, params, faces, rays = _xla_setup("brute")
+
+    def loss(p):
+        return _xla_depth(p, rays, dev, faces)
+
+    g = _grads(loss, params, ("vertices",))["vertices"]
+    assert float(g.abs().max()) > 0
+    for fi in np.argsort(-g.abs().numpy().ravel())[:6]:
+        idx = divmod(int(fi), 3)
+        np.testing.assert_allclose(float(g[idx]), _fd_params(loss, params, "vertices", idx, 1e-6),
+                                   rtol=1e-4, atol=1e-8)
+
+
+def test_xla_chunks_grads_match_brute():
+    """tests/test_mesh_grad.py:87-105 on the port, float32: the chunk
+    kernel's twin with the recompute gives brute force's gradients (same
+    decisions, float32 formula noise only)."""
+    _, dev_b, params, faces, rays = _xla_setup("brute", torch.float32)
+    _, dev_c, _, _, _ = _xla_setup("chunks", torch.float32)
+    names = ("face_albedo", "face_emission")
+    ga = _grads(lambda p: _xla_radiance(p, rays, dev_c, faces, seed=7), params, names)
+    gb = _grads(lambda p: _xla_radiance(p, rays, dev_b, faces, seed=7), params, names)
+    for name in names:
+        a, b = ga[name].numpy(), gb[name].numpy()
+        assert np.abs(b).max() > 0
+        np.testing.assert_allclose(a, b, atol=5e-3 * np.abs(b).max(), rtol=5e-2)
+    da = _grads(lambda p: _xla_depth(p, rays, dev_c, faces), params, ("vertices",))["vertices"]
+    db = _grads(lambda p: _xla_depth(p, rays, dev_b, faces), params, ("vertices",))["vertices"]
+    np.testing.assert_allclose(da.numpy(), db.numpy(), atol=5e-3 * float(db.abs().max()),
+                               rtol=5e-2)
+
+
+def test_xla_vertex_optimization_loop_with_rebuild_guard():
+    """tests/test_mesh_grad.py:108-147 on the port: descend on the vertices
+    against a depth target in chunks mode, guard each step with
+    assert_tables_fresh, rebuild the device scene when it trips."""
+    import dataclasses
+
+    from ascendpathtracing_tpu_torch.diff import mesh as dm
+    from ascendpathtracing_tpu_torch.models import mesh as mm
+
+    ms, dev, params, faces, rays = _xla_setup("chunks", torch.float32)
+    with torch.no_grad():
+        target = dm.depth_aov_params(rays, params, dev, faces) * 0.98
+
+    def loss_fn(p, dev):
+        d = dm.depth_aov_params(rays, p, dev, faces)
+        m = ((d < 1e19) & (target < 1e19)).to(d.dtype)
+        return (((d - target) * m) ** 2).mean()
+
+    l0 = float(loss_fn(params, dev))
+    rebuilds = 0
+    for _ in range(6):
+        g = _grads(lambda p: loss_fn(p, dev), params, ("vertices",))["vertices"]
+        params = {**params, "vertices": params["vertices"] - 2e-1 * g}
+        try:
+            dm.assert_tables_fresh(params, dev, faces, tol=1e-4)
+        except dm.StaleKernelTablesError:
+            ms2 = dataclasses.replace(ms, vertices=params["vertices"].numpy().astype(np.float64))
+            dev = mm.mesh_scene_to_device(ms2, pallas_bvh_kernel=True)
+            rebuilds += 1
+            assert dm.table_drift(params, dev, faces) < 1e-6
+    l1 = float(loss_fn(params, dev))
+    assert np.isfinite(l1) and l1 < l0, (l0, l1)
+    assert rebuilds >= 1
+
+
+def test_xla_table_drift():
+    """tests/test_mesh_grad.py:150-174: 0 for brute; a vertex that is only
+    ever a v2 trips the guard."""
+    from ascendpathtracing_tpu_torch.diff import mesh as dm
+    from ascendpathtracing_tpu_torch.models import mesh as mm
+
+    _, dev, params, faces, _ = _xla_setup("brute")
+    assert dm.table_drift(params, dev, faces) == 0.0
+    v = np.array([[0.0, 0.0, 0.0], [30.0, 0.0, 0.0], [30.0, 30.0, 0.0],
+                  [0.0, 30.0, 0.0]]) + np.array([35.0, 25.0, 50.0])
+    f = np.array([[0, 1, 2], [0, 2, 3]])  # vertex 3 is only ever v2
+    ms = mm.MeshScene.cornell_with_mesh(v, f, albedo=(0.6, 0.5, 0.4))
+    dev = mm.mesh_scene_to_device(ms, pallas_bvh_kernel=True)
+    params = dm.mesh_params(ms)
+    faces = torch.tensor(f)
+    assert dm.table_drift(params, dev, faces) < 1e-6
+    moved = params["vertices"].clone()
+    moved[3] += 5.0
+    assert dm.table_drift({**params, "vertices": moved}, dev, faces) > 0.01
+    with pytest.raises(dm.StaleKernelTablesError):
+        dm.assert_tables_fresh({**params, "vertices": moved}, dev, faces)
+
+
+def test_traced_dev_refuses_bvh_leaf_order():
+    """The JAX build_traced_dev writes face-ordered planes over the BVH's
+    leaf-ordered tables (diff/mesh.py:72-75): float64, 24x24 rays, the jnp
+    device's untraced first hit equals brute force to 1e-12, but its traced
+    depth differs from brute on some rays (50 of 2,304 measured).  The port
+    refuses the jnp and lockstep modes with a ValueError."""
+    from ascendpathtracing_tpu.diff import mesh as jax_dm
+    from ascendpathtracing_tpu.models import mesh as jax_mm
+    from ascendpathtracing_tpu_torch.diff import mesh as dm
+    from ascendpathtracing_tpu_torch.models import mesh as mm
+
+    ms, _, params, faces, rays = _xla_setup("brute")
+    jms = jax_mm.MeshScene.cornell_with_mesh(ms.vertices, ms.faces, albedo=(0.6, 0.5, 0.4))
+    jb = jax_mm.mesh_scene_to_device(jms, dtype=jnp.float64, use_bvh=False)
+    jj = jax_mm.mesh_scene_to_device(jms, dtype=jnp.float64, use_bvh=True)
+    jr, jp, jf = jnp.asarray(rays.numpy()), jax_dm.mesh_params(jms, jnp.float64), jnp.asarray(ms.faces)
+    np.testing.assert_allclose(np.asarray(jax_mm.first_hit_mesh(jr, jj)[0]),
+                               np.asarray(jax_mm.first_hit_mesh(jr, jb)[0]), rtol=1e-12)
+    d_j = np.asarray(jax_dm.depth_aov_params(jr, jp, jj, jf))
+    d_b = np.asarray(jax_dm.depth_aov_params(jr, jp, jb, jf))
+    wrong = int((np.abs(d_j - d_b) > 1e-9 * np.abs(d_b)).sum())
+    print(f"JAX traced jnp-BVH depth differs from brute on {wrong} of {d_b.size} rays")
+    assert wrong > 0
+    for kw in (dict(use_bvh=True), dict(pallas_bvh_kernel=True, pallas_kernel="lockstep")):
+        dev = mm.mesh_scene_to_device(ms, dtype=torch.float64, **kw)
+        with pytest.raises(ValueError, match="leaf order"):
+            dm.depth_aov_params(rays, params, dev, faces)
+        with pytest.raises(ValueError, match="leaf order"):
+            dm.render_pt_mesh_params(rays, params, dev, faces)

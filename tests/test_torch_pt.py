@@ -18,6 +18,7 @@ from ascendpathtracing_tpu.utils import io
 from ascendpathtracing_tpu_torch import convert
 from ascendpathtracing_tpu_torch.models import megakernel
 from ascendpathtracing_tpu_torch.ops import rng, shade
+from tests.test_torch_slice import one_cpu_thread  # noqa: F401  (autouse)
 
 DTYPES = [(np.float64, torch.float64, 1e-12), (np.float32, torch.float32, 1e-6)]
 PT_GOLDEN = os.path.join(os.path.dirname(__file__), "goldens", "pt_smallpt9_64x64_s4_b5.npy")

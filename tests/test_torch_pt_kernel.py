@@ -20,6 +20,7 @@ from ascendpathtracing_tpu_torch import bench, cli, convert
 from ascendpathtracing_tpu_torch.models import megakernel
 from ascendpathtracing_tpu_torch.ops import pt_kernels as ptk
 from ascendpathtracing_tpu_torch.ops import rng
+from tests.test_torch_slice import one_cpu_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture

@@ -15,6 +15,7 @@ from ascendpathtracing_tpu.ops import pallas_kernels as pk
 from ascendpathtracing_tpu_torch import convert
 from ascendpathtracing_tpu_torch.ops import build
 from ascendpathtracing_tpu_torch.ops import render_kernels as rk
+from tests.test_torch_slice import one_cpu_thread  # noqa: F401  (autouse)
 
 LIGHT = 7
 TILE = 1024

@@ -21,6 +21,20 @@ from ascendpathtracing_tpu_torch import bench, cli, convert
 from ascendpathtracing_tpu_torch.ops import render_kernels as rk
 
 REPO = Path(__file__).resolve().parents[1]
+@pytest.fixture(autouse=True, scope="module")
+def one_cpu_thread():
+    """torch on one CPU thread for each module that holds this fixture
+    (the heavy torch test files import it): the test workers share the
+    machine's cores, and eight threads in each of them spend the many
+    small ops of the plain twins waiting on one another (the selftest
+    test took 357 s with eight threads under six workers, 73 s with
+    one)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ARTIFACTS = ("rays.bin", "spheres.bin", "color.bin", "color.ppm")
 
 
@@ -101,9 +115,10 @@ def test_fwd_bwd_step_matches_jax_value_and_grad():
 
 
 def test_importing_the_port_loads_no_jax():
-    """Importing every module of the port and chip_smoke, and a CPU mesh
-    render with its replay backward, load no jax and no module of the
-    JAX package."""
+    """Importing every module of the port and chip_smoke, a CPU mesh
+    render with its replay backward, and a CPU bounce-loop mesh render
+    with its autograd backward (diff/mesh), load no jax and no module of
+    the JAX package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import ascendpathtracing_tpu_torch as p\n"
@@ -112,6 +127,20 @@ def test_importing_the_port_loads_no_jax():
         "import chip_smoke\n"
         "from ascendpathtracing_tpu_torch import cli\n"
         "assert cli.mesh_vjp_check(__import__('torch').device('cpu'))['ok']\n"
+        "import numpy, torch\n"
+        "from ascendpathtracing_tpu_torch import bench, camera\n"
+        "from ascendpathtracing_tpu_torch.diff import mesh as dm\n"
+        "from ascendpathtracing_tpu_torch.models import mesh as mm\n"
+        "ms = bench.mesh_scene(1)\n"
+        "prm = {k: v.requires_grad_(True) for k, v in dm.mesh_params(ms).items()}\n"
+        "rays = torch.tensor(camera.generate_rays_numpy(8, 8, 1).astype(numpy.float32))\n"
+        "for kw in ({'pallas_bvh_kernel': True}, {'use_bvh': False}):\n"
+        "    dev = mm.mesh_scene_to_device(ms, **kw)\n"
+        "    img = dm.render_pt_mesh_params(rays, prm, dev, torch.tensor(ms.faces))\n"
+        "    g = torch.autograd.grad(img.sum(), [prm['face_emission']])[0]\n"
+        "    assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0\n"
+        "for kw in ({'use_bvh': True}, {'pallas_bvh_kernel': True, 'pallas_kernel': 'lockstep'}):\n"
+        "    assert mm.render_pt_mesh(rays, mm.mesh_scene_to_device(ms, **kw)).shape == (256, 3)\n"
         "assert 'jax' not in sys.modules, sorted(k for k in sys.modules if 'jax' in k)\n"
         "ref = sorted(k for k in sys.modules if k == 'ascendpathtracing_tpu'\n"
         "             or k.startswith('ascendpathtracing_tpu.'))\n"
@@ -119,7 +148,8 @@ def test_importing_the_port_loads_no_jax():
         "print(len(mods))\n"
         "new = {'accel.tri', 'models.mesh', 'ops.chunk_grid', 'ops.wbvh_kernels',\n"
         "       'ops.mesh_pt_kernels', 'ops.histogram_kernels', 'diff.mesh_fused',\n"
-        "       'config', 'scenes', 'camera', 'oracle', 'utils.io', 'accel.meshes'}\n"
+        "       'config', 'scenes', 'camera', 'oracle', 'utils.io', 'accel.meshes',\n"
+        "       'accel.bvh', 'ops.bvh_kernels', 'ops.sort', 'diff.mesh'}\n"
         "assert {p.__name__ + '.' + m for m in new} <= set(mods), mods\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -128,7 +158,7 @@ def test_importing_the_port_loads_no_jax():
         text=True, timeout=300, check=False,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 27
+    assert int(out.stdout.strip()) >= 31
 
 
 def test_backend_cuda_exits_2_without_cuda(no_cuda, tmp_path, capsys):
@@ -145,8 +175,9 @@ def test_backend_cuda_exits_2_without_cuda(no_cuda, tmp_path, capsys):
     "argv,message",
     [
         (["render", "--renderer", "wavefront"], "not yet ported"),
-        (["render", "--scene", "mesh-cube", "--mode", "pt", "--renderer", "plain"],
-         "not yet ported"),
+        # The JAX CLI's own refusal for mesh scenes outside pt mode.
+        (["render", "--scene", "mesh-cube", "--mode", "reference"],
+         "mesh scenes require --mode pt"),
         (["render", "--shard", "2"], "not yet ported"),
         (["render", "--denoise", "1"], "not yet ported"),
         (["train", "--steps", "1"], "not yet ported"),
@@ -166,11 +197,11 @@ def test_unported_modes_exit_2(argv, message, tmp_path, capsys):
 def test_selftest_passes_on_cpu(capsys):
     assert cli.main(["selftest", "--backend", "cpu"]) == 0
     lines = [json.loads(x) for x in capsys.readouterr().out.strip().splitlines()]
-    assert lines[-1] == {"selftest": "PASS", "passed": 6, "ran": 6, "backend": "cpu"}
+    assert lines[-1] == {"selftest": "PASS", "passed": 7, "ran": 7, "backend": "cpu"}
     assert lines[3]["check"] == "pt_fused_energy_vs_plain" and lines[3]["rel_diff"] < 0.025
     assert lines[4]["check"] == "wbvh_chunks_vs_brute" and lines[4]["max_t_err"] < 1e-3
-    assert lines[5] == {"check": "mesh_pt_fused_energy_vs_xla",
-                        "skipped": "models/mesh.render_pt_mesh_impl not yet ported"}
+    assert lines[5]["check"] == "mesh_pt_fused_energy_vs_xla" and lines[5]["ok"]
+    assert lines[5]["rel_diff"] < 0.03 and lines[5]["xla_mean"] > 0
     assert lines[6]["check"] == "mesh_fused_vjp_grads" and lines[6]["geom_rows_zero"]
 
 
