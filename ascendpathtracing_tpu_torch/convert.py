@@ -5,9 +5,9 @@ Scenes and camera rays are NumPy arrays (``scenes.SphereScene.soa10``,
 ``camera.generate_rays_numpy``, ``models.megakernel.scene_to_device``
 read back as NumPy; the mesh tables of ``pallas_mesh_pt.mesh_pt_tables``).
 These functions carry those arrays, a test's uniform draws, the fused
-mesh kernel's replay residuals, a BVH's tables and a whole mesh device
-dict over to a device, dtype and layout, so that a test feeds both sides
-the same inputs.  Nothing here imports the
+mesh kernel's replay residuals and screen coordinates, a BVH's tables
+and a whole mesh device dict over to a device, dtype and layout, so that
+a test feeds both sides the same inputs.  Nothing here imports the
 JAX package: the callers hand in arrays.
 """
 
@@ -183,3 +183,19 @@ def residuals_from_jax(wid, resv, *, spp4, tile, device="cpu", dtype=torch.float
         b, 7, spp4, nb * tile)
     return (torch.tensor(np.rint(w).astype(np.int32), device=device),
             torch.tensor(np.ascontiguousarray(r), dtype=dtype, device=device))
+
+
+def suv_from_jax(suv, *, spp4, tile, device="cpu", dtype=torch.float32):
+    """The Pallas mesh kernel's screen coordinates (``render_pt_mesh_pallas(
+    with_camera=True)``: suv [2, nb*spp4, 8, tile//8] float32; cell = b*spp4
+    + a, pixel = b*tile + sub*(tile//8) + lane) -> the port's layout [2,
+    spp4, W*H] in ``dtype``."""
+    s = np.asarray(suv)
+    if s.ndim != 4 or s.shape[0] != 2 or s.shape[2] * s.shape[3] != tile:
+        raise ValueError(f"expected suv [2, cells, 8, {tile // 8}], got {s.shape}")
+    cells = s.shape[1]
+    if cells % spp4:
+        raise ValueError(f"suv {s.shape} does not match spp4={spp4}")
+    nb = cells // spp4
+    s = s.reshape(2, nb, spp4, tile).transpose(0, 2, 1, 3).reshape(2, spp4, nb * tile)
+    return torch.tensor(np.ascontiguousarray(s), dtype=dtype, device=device)

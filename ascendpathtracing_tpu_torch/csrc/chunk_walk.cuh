@@ -130,19 +130,30 @@ struct ChunkGrid {
 // Pallas kernels' per-tile worklist length k and phase-A trip counts).
 struct WalkCounts {
   int k, ks, kss;
+
+  __device__ __forceinline__ void chunk(int) { ++k; }
+  __device__ __forceinline__ void super(int) { ++ks; }
+  __device__ __forceinline__ void super2(int) { ++kss; }
+};
+
+// A walk that records nothing.
+struct NoCounts {
+  __device__ __forceinline__ void chunk(int) const {}
+  __device__ __forceinline__ void super(int) const {}
+  __device__ __forceinline__ void super2(int) const {}
 };
 
 // Calls chunk(c) for every chunk whose box the ray enters, in increasing
 // c; a chunk is reached only through a hit super (and super-super).
-template <bool kBounded, typename T, typename ChunkFn>
+// cnt.chunk / super / super2 hear of each box the ray enters.
+template <bool kBounded, typename T, typename ChunkFn, typename Counts>
 __device__ __forceinline__ void walk_chunks(const ChunkGrid& g,
                                             const RayInv<T>& r, T gate,
-                                            ChunkFn&& chunk,
-                                            WalkCounts& cnt) {
+                                            ChunkFn&& chunk, Counts&& cnt) {
   auto chunks = [&](int c0, int c1) {
     for (int c = c0; c < c1; ++c) {
       if (box_hit<kBounded>(g.cboxes + 6 * c, r, gate)) {
-        ++cnt.k;
+        cnt.chunk(c);
         chunk(c);
       }
     }
@@ -150,7 +161,7 @@ __device__ __forceinline__ void walk_chunks(const ChunkGrid& g,
   auto supers = [&](int s0, int s1) {
     for (int s = s0; s < s1; ++s) {
       if (box_hit<kBounded>(g.sboxes + 6 * s, r, gate)) {
-        ++cnt.ks;
+        cnt.super(s);
         chunks(s * g.supers_per, (s + 1) * g.supers_per);
       }
     }
@@ -162,7 +173,7 @@ __device__ __forceinline__ void walk_chunks(const ChunkGrid& g,
   } else {
     for (int s2 = 0; s2 < g.n_supers2; ++s2) {
       if (box_hit<kBounded>(g.ssboxes + 6 * s2, r, gate)) {
-        ++cnt.kss;
+        cnt.super2(s2);
         supers(s2 * g.supers2_per, (s2 + 1) * g.supers2_per);
       }
     }

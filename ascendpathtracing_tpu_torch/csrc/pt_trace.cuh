@@ -3,7 +3,8 @@
 // with tent-filter jitter, the bounce loop with diffuse, mirror and
 // glass, Russian roulette, and the per-pixel mean over the sample layers.
 // The scene is a template parameter: its hit() finds the nearest winner
-// of a ray and its surface() returns what the shading needs from it.
+// of a ray (told the sample layer and bounce) and its surface() returns
+// what the shading needs from it.
 // Same parity rule as the kernels: -fmad=false, never --use_fast_math;
 // IEEE sqrt and division; 1/sqrt(x) wherever the Pallas kernels have
 // rsqrt; full-precision sinf/cosf; the Pallas kernels' op order term for
@@ -113,9 +114,12 @@ struct Spheres {
 // Where the bounce loop puts its replay residuals.  NoResiduals (the
 // default) stores nothing and compiles to the forward-only kernel;
 // Residuals writes each bounce's winner code and the values the replay
-// backward needs (pallas_mesh_pt.py:514-532).
+// backward needs (pallas_mesh_pt.py:514-532); CameraResiduals also each
+// sample's screen coordinates (with_camera, pallas_mesh_pt.py:211-216).
 struct NoResiduals {
   __device__ __forceinline__ void begin(long long, int, long long) {}
+  template <typename T>
+  __device__ __forceinline__ void camera(T, T) const {}
   template <typename T>
   __device__ __forceinline__ void store(int, const Winner&, const Surface<T>&,
                                         T) const {}
@@ -159,6 +163,19 @@ struct Residuals {
       for (int j = 0; j < 7; ++j) r[j * plane] = T(0);
     }
   }
+  __device__ __forceinline__ void camera(T, T) const {}
+};
+
+// suv [2, spp4, n_pix]: the (su, sv) the sample's primary ray was made
+// from, stored once per sample beside the residuals, coalesced as wid.
+template <typename T>
+struct CameraResiduals : Residuals<T> {
+  T* suv;
+
+  __device__ __forceinline__ void camera(T su, T sv) const {
+    suv[this->at] = su;
+    suv[this->plane + this->at] = sv;
+  }
 };
 
 // One sample of pixel (pi, pj) in sample layer `layer` -> its radiance.
@@ -180,6 +197,7 @@ __device__ __forceinline__ void trace_sample(const Scene& scene,
   const T jy = r2 < T(1) ? root(r2) - T(1) : T(1) - root(maxv(T(2) - r2, T(0)));
   const T su = ((T(sx) + T(0.5) + jx) / T(2) + pi) / T(p.width) - T(0.5);
   const T sv = ((T(sy) + T(0.5) + jy) / T(2) + pj) / T(p.height) - T(0.5);
+  sink.camera(su, sv);
   const T* c = p.cam;
   const T ddx = su * c[6] + sv * c[7] + c[3];
   const T ddy = sv * c[8] + c[4];
@@ -198,7 +216,8 @@ __device__ __forceinline__ void trace_sample(const Scene& scene,
   for (; k < p.bounces; ++k) {
     T tmin;
     Winner w;
-    if (!scene.hit(ox, oy, oz, dx, dy, dz, p.eps, tmin, w)) break;  // a miss ends the path
+    // a miss ends the path; (layer, k) say where the walk is, for stats
+    if (!scene.hit(ox, oy, oz, dx, dy, dz, p.eps, tmin, w, layer, k)) break;
 
     const T hx = ox + dx * tmin;
     const T hy = oy + dy * tmin;

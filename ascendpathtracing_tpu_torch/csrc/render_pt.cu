@@ -57,7 +57,7 @@ struct SphereScene {
   Spheres<T> sph;
 
   __device__ __forceinline__ bool hit(T ox, T oy, T oz, T dx, T dy, T dz,
-                                      T eps, T& tmin, Winner& w) const {
+                                      T eps, T& tmin, Winner& w, int, int) const {
     w.sphere = sph.hit(ox, oy, oz, dx, dy, dz, eps, tmin);
     w.slot = -1;
     return w.sphere >= 0;

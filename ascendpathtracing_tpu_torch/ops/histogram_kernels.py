@@ -22,10 +22,9 @@ log2(slot_block)`` in ``[0, ceil(n_slots / slot_block))`` that it touches
 -- the TPU kernel's occupancy count, the same value.  Both wrappers take
 an ``out=`` accumulator [n_slots, R] that the kernel adds into, so a
 chunked caller makes one accumulator.  float32 (the TPU contract) and
-float64 rows are taken.  The kernel accumulates in float64 in device
-memory (over float32 shared-memory tiles for float32 rows): a float32
-running sum of the replay's tens of thousands of per-block partials
-drifts by ~1e-5 relative.  So ``out`` is float64 whatever the rows'
+float64 rows are taken.  The kernel sums in float64 for both (a float32
+running sum of the replay's tens of thousands of per-tile partials
+drifts by ~1e-5 relative).  So ``out`` is float64 whatever the rows'
 dtype; without one, the wrappers accumulate into a float64 tensor of
 their own and return the sums in the dtype of ``vals``.
 
@@ -33,8 +32,11 @@ The accumulator lives in device memory, so the port has no counterpart of
 the TPU's 8 MB VMEM ceiling: no ``_PAGED_MAX_SLOTS`` and no scatter
 fallback beyond it.  The kernel's occupancy flags (one bit per slot
 block) are in shared memory, which bounds ``n_slots`` to 131,072 slot
-blocks (16.7M slots at ``slot_block`` 128).  The kernel adds with
-atomics, so it equals the twins to rounding only.
+blocks (16.7M slots at ``slot_block`` 128).  The kernel's sums repeat
+bit for bit on the same inputs and card (no atomics: a sort of each
+2048-row tile by slot, fixed-order scans, per-CTA float64 accumulators in
+scratch the wrapper allocates, summed in CTA order); they equal the twins'
+``index_add_`` to rounding.
 """
 
 from __future__ import annotations
@@ -55,7 +57,7 @@ LAUNCHES = {"segsum": 0}
 _DTYPES = {torch.float32: "f32", torch.float64: "f64"}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURE = (_P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P, _P, _P)
+_SIGNATURE = (_P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P, _P, _P, _I, _P)
 
 
 def reset_launches() -> None:
@@ -69,6 +71,8 @@ def load_library() -> ctypes.CDLL:
         return lib
     lib.apt_segsum_error_string.argtypes = (_I,)
     lib.apt_segsum_error_string.restype = ctypes.c_char_p
+    lib.apt_segsum_groups.argtypes = (ctypes.c_longlong, _I, _I)
+    lib.apt_segsum_groups.restype = _I
     for suffix in _DTYPES.values():
         fn = getattr(lib, f"apt_segsum_{suffix}")
         fn.argtypes = _SIGNATURE
@@ -143,14 +147,18 @@ def occupancy_plain(seg, *, n_slots, slot_block=128, sample_block=2048):
 
 # ---------------------------------------------------------- wrappers ----
 def _launch(seg, vals, acc, kocc, *, n_slots, slot_block, sample_block):
-    """Launches the kernel, adding into the float64 ``acc``."""
+    """Launches the kernels, adding into the float64 ``acc``; the per-CTA
+    accumulators are scratch of ``apt_segsum_groups`` x [n_slots, R]."""
     lib = load_library()
+    n, r = seg.shape[0], vals.shape[0]
     with torch.cuda.device(acc.device):
+        groups = lib.apt_segsum_groups(n, r, n_slots)
+        part = torch.empty((groups * n_slots * r,), dtype=torch.float64, device=acc.device)
         stream = torch.cuda.current_stream(acc.device).cuda_stream
         err = getattr(lib, f"apt_segsum_{_DTYPES[vals.dtype]}")(
-            seg.data_ptr(), vals.data_ptr(), seg.shape[0], vals.shape[0], n_slots,
-            slot_block, sample_block, acc.data_ptr(),
-            None if kocc is None else kocc.data_ptr(), stream,
+            seg.data_ptr(), vals.data_ptr(), n, r, n_slots, slot_block, sample_block,
+            acc.data_ptr(), None if kocc is None else kocc.data_ptr(),
+            part.data_ptr() if groups else None, groups, stream,
         )
     if err != 0:
         raise RuntimeError(

@@ -21,7 +21,7 @@ class _SqrtRN(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x):
-        y = torch.from_numpy(np.sqrt(x.detach().numpy()))
+        y = torch.from_numpy(np.asarray(np.sqrt(x.detach().numpy())))  # 0-d too
         ctx.save_for_backward(y)
         return y
 

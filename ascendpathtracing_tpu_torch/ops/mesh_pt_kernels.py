@@ -2,7 +2,8 @@
 
 Counterpart of ``ascendpathtracing_tpu/ops/pallas_mesh_pt.py``
 (``render_pt_mesh_pallas`` and its kernel ``_mesh_pt_kernel``, with its
-replay residuals; the camera, stats and debug outputs are not ported).
+replay residuals, camera and stats outputs; the debug dump is not
+ported).
 :func:`render_pt_mesh` checks its inputs, then:
 
 - for tensors on the CPU, runs :func:`render_pt_mesh_plain`;
@@ -32,6 +33,18 @@ survived RR; the bounce on which RR ends the path is live with s =
 rscale), zeros on dead bounces.  ``convert.residuals_from_jax`` maps the
 Pallas kernel's tiled layout onto this one.  The image is the same bit
 for bit with or without residuals.
+
+``with_camera=True`` (it needs ``with_residuals``, as in JAX) also returns
+``suv`` [2, spp4, W*H] in the compute dtype: the screen coordinates (su,
+sv) each sample's primary ray was made from (``convert.suv_from_jax``
+maps the Pallas layout).  ``with_stats=True`` also returns ``kstats``
+int32 [3 * bounces, (W*H / stats_tile) * spp4] in the Pallas layout: for
+each cell (``stats_tile`` pixels x one sample layer, cell = tile * spp4 +
+layer) and bounce k, row k holds the number of chunks whose box some live
+path of the cell enters (the walk's gate included), rows bounces + k and
+2 * bounces + k the supers and super-supers.  These are unions over the
+cell's paths, not per-path sums.  Neither option changes the image, wid
+or resv.
 """
 
 from __future__ import annotations
@@ -59,7 +72,7 @@ LAUNCHES = {"mesh_pt": 0}
 _DTYPES = {torch.float32: "f32", torch.float64: "f64"}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURE = (_P,) * 10 + (_I,) * 12 + (
+_SIGNATURE = (_P,) * 13 + (_I,) * 13 + (
     ctypes.c_double, ctypes.c_uint32, ctypes.POINTER(ctypes.c_double), _P,
 )
 
@@ -152,10 +165,12 @@ def camera_vector(cam, width, height) -> tuple:
 
 def _check(scene_planes, materials, cboxes, sboxes, ssboxes, tris24, *, width,
            height, spp4, bounces, rr_depth, uniforms, tris_per_chunk,
-           supers_per, supers2_per):
+           supers_per, supers2_per, with_residuals, with_camera, with_stats,
+           stats_tile):
     # The sphere-side checks are render_pt's.
     s_count, _ = pt_kernels.check_inputs(scene_planes, materials, width, height,
                                          spp4, bounces, rr_depth, uniforms)
+    check_options(width * height, with_residuals, with_camera, with_stats, stats_tile)
     grid = check_grid(cboxes, sboxes, ssboxes, tris24,
                       tris_per_chunk=tris_per_chunk, supers_per=supers_per,
                       supers2_per=supers2_per, widths=(TRI_PT_F,))
@@ -165,6 +180,14 @@ def _check(scene_planes, materials, cboxes, sboxes, ssboxes, tris24, *, width,
     return s_count, grid, on_cpu(*tensors)
 
 
+def check_options(n_pix, with_residuals, with_camera, with_stats, stats_tile):
+    if with_camera and not with_residuals:
+        raise ValueError("with_camera requires with_residuals (the camera backward "
+                         "replays from wid[0])")
+    if with_stats and (stats_tile < 1 or n_pix % stats_tile):
+        raise ValueError(f"pixel count {n_pix} not divisible by stats_tile={stats_tile}")
+
+
 # ------------------------------------------------------- plain twin ----
 def residual_buffers(bounces, spp4, n_pix, dtype, device):
     """(wid, resv) of the residual layout, unfilled."""
@@ -172,28 +195,43 @@ def residual_buffers(bounces, spp4, n_pix, dtype, device):
             torch.empty((bounces, 7, spp4, n_pix), dtype=dtype, device=device))
 
 
+def _outputs(img, res, suv, kstats):
+    """The image alone, or (image, [wid, resv,] [suv,] [kstats]) as the
+    options ask, the Pallas wrapper's order."""
+    extra = [*(res or ()), *([] if suv is None else [suv]),
+             *([] if kstats is None else [kstats])]
+    return (img, *extra) if extra else img
+
+
 def render_pt_mesh_plain(scene_planes, cboxes, sboxes, tris24, ssboxes=None, *,
                          materials, width, height, spp4, tris_per_chunk,
                          supers_per=0, supers2_per=0, bounces=8, rr_depth=5,
                          eps=1e-4, seed=0, cam=None, uniforms=None,
-                         with_residuals=False, walk_counts=None):
+                         with_residuals=False, with_camera=False, with_stats=False,
+                         stats_tile=2048, walk_counts=None):
     """Plain twin of :func:`render_pt_mesh`: the kernel's arithmetic and
     random stream as torch ops, one sample layer at a time; the mesh is
-    walked for the live paths only.  ``walk_counts``, an int64 [4] tensor
-    when given, is added to in place: the rays walked and, summed over
-    them, ``walk_plain``'s counts (chunks tested, supers hit, super-supers
-    hit), the walk's work for a bound."""
+    walked for the live paths only.  ``walk_counts``, an int64 [bounces,
+    4] tensor when given, is added to in place, a row per bounce: the
+    rays walked and, summed over them, ``walk_plain``'s counts (chunks
+    tested, supers hit, super-supers hit), the walk's work for a bound."""
     *_, ssboxes = check_grid(cboxes, sboxes, ssboxes, tris24,
                              tris_per_chunk=tris_per_chunk, supers_per=supers_per,
                              supers2_per=supers2_per, widths=(TRI_PT_F,))
-    dtype = scene_planes.dtype
+    n_pix = width * height
+    check_options(n_pix, with_residuals, with_camera, with_stats, stats_tile)
+    dtype, device = scene_planes.dtype, scene_planes.device
     s_count = scene_planes.shape[1]
     planes_pad, mat_pad = pt_kernels.pad_scene(scene_planes, materials)
     grid = plain_grid(cboxes, sboxes, ssboxes, tris24, dtype,
                       tris_per_chunk=tris_per_chunk, supers_per=supers_per,
                       supers2_per=supers2_per)
+    n_tiles = n_pix // stats_tile if with_stats else 0
+    kstats = (torch.zeros((3 * bounces, n_tiles * spp4), dtype=torch.int32, device=device)
+              if with_stats else None)
+    level_sizes = (len(grid.cboxes), len(grid.sboxes), len(grid.ssboxes))
 
-    def hit_fn(o3, d3, alive):
+    def hit_fn(o3, d3, alive, layer, k):
         tmin, win = pt_kernels.sphere_hits(planes_pad, *o3, *d3, eps)
         slot = torch.full(tmin.shape, -1, dtype=torch.int64, device=tmin.device)
         ids = alive.nonzero()[:, 0]
@@ -202,26 +240,34 @@ def render_pt_mesh_plain(scene_planes, cboxes, sboxes, tris24, ssboxes=None, *,
             gate = tsub.clone()  # the tmin after the spheres, before the triangles
             counts = (None if walk_counts is None else
                       torch.zeros((3, ids.numel()), dtype=torch.int32, device=tmin.device))
+            marks = None
+            if kstats is not None:  # the boxes each tile's live paths enter
+                marks = (ids // stats_tile, tuple(
+                    torch.zeros((n_tiles, n), dtype=torch.bool, device=device)
+                    for n in level_sizes))
             slot[ids] = walk_plain(grid, tuple(c[ids] for c in o3),
                                    tuple(c[ids] for c in d3), tsub, eps=eps, gate=gate,
-                                   counts=counts)
+                                   counts=counts, marks=marks)
             tmin = tmin.index_put((ids,), tsub)
             if counts is not None:
-                walk_counts[0] += ids.numel()
-                walk_counts[1:] += counts.sum(dim=1)
+                walk_counts[k, 0] += ids.numel()
+                walk_counts[k, 1:] += counts.sum(dim=1)
+            if marks is not None:
+                for level, m in enumerate(marks[1]):
+                    kstats[level * bounces + k, layer::spp4] = m.sum(dim=1, dtype=torch.int32)
         code = torch.where(slot >= 0, s_count + slot, win)
         return tmin, pt_kernels.surface(planes_pad, mat_pad, win, tmin, o3, d3,
                                         grid.rows, slot), code
 
-    res = (residual_buffers(bounces, spp4, width * height, dtype, scene_planes.device)
-           if with_residuals else None)
+    res = residual_buffers(bounces, spp4, n_pix, dtype, device) if with_residuals else None
+    suv = torch.empty((2, spp4, n_pix), dtype=dtype, device=device) if with_camera else None
     img = pt_kernels.render_layers(
-        hit_fn, dtype=dtype, device=scene_planes.device, width=width,
+        hit_fn, dtype=dtype, device=device, width=width,
         height=height, spp4=spp4, bounces=bounces, rr_depth=rr_depth, eps=eps,
         seed=seed, uniforms=uniforms, cam=camera_vector(cam, width, height),
-        res=res,
+        res=res, suv=suv,
     )
-    return (img, *res) if with_residuals else img
+    return _outputs(img, res, suv, kstats)
 
 
 # ---------------------------------------------------------- wrapper ----
@@ -229,47 +275,56 @@ def render_pt_mesh(scene_planes, cboxes, sboxes, tris24, ssboxes=None, *,
                    materials, width, height, spp4, tris_per_chunk,
                    supers_per=0, supers2_per=0, bounces=8, rr_depth=5,
                    eps=1e-4, seed=0, cam=None, uniforms=None,
-                   with_residuals=False):
+                   with_residuals=False, with_camera=False, with_stats=False,
+                   stats_tile=2048):
     """Fully fused sphere+mesh path trace: scene [10, S] (float32 or
     float64; the compute dtype), materials [S] int32, a chunk grid of
     float32 boxes and [C*T, 24] rows (``mesh_pt_tables``) -> per-pixel
-    means [3, W*H] in the scene's dtype; with ``with_residuals``, (image,
-    wid, resv) as the module's head describes.  ``cam`` is the 11-float camera
-    vector (None: the default smallpt camera); ``uniforms`` [spp4, 2 + 3 *
-    bounces, W*H] replaces the Philox stream.  Pixel p is column p //
-    height, row p % height; sample layer a is (sy, sx, k) = (a // (2s),
-    (a // s) % 2, a % s) with s = spp4 / 4."""
+    means [3, W*H] in the scene's dtype; with any option, (image, [wid,
+    resv,] [suv,] [kstats]) as the module's head describes.  ``cam`` is
+    the 11-float camera vector (None: the default smallpt camera);
+    ``uniforms`` [spp4, 2 + 3 * bounces, W*H] replaces the Philox stream.
+    Pixel p is column p // height, row p % height; sample layer a is (sy,
+    sx, k) = (a // (2s), (a // s) % 2, a % s) with s = spp4 / 4."""
     s_count, (c, cs, css, ssboxes), cpu = _check(
         scene_planes, materials, cboxes, sboxes, ssboxes, tris24, width=width,
         height=height, spp4=spp4, bounces=bounces, rr_depth=rr_depth,
         uniforms=uniforms, tris_per_chunk=tris_per_chunk, supers_per=supers_per,
-        supers2_per=supers2_per,
+        supers2_per=supers2_per, with_residuals=with_residuals,
+        with_camera=with_camera, with_stats=with_stats, stats_tile=stats_tile,
     )
     cam_vals = camera_vector(cam, width, height)
     kw = dict(materials=materials, width=width, height=height, spp4=spp4,
               tris_per_chunk=tris_per_chunk, supers_per=supers_per,
               supers2_per=supers2_per, bounces=bounces, rr_depth=rr_depth,
-              eps=eps, seed=seed, cam=cam_vals, uniforms=uniforms)
+              eps=eps, seed=seed, cam=cam_vals, uniforms=uniforms,
+              with_residuals=with_residuals, with_camera=with_camera,
+              with_stats=with_stats, stats_tile=stats_tile)
     if cpu:
-        return render_pt_mesh_plain(scene_planes, cboxes, sboxes, tris24, ssboxes,
-                                    with_residuals=with_residuals, **kw)
-    out = torch.empty((3, width * height), dtype=scene_planes.dtype,
-                      device=scene_planes.device)
-    res = (residual_buffers(bounces, spp4, width * height, out.dtype, out.device)
-           if with_residuals else (None, None))
+        return render_pt_mesh_plain(scene_planes, cboxes, sboxes, tris24, ssboxes, **kw)
+    n_pix = width * height
+    dtype, device = scene_planes.dtype, scene_planes.device
+    out = torch.empty((3, n_pix), dtype=dtype, device=device)
+    res = residual_buffers(bounces, spp4, n_pix, dtype, device) if with_residuals else None
+    suv = torch.empty((2, spp4, n_pix), dtype=dtype, device=device) if with_camera else None
+    kstats = marks = None
+    if with_stats:
+        cells = n_pix // stats_tile * spp4
+        kstats = torch.empty((3 * bounces, cells), dtype=torch.int32, device=device)
+        words = sum(-(-n // 32) for n in (c, cs, css))  # the kernel zeroes them
+        marks = torch.empty((cells * bounces * words,), dtype=torch.int32, device=device)
     lib = load_library()
 
     def ptr(t):
-        return None if t.numel() == 0 else t.data_ptr()
+        return None if t is None or t.numel() == 0 else t.data_ptr()
 
-    with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream(out.device).cuda_stream
-        err = getattr(lib, f"apt_render_pt_mesh_{_DTYPES[out.dtype]}")(
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, f"apt_render_pt_mesh_{_DTYPES[dtype]}")(
             scene_planes.data_ptr(), materials.data_ptr(), cboxes.data_ptr(),
-            ptr(sboxes), ptr(ssboxes), tris24.data_ptr(),
-            None if uniforms is None else uniforms.data_ptr(), out.data_ptr(),
-            *(None if t is None else t.data_ptr() for t in res),
-            width, height, spp4, s_count, c, cs, css, tris_per_chunk,
+            ptr(sboxes), ptr(ssboxes), tris24.data_ptr(), ptr(uniforms), out.data_ptr(),
+            *(ptr(t) for t in (res or (None, None))), ptr(suv), ptr(kstats), ptr(marks),
+            stats_tile, width, height, spp4, s_count, c, cs, css, tris_per_chunk,
             supers_per, supers2_per, bounces, rr_depth, eps, seed & 0xFFFFFFFF,
             (ctypes.c_double * 11)(*cam_vals), stream,
         )
@@ -279,4 +334,4 @@ def render_pt_mesh(scene_planes, cboxes, sboxes, tris24, ssboxes=None, *,
             f"({lib.apt_mesh_pt_error_string(err).decode()})"
         )
     LAUNCHES["mesh_pt"] += 1
-    return (out, *res) if with_residuals else out
+    return _outputs(out, res, suv, kstats)

@@ -189,14 +189,16 @@ def pad_scene(scene_planes, materials):
 
 
 def _trace_layer(hit_fn, u, layer, i_idx, j_idx, *, width, height, spp4,
-                 bounces, rr_depth, eps, cam, res=None):
+                 bounces, rr_depth, eps, cam, res=None, suv=None):
     """One sample layer of every pixel -> radiance (lr, lg, lb), the
     kernels' ``trace_sample`` as [P]-wide tensor ops.  ``hit_fn(o3, d3,
-    alive)`` -> (tmin, ``surface(...)``, winner code) finds each ray's
-    winner.  A path that has ended keeps computing, masked (the Pallas
-    kernel's lanes).  ``res`` = (wid [bounces, P], resv [bounces, 7, P])
-    views take the replay residuals: the winner code, albedo, emission and
-    s = scl x RR weight on live bounces, -1 and zeros on dead ones."""
+    alive, layer, k)`` -> (tmin, ``surface(...)``, winner code) finds each
+    ray's winner at bounce k.  A path that has ended keeps computing,
+    masked (the Pallas kernel's lanes).  ``res`` = (wid [bounces, P], resv
+    [bounces, 7, P]) views take the replay residuals: the winner code,
+    albedo, emission and s = scl x RR weight on live bounces, -1 and zeros
+    on dead ones; the ``suv`` [2, P] view the screen coordinates (su, sv)
+    of the primary rays."""
     px, py, pz, dx0, dy0, dz0, cxx, cyx, cyy, cyz, push = cam
     s = spp4 // 4
     sy, sx = layer // (2 * s), (layer // s) % 2
@@ -207,6 +209,9 @@ def _trace_layer(hit_fn, u, layer, i_idx, j_idx, *, width, height, spp4,
     jy = torch.where(r2 < 1, sqrt_rn(r2) - 1.0, 1.0 - sqrt_rn(torch.clamp_min(2.0 - r2, 0.0)))
     su = (((sx + 0.5) + jx) / 2.0 + i_idx) / float(width) - 0.5
     sv = (((sy + 0.5) + jy) / 2.0 + j_idx) / float(height) - 0.5
+    if suv is not None:
+        suv[0] = su
+        suv[1] = sv
     ddx = su * cxx + sv * cyx + dx0
     ddy = sv * cyy + dy0
     ddz = sv * cyz + dz0
@@ -220,7 +225,7 @@ def _trace_layer(hit_fn, u, layer, i_idx, j_idx, *, width, height, spp4,
     alive = torch.ones(dx.shape, dtype=torch.bool, device=dx.device)
     for k in range(bounces):
         tmin, ((hx, hy, hz), (nx, ny, nz), (er, eg, eb), (ar, ag, ab), r2w,
-               is_diff, is_refr), code = hit_fn((ox, oy, oz), (dx, dy, dz), alive)
+               is_diff, is_refr), code = hit_fn((ox, oy, oz), (dx, dy, dz), alive, layer, k)
         miss = tmin >= MISS_T
         live = alive & ~miss
 
@@ -307,11 +312,12 @@ def _trace_layer(hit_fn, u, layer, i_idx, j_idx, *, width, height, spp4,
 
 
 def render_layers(hit_fn, *, dtype, device, width, height, spp4, bounces,
-                  rr_depth, eps, seed, uniforms, cam, res=None):
+                  rr_depth, eps, seed, uniforms, cam, res=None, suv=None):
     """The per-pixel mean over ``spp4`` sample layers, accumulated layer
     by layer (memory stays at one layer's [W*H] planes) -> [3, W*H].
     ``res`` = (wid [bounces, spp4, W*H], resv [bounces, 7, spp4, W*H])
-    takes the replay residuals of every layer."""
+    takes the replay residuals of every layer, ``suv`` [2, spp4, W*H] the
+    screen coordinates of its primary rays."""
     n_pix = width * height
     pix = torch.arange(n_pix, device=device)
     i_idx, j_idx = (pix // height).to(dtype), (pix % height).to(dtype)
@@ -324,7 +330,8 @@ def render_layers(hit_fn, *, dtype, device, width, height, spp4, bounces,
             seed, pix, a, n_uniforms(bounces), stream=rng.STREAM_FUSED, dtype=dtype
         )
         res_a = None if res is None else (res[0][:, a], res[1][:, :, a])
-        lr, lg, lb = _trace_layer(hit_fn, u, a, i_idx, j_idx, res=res_a, **kw)
+        lr, lg, lb = _trace_layer(hit_fn, u, a, i_idx, j_idx, res=res_a,
+                                  suv=None if suv is None else suv[:, a], **kw)
         acc = acc + torch.stack((lr, lg, lb)) * inv_spp
     return acc
 
@@ -335,7 +342,7 @@ def render_pt_plain(scene_planes, materials, *, width, height, spp4, bounces=8,
     random stream as torch ops, one sample layer at a time."""
     planes_pad, mat_pad = pad_scene(scene_planes, materials)
 
-    def hit_fn(o3, d3, alive):
+    def hit_fn(o3, d3, alive, layer, k):
         tmin, win = sphere_hits(planes_pad, *o3, *d3, eps)
         return tmin, surface(planes_pad, mat_pad, win, tmin, o3, d3), win
 

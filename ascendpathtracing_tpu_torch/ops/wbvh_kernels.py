@@ -173,14 +173,18 @@ def _test_chunk(grid, r, c, eps, tmin, slot):
     slot[ids] = torch.where(better, c * T + j, slot[ids])
 
 
-def walk_plain(grid: PlainGrid, o3, d3, tmin, *, eps, gate=None, counts=None):
+def walk_plain(grid: PlainGrid, o3, d3, tmin, *, eps, gate=None, counts=None,
+               marks=None):
     """The kernels' per-ray walk (``chunk_walk.cuh``) as torch ops: loop
     over the boxes in index order, keep the rays whose slab test passes,
     test the listed chunks' rows on those rays.  ``tmin`` [M] is the
     running minimum (updated in place); ``gate`` [M] the mesh path
     tracer's entry bound; ``counts`` [3, M] int32 (chunks tested, supers
-    hit, super-supers hit) are added to in place.  Returns slot [M] int64,
-    -1 where no triangle won."""
+    hit, super-supers hit) are added to in place.  ``marks`` = (group [M]
+    int64, (chunks [G, C], supers [G, Cs], super-supers [G, Css]) bool):
+    each box a ray enters is set for the ray's group, so each row ends as
+    the union over the group's rays (the mesh kernel's with_stats).
+    Returns slot [M] int64, -1 where no triangle won."""
     ox, oy, oz = o3
     dx, dy, dz = d3
     m = ox.shape[0]
@@ -203,6 +207,8 @@ def walk_plain(grid: PlainGrid, o3, d3, tmin, *, eps, gate=None, counts=None):
                 continue
             if counts is not None:
                 counts[level, sub["ids"]] += 1
+            if marks is not None:
+                marks[1][level][marks[0][sub["ids"]], b] = True
             inner(b, sub)
 
     def chunk(c, sub):

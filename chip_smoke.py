@@ -18,12 +18,19 @@ the mesh path's training step: the fused kernel's replay residuals, the
 segment-sum kernel (csrc/segsum.cu) on the test shapes, a 1,310,720-slot
 stream and the real replay stream, the full-size step through
 ``diff/mesh_fused.make_render_pt_mesh_diff`` and the bench, and a float64
-finite-difference gate, then the bounce-loop mesh renderer: the BVH
+finite-difference gate (twice: the sums and gradients repeat bit for
+bit), then the fused kernel's camera and stats outputs against the twin,
+the camera gradients at the s4 cell through
+``diff/camera_fused.render_with_camera`` (depth against a float64 brute
+force, a float64 finite-difference gate) and the s4 frame's per-tile walk
+record, then the bounce-loop mesh renderer: the BVH
 traversal kernel (csrc/bvh.cu) against its twin, the chunk kernel and
 brute force on the camera rays and the bounced rays of the s4 cell, the
 render at 1024 x 1024 x 4 samples x 8 bounces with either traversal
 kernel, its fwd+bwd step through ``diff/mesh`` with a float64
-finite-difference gate, and its CLI and bench entry points.  It proves
+finite-difference gate, and its CLI and bench entry points.  Right after
+the build it runs the card-only tests (tests/test_torch_cuda.py) in a
+pytest subprocess without the repository's conftest.  It proves
 through the launch counters, reset
 before each run, that each path went through its kernels, and times
 kernels, plain versions and, where one PyTorch call computes the same
@@ -45,11 +52,14 @@ import io
 import json
 import re
 import statistics
+import subprocess
 import sys
 import tempfile
 import time
 from pathlib import Path
+from xml.etree import ElementTree
 
+REPO = Path(__file__).resolve().parent
 FULL_W = 1024  # 1024 x 1024 x 4 = 4,194,304 rays, the main path's size
 BOUNCES = 8
 PT_SPP4, PT_RR = 64, 5  # the fused path tracer's cell: 1024 x 1024 x 64
@@ -57,6 +67,13 @@ MESH_SUBDIV = 4  # the mesh cell: icosphere s4, 5,120 triangles, 16 per chunk
 MESH_TWIN_SPP4 = 4  # the mesh twin's samples at full resolution (1/16 of the cell)
 MESH_CHUNKS = 8  # replay chunks of diff/mesh_fused.LAYER_CHUNK (8) layers of 64
 SEG_TOL = 1e-5  # segment-sum: |kernel - twin| <= SEG_TOL * sum of |rows| per segment
+SEG_ATOMIC_MS = 2.185  # the earlier, atomic segment-sum on the real replay stream (PERF.md)
+STATS_TILE = 2048  # with_stats: pixels per cell, the Pallas kernel's default tile
+# Registers of the fused mesh kernel's instantiations without stats, as
+# the build log showed them before the camera and stats outputs existed:
+# those outputs must leave them as they were.
+MESH_REGS_BEFORE = {"f32_forward": 75, "f64_forward": 106, "f32_residuals": 80,
+                    "f64_residuals": 114}
 # The H100 SXM's published peaks (NVIDIA's data sheet, dense, 700 W): HBM
 # bytes/s and float32 outside the tensor cores.
 HBM_BPS, FP32_OPS = 3.35e12, 67e12
@@ -102,7 +119,10 @@ REPLACES = {  # launch counter -> the TPU kernel it replaces
 # ``mesh_train_step`` one training step of that cell: the forward with
 # residuals and one segment-sum per replay chunk (phase 21).
 # ``xla_mesh_*`` are the bounce-loop mesh renderer at the bench's xla-mesh
-# cell: one traversal launch per bounce (phases 24-25).
+# cell: one traversal launch per bounce (phases 24-25).  ``camera_step``
+# is the camera-gradient step at the mesh cell (phase 22b): one fused
+# launch with residuals and screen coordinates; with the tables requiring
+# grad too, their two gathers' backward adds one segment-sum each.
 _NONE = dict.fromkeys(SOURCE, 0)
 RUNS = {
     "train_step": {**_NONE, "fwd_idx": 1, "bwd_replay": 1},
@@ -118,6 +138,8 @@ RUNS = {
     # the last bounce's hit distance moves only the next origin, which no
     # output reads, so its recompute gather has no backward
     "xla_mesh_train_step": {**_NONE, "wbvh": BOUNCES, "segsum": 4 * BOUNCES - 2},
+    "camera_step": {**_NONE, "mesh_pt": 1},
+    "camera_step_tables": {**_NONE, "mesh_pt": 1, "segsum": 2},
 }
 RUN_OF = {  # kernel -> the run whose count its row reports
     "fwd": "inference_render",
@@ -142,8 +164,12 @@ def require(ok, what):
         raise SmokeFailure(what)
 
 
+T0 = time.time()
+
+
 def phase(name, **fields):
-    print(json.dumps({"phase": name, **fields}), flush=True)
+    """One phase's JSON line; ``t`` is the seconds since the script began."""
+    print(json.dumps({"phase": name, **fields, "t": time.time() - T0}), flush=True)
 
 
 def spills_by_kernel(log: str) -> dict:
@@ -157,6 +183,33 @@ def spills_by_kernel(log: str) -> dict:
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if m and cur is not None:
             out[cur] = (int(m.group(1)), int(m.group(2)))
+    return out
+
+
+def registers_by_kernel(log: str) -> dict:
+    """nvcc --resource-usage log -> {entry function: registers}."""
+    out, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = m.group(1)
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cur is not None:
+            out[cur] = int(m.group(1))
+    return out
+
+
+def mesh_kernel_registers(log: str) -> dict:
+    """The fused mesh kernel's registers by instantiation: {"<f32|f64>_
+    <forward|residuals|camera>[_stats]": registers}."""
+    out = {}
+    for name, n in registers_by_kernel(log).items():
+        if "render_pt_mesh_kernel" not in name:
+            continue
+        sink = ("camera" if "CameraResiduals" in name else
+                "forward" if "NoResiduals" in name else "residuals")
+        key = f"{'f32' if 'render_pt_mesh_kernelIf' in name else 'f64'}_{sink}"
+        out[key + ("_stats" if "CellStats" in name else "")] = n
     return out
 
 
@@ -226,6 +279,8 @@ def main() -> int:
     from ascendpathtracing_tpu_torch.accel import meshes
     from ascendpathtracing_tpu_torch.accel import bvh as bvh_mod
     from ascendpathtracing_tpu_torch.accel import tri
+    from ascendpathtracing_tpu_torch.diff import camera as dcam
+    from ascendpathtracing_tpu_torch.diff import camera_fused as dcf
     from ascendpathtracing_tpu_torch.diff import mesh as dmesh
     from ascendpathtracing_tpu_torch.diff import mesh_fused as mf
     from ascendpathtracing_tpu_torch.models import mesh as mm
@@ -272,10 +327,42 @@ def main() -> int:
     other = {k: v for k, v in spills.items() if k not in f64_spills}
     require(len(spills) >= 2 * len(libs) and all(v == (0, 0) for v in other.values()),
             f"register spills: {other}")
+    mesh_regs = mesh_kernel_registers(build.library_path("mesh_pt").with_suffix(".log")
+                                      .read_text())
+    require(len(mesh_regs) == 12 and all(mesh_regs[k] == v for k, v in MESH_REGS_BEFORE.items()),
+            f"fused mesh kernel registers {mesh_regs}, expected {MESH_REGS_BEFORE} unchanged")
+    require(mesh_regs["f32_camera"] <= 80,  # three blocks of 256 threads per SM (MinBlocks)
+            f"float camera kernel at {mesh_regs['f32_camera']} registers, more than 80")
     phase("build", seconds=build_s, gpu=gpu, torch=torch.__version__,
-          cuda=torch.version.cuda, ptxas=regs,
+          cuda=torch.version.cuda, ptxas=regs, mesh_pt_registers=mesh_regs,
           f64_spill_bytes={k: v for k, v in f64_spills.items() if v != (0, 0)})
     print(gpu, flush=True)
+
+    # ---- 1b. the card-only tests, in a pytest process of their own ------
+    # without tests/conftest.py (it imports jax, which this machine need
+    # not have); every test must pass and none skip.
+    t0 = time.time()
+    cmd = [sys.executable, "-m", "pytest", "--noconftest", "-p", "no:cacheprovider", "-q",
+           "tests/test_torch_cuda.py"]
+    with tempfile.TemporaryDirectory() as tmp:
+        report = Path(tmp) / "report.xml"  # the counts, whatever -q prints
+        proc = subprocess.run([*cmd, f"--junitxml={report}", "--durations=6"], cwd=REPO,
+                              capture_output=True, text=True, timeout=600, check=False)
+        suite = ElementTree.parse(report).getroot() if report.exists() else None
+    if suite is not None and suite.tag == "testsuites":
+        suite = suite[0]
+    tally = {k: int(suite.get(k, 0)) for k in ("tests", "failures", "errors", "skipped")} \
+        if suite is not None else {}
+    passed = tally.get("tests", 0) - sum(tally.get(k, 0) for k in ("failures", "errors",
+                                                                    "skipped"))
+    require(proc.returncode == 0 and tally.get("tests", 0) > 0 and passed == tally["tests"],
+            f"card-only tests: exit {proc.returncode}, {tally}\n"
+            f"{proc.stdout[-4000:]}\n{proc.stderr[-2000:]}")
+    slowest = [ln.strip() for ln in proc.stdout.splitlines()
+               if re.match(r"\s*[\d.]+s (call|setup)", ln)]
+    phase("card_only_tests", command=" ".join(["python3", *cmd[1:]]), passed=passed,
+          failed=tally["failures"] + tally["errors"], skipped=tally["skipped"],
+          seconds=time.time() - t0, slowest=slowest)
 
     # ---- 2. fwd f32, 1 bounce, 64x64x1: bitwise vs oracle and plain ----
     r64, rp = rays_planes(64)
@@ -781,23 +868,38 @@ def main() -> int:
     # bitwise, so every RR-death bounce too), counting its walk for the
     # bound; and with seed 1 as an independent run whose mean must be
     # within 4 standard errors (of the per-pixel difference, both images'
-    # noise) of the kernel's 64-sample mean.
+    # noise) of the kernel's 64-sample mean.  The twin runs once with
+    # every option (residuals, camera, stats of STATS_TILE-pixel cells);
+    # the kernel runs each option as its main path launches it: residuals
+    # and camera (render_with_camera) bitwise in image, wid, resv and suv,
+    # and stats alone (phase 22d) bitwise in image and kstats.
     full = dict(materials=m_mats, width=FULL_W, height=FULL_W, bounces=BOUNCES,
                 rr_depth=PT_RR, **m_kw)
     m_img = mpt.render_pt_mesh(m_planes, m_cb, m_sb, m_t24, spp4=PT_SPP4, **full)
     require(bool(torch.isfinite(m_img).all()) and float(m_img.min()) >= 0.0,
             "mesh_pt full size: non-finite or negative pixels")
-    k4, kwid4, kresv4 = mpt.render_pt_mesh(m_planes, m_cb, m_sb, m_t24, spp4=MESH_TWIN_SPP4,
-                                           with_residuals=True, **full)
-    walk4 = torch.zeros(4, dtype=torch.int64, device=dev)
-    p4, pwid4, presv4 = mpt.render_pt_mesh_plain(m_planes, m_cb, m_sb, m_t24,
-                                                 spp4=MESH_TWIN_SPP4, with_residuals=True,
-                                                 walk_counts=walk4, **full)
+    k4, kwid4, kresv4, ksuv4 = mpt.render_pt_mesh(
+        m_planes, m_cb, m_sb, m_t24, spp4=MESH_TWIN_SPP4, with_residuals=True,
+        with_camera=True, **full)
+    walk4 = torch.zeros((BOUNCES, 4), dtype=torch.int64, device=dev)  # a row per bounce
+    p4, pwid4, presv4, psuv4, pks4 = mpt.render_pt_mesh_plain(
+        m_planes, m_cb, m_sb, m_t24, spp4=MESH_TWIN_SPP4, with_residuals=True,
+        with_camera=True, with_stats=True, stats_tile=STATS_TILE, walk_counts=walk4, **full)
     require(torch.equal(kwid4, pwid4) and torch.equal(kresv4, presv4),
             "mesh_pt full resolution vs twin, same seed: residuals (wid, resv) not bitwise")
+    require(torch.equal(ksuv4, psuv4), "mesh_pt full resolution vs twin: suv not bitwise")
+    ks_img4, kks4 = mpt.render_pt_mesh(m_planes, m_cb, m_sb, m_t24, spp4=MESH_TWIN_SPP4,
+                                       with_stats=True, stats_tile=STATS_TILE, **full)
+    require(torch.equal(kks4, pks4), "mesh_pt full resolution vs twin: kstats differ")
     twin_live4 = int((pwid4 >= 0).sum())
     rr_death4 = int(((kwid4[PT_RR:-1] >= 0) & (kwid4[PT_RR + 1:] < 0)).sum())
-    del kwid4, kresv4, pwid4, presv4
+    full_opts = {"image_bitwise_camera_vs_twin": bool(torch.equal(k4, p4)),
+                 "image_bitwise_stats_vs_twin": bool(torch.equal(ks_img4, p4)),
+                 "suv_bitwise": True, "kstats_equal": True,
+                 "kstats_chunks_mean_by_bounce": kks4[:BOUNCES].float().mean(dim=1).tolist()}
+    require(full_opts["image_bitwise_camera_vs_twin"] and full_opts["image_bitwise_stats_vs_twin"],
+            f"mesh_pt full resolution vs twin: images differ {full_opts}")
+    del kwid4, kresv4, pwid4, presv4, ksuv4, psuv4, ks_img4, kks4, pks4
     mesh_err = float((k4 - p4).abs().max())
     share4 = rel_share(k4, p4, 1e-5)
     require(share4 >= 0.99, f"mesh_pt full resolution vs twin, same seed: share {share4}")
@@ -810,8 +912,9 @@ def main() -> int:
     phase("mesh_pt_full_1024x1024_spp64", mean=float(m_img.mean()), min=float(m_img.min()),
           twin_spp4=MESH_TWIN_SPP4, max_abs_err_vs_twin_spp4=mesh_err,
           bitwise_vs_twin_spp4=bool(torch.equal(k4, p4)), residuals_bitwise_vs_twin_spp4=True,
+          options_vs_twin_spp4=full_opts, stats_tile=STATS_TILE,
           live_sample_bounces_spp4=twin_live4, paths_ended_in_rr_bounces_spp4=rr_death4,
-          twin_walk_spp4=walk4.tolist(),
+          twin_walk_spp4=walk4.sum(dim=0).tolist(),
           share_within_1e5_vs_twin=share4, twin_seed1_mean=float(p1.mean()),
           z_vs_twin_seed1=z_mesh)
     del k4, p4, p1, diff
@@ -936,6 +1039,62 @@ def main() -> int:
     phase("mesh_pt_residuals_64x64_spp16", tolerance="bitwise (image, wid, resv); image "
           "with residuals == without", **res19)
 
+    # 19b. The camera and stats outputs, 64x64, spp4 16, 8 bounces, RR from
+    # 5, the mixed scene: kernel vs twin bitwise in image, wid, resv, suv
+    # and kstats (f32 with Philox, f64 with zero uniforms; cells of 1024
+    # pixels), with both options and with each on its own; image, wid and
+    # resv the same as the launch with residuals alone.  kstats also on a
+    # 3-level grid (icosphere s5, chunks of 16, 8
+    # per super, 12 per super-super: ragged, so pad boxes take part), f32,
+    # 32x32 x 4 samples (its twin walks 1,526 boxes in Python loops).
+    cam19 = {}
+    for tdt in (torch.float32, torch.float64):
+        tables = mpt.mesh_pt_tables(mixed, device=dev, dtype=tdt)
+        kw = dict(materials=tables[4], width=64, height=64, spp4=16, bounces=BOUNCES,
+                  rr_depth=PT_RR, with_residuals=True, **mpt.pt_tables_kwargs(tables[5], dev))
+        opts = dict(with_camera=True, with_stats=True, stats_tile=1024)
+        u = (None if tdt == torch.float32 else
+             torch.zeros((16, 2 + 3 * BOUNCES, 64 * 64), dtype=tdt, device=dev))
+        for label in ("philox",) if u is None else ("zero_uniforms",):
+            name = f"{str(tdt).split('.')[-1]}_{label}"
+            k = mpt.render_pt_mesh(*tables[:4], uniforms=u, **opts, **kw)
+            p = mpt.render_pt_mesh_plain(*tables[:4], uniforms=u, **opts, **kw)
+            same = [torch.equal(a, b) for a, b in zip(k, p)]
+            require(all(same), f"camera/stats {name}: kernel vs twin (image, wid, resv, suv, "
+                    f"kstats) {same}")
+            base = mpt.render_pt_mesh(*tables[:4], uniforms=u, **kw)
+            require(all(torch.equal(a, b) for a, b in zip(k[:3], base)),
+                    f"camera/stats {name}: the options changed the image, wid or resv")
+            # each option on its own, as its main path launches it
+            cam_only = mpt.render_pt_mesh(*tables[:4], uniforms=u, with_camera=True, **kw)
+            same = [torch.equal(a, b) for a, b in zip(cam_only, p[:4])]
+            require(all(same), f"with_camera alone {name}: kernel vs twin (image, wid, resv, "
+                    f"suv) {same}")
+            stats_kw = {**kw, "with_residuals": False}
+            stats_only = mpt.render_pt_mesh(*tables[:4], uniforms=u, with_stats=True,
+                                            stats_tile=1024, **stats_kw)
+            same = [torch.equal(a, b) for a, b in zip(stats_only, (p[0], p[4]))]
+            require(all(same), f"with_stats alone {name}: kernel vs twin (image, kstats) {same}")
+            cam19[name] = {"suv_min_max": [float(k[3].min()), float(k[3].max())],
+                           "kstats_chunks_by_bounce": k[4][:BOUNCES].float().mean(dim=1).tolist()}
+    ms5 = mm.MeshScene.cornell_with_mesh(*meshes.icosphere(
+        center=(50, 40, 60), radius=14.0, subdivisions=5), albedo=(0.85, 0.55, 0.2))
+    t5 = mpt.mesh_pt_tables(ms5, device=dev, tris_per_chunk=16, supers_per=8, supers2_per=12)
+    kw5 = dict(materials=t5[4], width=32, height=32, spp4=4, bounces=BOUNCES, rr_depth=PT_RR,
+               with_stats=True, stats_tile=256, **mpt.pt_tables_kwargs(t5[5], dev))
+    k5 = mpt.render_pt_mesh(*t5[:4], **kw5)
+    p5 = mpt.render_pt_mesh_plain(*t5[:4], **kw5)
+    require(torch.equal(k5[1], p5[1]) and torch.equal(k5[0], p5[0]),
+            "stats on the 3-level grid: kernel vs twin (image, kstats) differ")
+    require(int(k5[1][2 * BOUNCES].max()) > 0, "3-level grid: no super-super entered")
+    cam19["float32_3level_s5_32x32_spp4"] = {
+        "grid": [t5[5].n_chunks, t5[5].n_supers, t5[5].n_supers2],
+        "kstats_mean_bounce0": [float(k5[1][lv * BOUNCES].float().mean()) for lv in range(3)]}
+    del k5, p5, t5, ms5
+    phase("mesh_pt_camera_stats_64x64_spp16", tolerance="bitwise (image, wid, resv, suv); "
+          "kstats equal; both options and each alone; image, wid, resv == the launch "
+          "without the options", **cam19)
+
     # The full-size residuals (1024x1024 x 64 spp of s4, seed 0): the
     # same paths as phase 16's forward, and the real replay stream.
     n_slots = m_t24.shape[0]
@@ -952,14 +1111,16 @@ def main() -> int:
     mesh_live = int((wid_r >= 0).sum())
     # The walk's operations: phase 16's twin count over its 4 layers,
     # scaled by the live sample-bounces of the 64.
-    mesh_walk = walk_ops(walk4[1:].tolist(), int(walk4[0]), m_grid) * mesh_live / twin_live4
+    walk_all = walk4.sum(dim=0)
+    mesh_walk = walk_ops(walk_all[1:].tolist(), int(walk_all[0]), m_grid) * mesh_live / twin_live4
     mesh_rows["mesh_pt"].update(bound(12 * FULL_W * FULL_W,
                                       mesh_live * (SPHERE_OPS * 9 + PT_SHADE_OPS)
                                       + FULL_W * FULL_W * PT_SPP4 * CAM_OPS + mesh_walk))
     n_seg = 9 + n_slots
 
     # 20. The segment-sum kernel vs its twin in float64: kocc equal, each
-    # segment within SEG_TOL x (sum of |vals| over its rows).
+    # segment within SEG_TOL x (sum of |vals| over its rows); two launches
+    # on the same inputs give the same sums and kocc bit for bit.
     def seg_check(seg, vals, n_slots, f64_too=False):
         ref = segk.segment_rows_plain(seg, vals.double(), n_slots=n_slots)
         mag = segk.segment_rows_plain(seg, vals.double().abs(), n_slots=n_slots)
@@ -968,12 +1129,17 @@ def main() -> int:
         runs = [("paged_f32", vals)] + ([("paged_f64", vals.double())] if f64_too else [])
         for label, v in runs:
             acc, kocc = segk.segment_rows_paged(seg, v, n_slots=n_slots)
+            again, kocc2 = segk.segment_rows_paged(seg, v, n_slots=n_slots)
+            require(torch.equal(acc, again) and torch.equal(kocc, kocc2),
+                    f"segsum {label}: two launches differ")
             require(torch.equal(kocc, kocc_ref), f"segsum {label}: kocc differs")
             err = (acc.double() - ref).abs()
             out[label] = float((err / mag.clamp_min(1e-300)).max())
             require(bool((err <= SEG_TOL * mag).all()),
                     f"segsum {label}: beyond tolerance, max err / sum|vals| {out[label]}")
         acc = segk.segment_rows_matmul(seg, vals, n_slots=n_slots)
+        require(torch.equal(acc, segk.segment_rows_matmul(seg, vals, n_slots=n_slots)),
+                "segsum matmul: two launches differ")
         err = (acc.double() - ref).abs()
         out["matmul_f32"] = float((err / mag.clamp_min(1e-300)).max())
         require(bool((err <= SEG_TOL * mag).all()),
@@ -1013,6 +1179,8 @@ def main() -> int:
     seg8 = torch.where(torch.rand(n8, device=dev) < 0.6, (row >> 10) % 9, tri_ids).int()
     vals8 = torch.rand((6, n8), device=dev)
     seg20["synthetic_s8_33554432x1310729x6"] = seg_check(seg8, vals8, 9 + s8_slots)
+    seg20["synthetic_s8_33554432x1310729x6"]["kernel_ms"] = med_ms(
+        lambda: segk.segment_rows_paged(seg8, vals8, n_slots=9 + s8_slots), iters=5)
     del row, region, tri_ids, seg8, vals8
     # The real replay stream: chunk 0 of the full-size training step
     # (8 layers x 8 bounces x 1,048,576 pixels), cotangent ones.
@@ -1036,8 +1204,9 @@ def main() -> int:
     del idx_lib, src_lib, acc_lib
     seg_bound = bound(n_real * (4 + 6 * 4) + n_seg * 6 * 4, n_real * 6)
     phase("segsum_kernel_vs_twin", gpu=gpu, tolerance=f"kocc equal; per segment "
-          f"|kernel - f64 twin| <= {SEG_TOL} x sum |vals|", streams=seg20,
-          replay_rows=n_real, kernel_ms=seg_ms, twin_ms=seg_plain_ms,
+          f"|kernel - f64 twin| <= {SEG_TOL} x sum |vals|; two launches bitwise equal",
+          streams=seg20, deterministic=True, replay_rows=n_real, kernel_ms=seg_ms,
+          kernel_ms_atomic_before=SEG_ATOMIC_MS, twin_ms=seg_plain_ms,
           index_add_ms=seg_lib_ms, **seg_bound)
     del seg_real, vals_real
     torch.cuda.empty_cache()
@@ -1062,6 +1231,13 @@ def main() -> int:
             "pad slots carry gradient")
     require(float(gp[4:10].abs().max()) > 0 and float(ga.abs().max()) > 0
             and float(ge.abs().max()) > 0, "mesh train step: zero gradients")
+    # The same step again: the loss and the scene and slot gradients repeat
+    # bit for bit (the segment-sum is deterministic).
+    loss_t2, grads2 = train_step()
+    require(torch.equal(loss_t, loss_t2) and all(torch.equal(a, b) for a, b in
+                                                 zip((gp, ga, ge), grads2)),
+            "mesh train step: two runs' gradients differ")
+    del loss_t2, grads2
     # The same residuals replayed by the kernel and by the twin (f64
     # sums); every row is >= 0 for g = ones, so sum |rows| is the twin's
     # value and the gate is relative.
@@ -1087,6 +1263,7 @@ def main() -> int:
     step_ms = statistics.median(step_times)
     phase("mesh_train_step_1024x1024_spp64", gpu=gpu, launches=launches["mesh_train_step"],
           finite=True, plane_rows_0_3_zero=True, pad_slots_zero=int(pad.sum()),
+          repeat_bitwise=True,
           replay_kernel_vs_twin_max_rel=rep_err, tolerance=f"rtol {SEG_TOL} (rows >= 0)",
           step_ms_median=step_ms, step_ms=step_times, step_peak_memory_bytes=peak_step,
           fwd_only_ms=mesh_ms, fwd_with_residuals_ms=fwd_res_ms,
@@ -1097,12 +1274,13 @@ def main() -> int:
           dead_bounce_share=dead_share,
           residual_bytes=FULL_W * FULL_W * PT_SPP4 * BOUNCES * 32,
           msamples_per_s=FULL_W * FULL_W * PT_SPP4 / (step_ms * 1e-3) / 1e6)
-    rows.append({
+    seg_row = {
         "name": "segsum", "route": "cuda", "source": SOURCE["segsum"],
         "replaces": REPLACES["segsum"], "run": RUN_OF["segsum"],
         "launches": launches[RUN_OF["segsum"]]["segsum"], "max_abs_err": real["max_abs_err"],
         "ms": seg_ms, "plain_ms": seg_plain_ms, **seg_bound, "library_ms": seg_lib_ms,
-    })
+    }
+    rows.append(seg_row)
     del loss_t, gp, ga, ge, train_step
     torch.cuda.empty_cache()
 
@@ -1169,6 +1347,195 @@ def main() -> int:
     phase("mesh_train_entry_points", bench=train_line, bench_fwd_only=mesh_line)
     torch.cuda.empty_cache()
 
+    # ---- 22b-22d. camera gradients through the fused renderer
+    # (diff/camera_fused; csrc/mesh_pt.cu with_camera) and the frame's
+    # walk record (with_stats) ------------------------------------------
+    # 22b. render_with_camera at the s4 cell (1024x1024 x 64 spp, 8
+    # bounces, RR from 5), counted from zero: loss = mean(depth^2), its
+    # gradient in pos, raw_dir and fov; then with the sphere planes and
+    # the slot rows requiring grad as well.  The depth of sample layer 0
+    # against a float64 brute-force first hit over the rays rebuilt from
+    # suv: the gates of tests/test_camera_fused.py where the winners agree.
+    ckw = dict(materials=m_mats, width=FULL_W, height=FULL_W, spp4=PT_SPP4, bounces=BOUNCES,
+               rr_depth=PT_RR, **m_kw)
+    n_s = m_planes.shape[1]
+
+    def camera_step(tables_grad=False):
+        params = {k: v.requires_grad_(True) for k, v in dcam.CameraParams(device=dev).items()}
+        planes_in, t24_in = m_planes, m_t24
+        if tables_grad:
+            planes_in = m_planes.clone().requires_grad_(True)
+            t24_in = m_t24.clone().requires_grad_(True)
+        _, depth, (wid, _, suv) = dcf.render_with_camera(params, planes_in, m_cb, m_sb, t24_in,
+                                                         **ckw)
+        leaves = [*params.values(), *((planes_in, t24_in) if tables_grad else ())]
+        return depth.detach(), wid, suv, torch.autograd.grad((depth * depth).mean(), leaves)
+
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    (depth_c, wid_c, suv_c, cgrads), launches["camera_step"] = counted(camera_step)
+    peak_cam = torch.cuda.max_memory_allocated() - resident
+    require(launches["camera_step"] == RUNS["camera_step"],
+            f"camera step launches {launches['camera_step']}")
+    require(all(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0 for g in cgrads),
+            f"camera step: non-finite or zero gradients {cgrads}")
+    mdev64 = mm.mesh_scene_to_device(ms, device=dev, dtype=torch.float64, use_bvh=False)
+    cam64 = dcf.cam_vector(dcam.CameraParams(dtype=torch.float64, device=dev), FULL_W, FULL_W,
+                           dtype=torch.float64)
+    su, sv = suv_c[0, 0].double(), suv_c[1, 0].double()
+    dd = torch.stack([su * cam64[6] + sv * cam64[7] + cam64[3], sv * cam64[8] + cam64[4],
+                      sv * cam64[9] + cam64[5]], 1)
+    d64 = dd / dd.norm(dim=1, keepdim=True)
+    rays64 = torch.cat([cam64[0:3][None] + dd * cam64[10], d64], 1)
+    bt, bkind, bid = (torch.cat(x) for x in zip(*(
+        mm.first_hit_mesh(rays64[i:i + 16384], mdev64) for i in range(0, rays64.shape[0], 16384))))
+    code = wid_c[0, 0].long()
+    is_tri = code >= n_s
+    slot = torch.where(is_tri, code - n_s, 0)
+    agree = torch.where(code < 0, bkind == 0, torch.where(
+        is_tri, (bkind == 2) & (fos[slot].long() == bid.long()),
+        (bkind == 1) & (code == bid.long())))
+    hit = (bkind > 0) & agree
+    dep = depth_c[0].double()
+    steep = hit & is_tri & ((m_t24[slot, 13:16].double() * d64).sum(dim=1).abs() > 0.1)
+    r2w = m_planes[0].double()[code.clamp(0, n_s - 1)]
+    small, wall = hit & ~is_tri & (r2w < 1e6), hit & ~is_tri & (r2w >= 1e6)
+
+    def within(mask, rtol, atol=0.0):
+        return bool(((dep[mask] - bt[mask]).abs() <= atol + rtol * bt[mask].abs()).all())
+
+    brute_cam = {"samples": int(code.numel()), "winners_agree": float(agree.float().mean()),
+                 "hit_share": float(hit.float().mean()), "steep_triangles": int(steep.sum()),
+                 "small_spheres": int(small.sum()), "walls": int(wall.sum()),
+                 "max_rel_err_steep": float(((dep - bt).abs() / bt.abs())[steep].max())}
+    require(brute_cam["winners_agree"] >= 0.97 and brute_cam["hit_share"] > 0.9
+            and min(brute_cam["steep_triangles"], brute_cam["small_spheres"],
+                    brute_cam["walls"]) > 100, f"camera depth vs brute force: {brute_cam}")
+    require(within(steep, 2e-3) and within(small, 2e-3) and within(wall, 2e-3, 0.25)
+            and within(hit, 5e-2, 0.25) and bool((dep[code < 0] == 0).all()),
+            f"camera depth vs brute force beyond the gates: {brute_cam}")
+    del mdev64, rays64, bt, bkind, bid, dd, d64
+    # The forward with and without suv, in turns (the card's clocks drift
+    # over a run, so only neighbouring times compare).
+    fwd_turns = {False: [], True: []}
+    for cam_on in (False, True, True, False):
+        fwd_turns[cam_on].append(med_ms(lambda: mpt.render_pt_mesh(
+            m_planes, m_cb, m_sb, m_t24, spp4=PT_SPP4, with_residuals=True,
+            with_camera=cam_on, **full)[0], iters=3))
+    fwd_cam_ms = statistics.median(fwd_turns[True])
+
+    def depth_fwd_bwd():
+        params = {k: v.requires_grad_(True) for k, v in dcam.CameraParams(device=dev).items()}
+        d = dcf.primary_depth(params, wid_c[0], suv_c, m_t24[:, :16], m_planes, n_spheres=n_s,
+                              width=FULL_W, height=FULL_W)
+        return torch.autograd.grad((d * d).mean(), list(params.values()))
+
+    depth_ms = med_ms(depth_fwd_bwd, iters=3)
+    del depth_c, wid_c, suv_c
+    torch.cuda.empty_cache()
+    cam_step_ms = med_ms(lambda: camera_step()[3], iters=3)
+    (_, _, _, tgrads), launches["camera_step_tables"] = counted(lambda: camera_step(True))
+    require(launches["camera_step_tables"] == RUNS["camera_step_tables"],
+            f"camera step with table grads: launches {launches['camera_step_tables']}")
+    geo = [3, 4, 5, 12]  # the slot row floats the depth reads: normal and d0
+    other = [j for j in range(tgrads[4].shape[1]) if j not in geo]
+    require(all(bool(torch.isfinite(g).all()) for g in tgrads)
+            and float(tgrads[3][0:4].abs().max()) > 0 and float(tgrads[3][4:].abs().max()) == 0
+            and float(tgrads[4][:, geo].abs().max()) > 0
+            and float(tgrads[4][:, other].abs().max()) == 0,
+            "camera step with table grads: gradients not where the depth reads the tables")
+    cam_tables_ms = med_ms(lambda: camera_step(True)[3], iters=3)
+    del tgrads
+    torch.cuda.empty_cache()
+    phase("camera_path_1024x1024_spp64", gpu=gpu, launches=launches["camera_step"],
+          launches_tables_grad=launches["camera_step_tables"], finite=True,
+          grad_abs_max={k: float(g.abs().max()) for k, g in zip(("pos", "raw_dir", "fov"), cgrads)},
+          depth_vs_brute_f64_layer0=brute_cam, fwd_with_camera_ms=fwd_turns[True],
+          fwd_with_residuals_ms=fwd_turns[False], suv_bytes=2 * PT_SPP4 * FULL_W * FULL_W * 4,
+          depth_fwd_bwd_ms=depth_ms, step_ms=cam_step_ms, step_tables_grad_ms=cam_tables_ms,
+          step_peak_memory_bytes=peak_cam, chunked="no: one pass over the 64 layers",
+          tolerance="winners agree >= 97%; steep triangles and small spheres rtol 2e-3, "
+                    "walls 2e-3 + 0.25, all hits 5e-2 + 0.25")
+
+    # 22c. The float64 finite-difference gate of tests/test_camera_fused.py
+    # on the card: icosphere s2 in smallpt9 (chunks of 16), 32x32 x 4
+    # samples, 2 bounces, RR from 2, zero uniforms (the JAX test's
+    # interpret-mode u = 0); the kernel's winners and screen coordinates
+    # frozen, h = 1e-6, all 7 coordinates within 1e-4.
+    ms2 = mm.MeshScene.cornell_with_mesh(*meshes.icosphere(
+        center=(50, 40, 60), radius=14.0, subdivisions=2), albedo=(0.85, 0.55, 0.2))
+    t2 = mpt.mesh_pt_tables(ms2, device=dev, tris_per_chunk=16)
+    _, _, (wid2, _, suv2) = dcf.render_with_camera(
+        dcam.CameraParams(device=dev), *t2[:4], materials=t2[4], width=32, height=32, spp4=4,
+        bounces=2, rr_depth=2, uniforms=torch.zeros((4, 2 + 3 * 2, 32 * 32), device=dev),
+        **mpt.pt_tables_kwargs(t2[5], dev))
+    g16_64, pl64 = t2[3][:, :16].double(), t2[0].double()
+
+    def cam_loss(prm):
+        d = dcf.primary_depth(prm, wid2[0], suv2, g16_64, pl64, n_spheres=pl64.shape[1],
+                              width=32, height=32)
+        return (d * d).mean() * 1e-4
+
+    prm = {k: v.requires_grad_(True)
+           for k, v in dcam.CameraParams(dtype=torch.float64, device=dev).items()}
+    cg64 = dict(zip(prm, torch.autograd.grad(cam_loss(prm), list(prm.values()))))
+    cam_fd = []
+    for name, g in cg64.items():
+        for ci in range(g.numel()):
+            step = torch.zeros(g.numel(), dtype=torch.float64, device=dev)
+            step[ci] = 1e-6
+            step = step.reshape(g.shape)
+            with torch.no_grad():
+                est = (float(cam_loss({**prm, name: prm[name] + step}))
+                       - float(cam_loss({**prm, name: prm[name] - step}))) / 2e-6
+            got = float(g.reshape(-1)[ci])
+            require(abs(got - est) <= 1e-10 + 1e-4 * abs(est),
+                    f"camera FD gate {name}[{ci}]: grad {got} vs fd {est}")
+            cam_fd.append({"leaf": name, "index": ci, "grad": got, "fd": est,
+                           "rel_err": abs(got - est) / max(abs(est), 1e-300)})
+    require(len(cam_fd) == 7, "camera FD gate: not 7 coordinates")
+    phase("camera_fd_gate_f64_32x32", tolerance="|grad - fd| <= 1e-10 + 1e-4 |fd|",
+          probes=cam_fd)
+    del t2, wid2, suv2
+
+    # 22d. The s4 frame with with_stats (cells of STATS_TILE pixels x one
+    # layer, and of one warp's 32 pixels): per bounce the chunks (and
+    # supers) some live path of a cell enters, beside the chunks one path
+    # enters on average (phase 16's twin, 4 layers at full resolution).
+    # Their ratio says how far a cell's paths walk different chunk lists.
+    def stats_frame(tile):
+        return mpt.render_pt_mesh(m_planes, m_cb, m_sb, m_t24, spp4=PT_SPP4, with_stats=True,
+                                  stats_tile=tile, **full)
+
+    img_s, ks = stats_frame(STATS_TILE)
+    require(torch.equal(img_s, m_img), "with_stats changed the frame")
+    require(tuple(ks.shape) == (3 * BOUNCES, FULL_W * FULL_W // STATS_TILE * PT_SPP4),
+            f"kstats shape {tuple(ks.shape)}")
+    stats_ms = statistics.median(bench.time_steps(lambda: stats_frame(STATS_TILE), iters=3,
+                                                  warmup=0)[0])
+    _, ks_warp = stats_frame(32)
+    by_bounce = []
+    for b in range(BOUNCES):
+        per_ray = float(walk4[b, 1]) / max(int(walk4[b, 0]), 1)
+        k_tile, k_warp = ks[b].float(), ks_warp[b].float()
+        by_bounce.append({
+            "bounce": b, "chunks_mean": float(k_tile.mean()), "chunks_max": int(ks[b].max()),
+            "supers_mean": float(ks[BOUNCES + b].float().mean()),
+            "warp_chunks_mean": float(k_warp.mean()), "warp_chunks_max": int(ks_warp[b].max()),
+            "warp_cells_zero_share": float((ks_warp[b] == 0).float().mean()),
+            "per_ray_chunks_mean_twin": per_ray, "rays_walked_twin": int(walk4[b, 0]),
+            "ratio_tile_to_ray": float(k_tile.mean()) / per_ray if per_ray else None,
+            "ratio_warp_to_ray": float(k_warp.mean()) / per_ray if per_ray else None})
+    del img_s, ks, ks_warp
+    torch.cuda.empty_cache()
+    phase("mesh_stats_1024x1024_spp64", gpu=gpu, stats_tile=STATS_TILE,
+          grid={"chunks": m_grid.n_chunks, "supers": m_grid.n_supers,
+                "supers2": m_grid.n_supers2},
+          frame_ms=mesh_ms, frame_with_stats_ms=stats_ms, by_bounce=by_bounce,
+          twin_spp4=MESH_TWIN_SPP4)
+    mesh_rows["mesh_pt"].update(ms_with_camera=fwd_cam_ms, ms_with_stats=stats_ms)
+
     # ---- 23-26. the bounce-loop mesh renderer (csrc/bvh.cu, csrc/wbvh.cu,
     # models/mesh, diff/mesh) --------------------------------------------
     # 23. The BVH kernel on the lockstep tables of the s4 cell (max_leaf
@@ -1221,6 +1588,8 @@ def main() -> int:
                 f"bvh {name}: kernel and twin differ on the first {BVH_SLICE} rays")
         bt, bf = (bt_cam, bf_cam) if name == "camera" else brute_first_hit(rp, v_s4, ms.faces)
         tw, sw = wk.intersect_chunks(rp, m_cb, m_sb, m_t24, **m_kw)
+        if name == "bounce1":  # the slots the xla-mesh gathers read at bounce 1
+            hseg = sw.to(torch.int32).clone()
         # vs_brute maps hk to faces through tri_order
         res = {"vs_brute": vs_brute(tk, hk, tri_order, bt, bf),
                "vs_wbvh": vs_brute(tk, hk, tri_order, tw, fos[sw.long()])}
@@ -1298,7 +1667,35 @@ def main() -> int:
                         (float(g.abs().max()) for g in grads_x)))
     del loss_x, grads_x
     train_times, _ = bench.time_steps(train, iters=3, warmup=0)
+    # _hist_kernel's own row: segment_rows_matmul as the gathers' backward
+    # calls it (models/mesh._GatherPlanes: eight planes per launch, the
+    # slot of each ray, slot 0 on a miss) on the bounce-1 slots of phase
+    # 23 (4,194,304 rows) with seeded cotangents, against its twin and
+    # index_add_; two launches bitwise equal.
     del train
+    matmul = segk.segment_rows_matmul
+    hslots = m_t24.shape[0]
+    hvals = torch.randn((segk.MAX_ROWS, hseg.shape[0]), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+    require(torch.equal(matmul(hseg, hvals, n_slots=hslots), matmul(hseg, hvals, n_slots=hslots)),
+            "segment_rows_matmul on the gather stream: two launches differ")
+    href = segk.segment_rows_plain(hseg, hvals.double(), n_slots=hslots)
+    hmag = segk.segment_rows_plain(hseg, hvals.double().abs(), n_slots=hslots)
+    require(bool(((matmul(hseg, hvals, n_slots=hslots).double() - href).abs()
+                  <= SEG_TOL * hmag).all()), "segment_rows_matmul on the gather stream vs twin")
+    hist_ms = med_ms(lambda: matmul(hseg, hvals, n_slots=hslots))
+    hist_plain_ms = med_ms(lambda: segk.segment_rows_plain(hseg, hvals, n_slots=hslots), iters=5)
+    h_idx = torch.where((hseg >= 0) & (hseg < hslots), hseg, hslots).long()
+    h_src = hvals.T.contiguous()
+    h_acc = torch.zeros((hslots + 1, hvals.shape[0]), dtype=hvals.dtype, device=dev)
+    hist_lib_ms = med_ms(lambda: h_acc.index_add_(0, h_idx, h_src))
+    n_h, r_h = hseg.shape[0], hvals.shape[0]
+    seg_row.update(matmul_rows=n_h, matmul_planes=r_h, matmul_slots=hslots, matmul_ms=hist_ms,
+                   matmul_plain_ms=hist_plain_ms, matmul_library_ms=hist_lib_ms,
+                   **{f"matmul_{k}": v for k, v in bound(
+                       n_h * (4 + r_h * hvals.element_size()) + hslots * r_h * 8,
+                       n_h * r_h).items()})
+    del hseg, hvals, href, hmag, h_idx, h_src, h_acc
     torch.cuda.empty_cache()
 
     # Finite differences on the card (tests/test_mesh_grad.py:50-84):
@@ -1344,6 +1741,7 @@ def main() -> int:
           finite=True, grad_max=grad_max, checkpoint="none (eager autograd)",
           step_ms_median=statistics.median(train_times), step_ms=train_times,
           step_peak_memory_bytes=peak_x,
+          gather_segsum={k: v for k, v in seg_row.items() if k.startswith("matmul_")},
           msamples_per_s=n_b / (statistics.median(train_times) * 1e-3) / 1e6,
           fd_gate_f64_24x24=fd_rows, fd_tolerance="face attributes rtol 1e-5, vertices 1e-4")
 

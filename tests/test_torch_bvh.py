@@ -4,8 +4,8 @@ per-ray walk against the JAX while-loop walk over the same FlatBVH, the
 lockstep traversal's plain twin (ops/bvh_kernels) against the Pallas
 kernel in interpret mode over ``pack_bvh_for_pallas``'s tables carried by
 ``convert``, the Morton ray-sort keys (ops/sort) against the JAX ones, and
-the wrapper's checks.  Tests marked ``cuda`` hold the CUDA kernel against
-the twin on a card and skip without one."""
+the wrapper's checks.  ``test_torch_cuda.py`` holds the CUDA kernel
+against the twin on a card."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -26,13 +26,6 @@ from ascendpathtracing_tpu_torch.ops import sort as ps
 from tests.test_torch_slice import one_cpu_thread  # noqa: F401  (autouse)
 
 FIELDS = ("bmin", "bmax", "first", "count", "miss", "tri_order")
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    return torch.device("cuda")
 
 
 def _mesh(kind, sub=2):
@@ -344,18 +337,3 @@ def test_morton_locality():
     x = torch.arange(1024, dtype=torch.int32)
     np.testing.assert_array_equal(ps._part1by2(x).numpy(),
                                   np.asarray(jax_sort._part1by2(jnp.asarray(x.numpy()))))
-
-
-# ------------------------------------------------------- on a card ----
-@pytest.mark.cuda
-@pytest.mark.parametrize("max_leaf", [4, 64])
-def test_cuda_kernel_matches_twin(cuda, max_leaf):
-    v, f = meshes.icosphere(subdivisions=3)
-    bvh = bvh_mod.build_bvh_numpy(v, f, max_leaf=max_leaf)
-    tables = bk.pack_bvh(bvh, _ordered_planes(bvh, v, f, np.float32), cuda)
-    rays = torch.tensor(np.concatenate([_rays(4096), _aimed_rays(4096)], 1), device=cuda)
-    bk.reset_launches()
-    k = bk.intersect_bvh(rays, *tables, max_leaf=max_leaf)
-    assert bk.LAUNCHES == {"bvh": 1}
-    p = bk.intersect_bvh_plain(rays, *tables, max_leaf=max_leaf)
-    assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])

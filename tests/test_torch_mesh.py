@@ -3,8 +3,7 @@
 shared procedural meshes, the brute-force triangle oracle, the mesh device
 tables and first-hit query (models/mesh), and the chunk-grid traversal's
 plain twin (ops/wbvh_kernels) against the Pallas kernel in interpret mode.
-Tests marked ``cuda`` hold the CUDA kernel against the twin on a card and
-skip without one."""
+``test_torch_cuda.py`` holds the CUDA kernel against the twin on a card."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,13 +23,6 @@ from ascendpathtracing_tpu_torch.accel import meshes
 from ascendpathtracing_tpu_torch.models import mesh as mm
 from ascendpathtracing_tpu_torch.ops import chunk_grid as cg
 from ascendpathtracing_tpu_torch.ops import wbvh_kernels as wk
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    return torch.device("cuda")
 
 
 def _rays(n=2048, seed=1):
@@ -391,25 +383,3 @@ def test_tables_from_jax_carry_over():
     np.testing.assert_array_equal(got[4].numpy(), np.asarray(t24))
     with pytest.raises(ValueError):
         convert.mesh_tables_from_numpy(planes, np.zeros((4, 5)), sb, None, t24)
-
-
-# ------------------------------------------------------- on a card ----
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("sub,T,sp,sp2", TRAVERSALS)
-def test_cuda_kernel_matches_twin(cuda, dtype, sub, T, sp, sp2):
-    v, f = _unit_sphere(sub)
-    g = cg.build_chunk_grid(v, f, tris_per_chunk=T, supers_per=sp, supers2_per=sp2)
-    rows = torch.tensor(cg.attr_triangle_rows(g, np.ones((f.shape[0], 3)),
-                                              np.zeros((f.shape[0], 3)),
-                                              np.arange(f.shape[0]) % 3), device=cuda)
-    cb, sb, _, _ = cg.chunk_grid_to_device(g, cuda)
-    ssb = torch.tensor(g.ssboxes, device=cuda)
-    rays = torch.tensor(_rays(4096), dtype=dtype, device=cuda)
-    kw = dict(tris_per_chunk=T, supers_per=sp, supers2_per=sp2, attrs=True, stats=True)
-    wk.reset_launches()
-    k = wk.intersect_chunks(rays, cb, sb, rows, ssb, **kw)
-    assert wk.LAUNCHES == {"wbvh": 1}
-    p = wk.intersect_chunks_plain(rays, cb, sb, rows, ssb, **kw)
-    assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1]) and torch.equal(k[3], p[3])
-    assert all(torch.equal(a, b) for a, b in zip(k[2], p[2]))

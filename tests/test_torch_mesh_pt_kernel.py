@@ -3,8 +3,8 @@ ops.mesh_pt_kernels) and its entry points on the CPU: the plain twin
 against the Pallas kernel in interpret mode (zero uniforms, its u = 0
 estimator) and against the JAX tests' float64 mirror of that estimator,
 the unreachable-mesh identity with the sphere path tracer, the wrapper's
-checks, and the CLI's and bench's mesh cells.  Tests marked ``cuda`` hold
-the CUDA kernel against the twin on a card and skip without one."""
+checks, and the CLI's and bench's mesh cells.  ``test_torch_cuda.py``
+holds the CUDA kernel against the twin on a card."""
 
 import json
 
@@ -29,13 +29,6 @@ from tests.test_pallas_mesh_pt import _scene as jax_mixed_scene
 
 W = H = 32
 SPP4 = 4
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    return torch.device("cuda")
 
 
 def _mixed_scene():
@@ -284,22 +277,3 @@ def test_bench_mesh_steps_on_the_host():
     plain, _ = bench.make_mesh_step("plain", ms, device=torch.device("cpu"), bounces=2,
                                     width=4, height=4, spp4=4)
     assert torch.equal(plain()[0], out)
-
-
-# ------------------------------------------------------- on a card ----
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_cuda_kernel_matches_twin(cuda, dtype):
-    planes, cb, sb, t24, mats, grid = mpt.mesh_pt_tables(_mixed_scene(), device=cuda,
-                                                         dtype=dtype, tris_per_chunk=8,
-                                                         supers_per=4)
-    kw = dict(materials=mats, width=48, height=40, spp4=8, bounces=8, rr_depth=5,
-              **mpt.pt_tables_kwargs(grid, cuda))
-    mpt.reset_launches()
-    k = mpt.render_pt_mesh(planes, cb, sb, t24, **kw)
-    assert mpt.LAUNCHES == {"mesh_pt": 1}
-    p = mpt.render_pt_mesh_plain(planes, cb, sb, t24, **kw)
-    if dtype == torch.float64:
-        torch.testing.assert_close(k, p, rtol=1e-9, atol=0)
-    else:
-        assert float(((k - p).abs() <= 1e-5 * p.abs()).float().mean()) >= 0.999

@@ -2,8 +2,8 @@
 pt_kernels) and its entry points on the CPU: the plain twin against the
 Pallas kernel in interpret mode (zero uniforms, its u = 0 estimator) and
 against the plain estimator (Philox), the wrapper's checks, and the CLI's
-pt mode against the JAX CLI.  Tests marked ``cuda`` hold the CUDA kernel
-against the twin on a card and skip without one."""
+pt mode against the JAX CLI.  ``test_torch_cuda.py`` holds the CUDA
+kernel against the twin on a card."""
 
 import json
 
@@ -21,13 +21,6 @@ from ascendpathtracing_tpu_torch.models import megakernel
 from ascendpathtracing_tpu_torch.ops import pt_kernels as ptk
 from ascendpathtracing_tpu_torch.ops import rng
 from tests.test_torch_slice import one_cpu_thread  # noqa: F401  (autouse)
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    return torch.device("cuda")
 
 
 def _scene(name="cornell8", dtype=torch.float32, device="cpu"):
@@ -231,24 +224,3 @@ def test_bench_pt_steps_on_the_host():
     loss, grads = step()
     assert [tuple(g.shape) for g in grads] == [(9, 3), (9, 3), (9, 3), (9,)]
     assert all(torch.isfinite(g).all() for g in grads)
-
-
-# ------------------------------------------------------- on a card ----
-@pytest.mark.cuda
-@pytest.mark.parametrize("name", ["cornell8", "smallpt9"])
-def test_cuda_kernel_matches_twin_f64(cuda, name):
-    _, planes, mats = _scene(name, torch.float64, cuda)
-    kw = dict(width=64, height=64, spp4=16, bounces=8, rr_depth=5)
-    torch.testing.assert_close(ptk.render_pt(planes, mats, **kw),
-                               ptk.render_pt_plain(planes, mats, **kw), rtol=1e-9, atol=0)
-
-
-@pytest.mark.cuda
-def test_cuda_kernel_matches_twin_f32_and_counts(cuda):
-    _, planes, mats = _scene("cornell8", torch.float32, cuda)
-    kw = dict(width=48, height=40, spp4=8, bounces=8, rr_depth=5)
-    ptk.reset_launches()
-    k = ptk.render_pt(planes, mats, **kw)
-    assert ptk.LAUNCHES == {"pt": 1}
-    p = ptk.render_pt_plain(planes, mats, **kw)
-    assert float(((k - p).abs() <= 1e-5 * p.abs()).float().mean()) >= 0.999

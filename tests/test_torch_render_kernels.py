@@ -1,8 +1,8 @@
 """The port's reference-render kernels (ascendpathtracing_tpu_torch.ops.
 render_kernels): on the CPU the wrappers run their plain twins, held here
 against the JAX package's Pallas kernels in interpret mode and the NumPy
-oracle.  Tests marked ``cuda`` hold the CUDA kernels against the twins on
-a card and skip without one."""
+oracle.  ``test_torch_cuda.py`` holds the CUDA kernels against the twins
+on a card."""
 
 import jax
 import jax.numpy as jnp
@@ -19,13 +19,6 @@ from tests.test_torch_slice import one_cpu_thread  # noqa: F401  (autouse)
 
 LIGHT = 7
 TILE = 1024
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    return torch.device("cuda")
 
 
 def _inputs(w=32, np_dt=np.float64, seed=0, device="cpu"):
@@ -225,30 +218,3 @@ def test_library_name_tracks_the_sources():
     assert p == build.library_path("render_ref")
     assert (build.CSRC_DIR / "render_ref.cu").exists()
     assert "-fmad=false" in build.NVCC_FLAGS and "--use_fast_math" not in build.NVCC_FLAGS
-
-
-# ------------------------------------------------------- on a card ----
-@pytest.mark.cuda
-@pytest.mark.parametrize("np_dt", [np.float32, np.float64])
-def test_cuda_kernels_match_plain_twins(cuda, np_dt):
-    _, _, _, rp, sp = _inputs(w=64, np_dt=np_dt, device=cuda)
-    kw = dict(light_index=LIGHT, bounces=8)
-    c, idx = rk.render_reference_planes_with_idx(rp, sp, **kw)
-    cp, idxp = rk.render_reference_planes_with_idx_plain(rp, sp, **kw)
-    assert torch.equal(idx, idxp) and torch.equal(c, cp)
-    assert torch.equal(rk.render_reference_planes(rp, sp, **kw), c)
-    n = rp.shape[1]
-    g = torch.arange(3 * n, device=cuda, dtype=sp.dtype).reshape(3, n)
-    rtol = 1e-5 if np_dt == np.float32 else 1e-12
-    plain = rk.render_ref_bwd_replay_plain(idx, sp, g, **kw)
-    for got in (rk.render_ref_bwd_replay(idx, sp, g, **kw), rk.render_ref_bwd(rp, sp, g, **kw)):
-        torch.testing.assert_close(got, plain, rtol=rtol, atol=0.0)
-
-
-@pytest.mark.cuda
-def test_cuda_wrapper_counts_launches(cuda):
-    _, _, _, rp, sp = _inputs(w=16, np_dt=np.float32, device=cuda)
-    rk.reset_launches()
-    model = rk.RenderReference(sp, light_index=LIGHT, bounces=8)
-    model(rp).sum().backward()
-    assert rk.LAUNCHES == {"fwd": 0, "fwd_idx": 1, "bwd_replay": 1, "bwd_recompute": 0}

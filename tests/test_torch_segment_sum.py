@@ -2,8 +2,8 @@
 on the CPU: the plain twins against the Pallas kernels of
 ops/pallas_histogram.py in interpret mode at the shapes of
 tests/test_pallas_histogram.py (sums and the occupancy count kocc), the
-out= accumulation and the wrapper's checks.  The test marked ``cuda``
-holds the CUDA kernel against the twin on a card and skips without one."""
+out= accumulation and the wrapper's checks.  ``test_torch_cuda.py``
+holds the CUDA kernel against the twin on a card."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -12,13 +12,6 @@ import torch
 
 from ascendpathtracing_tpu.ops import pallas_histogram as ph
 from ascendpathtracing_tpu_torch.ops import histogram_kernels as hk
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    return torch.device("cuda")
 
 
 def _random(n, s, r, lo=-1, hi=None):
@@ -154,17 +147,3 @@ def test_wrapper_rejects_bad_inputs(change, exc):
     kw.update(change)
     with pytest.raises(exc):
         hk.segment_rows_paged(kw.pop("seg"), kw.pop("vals"), **kw)
-
-
-# ------------------------------------------------------- on a card ----
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_cuda_kernel_matches_twin(cuda, dtype):
-    seg, vals = _clustered(50000, 20000, 6)
-    seg, vals = torch.tensor(seg, device=cuda), torch.tensor(vals, dtype=dtype, device=cuda)
-    hk.reset_launches()
-    got, kocc = hk.segment_rows_paged(seg, vals, n_slots=20000)
-    assert hk.LAUNCHES == {"segsum": 1}
-    exp = hk.segment_rows_plain(seg, vals.double(), n_slots=20000)
-    assert torch.equal(kocc, hk.occupancy_plain(seg, n_slots=20000))
-    torch.testing.assert_close(got.double(), exp, rtol=0, atol=1e-5 * float(vals.abs().sum()))

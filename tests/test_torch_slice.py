@@ -39,13 +39,6 @@ ARTIFACTS = ("rays.bin", "spheres.bin", "color.bin", "color.ppm")
 
 
 @pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    return torch.device("cuda")
-
-
-@pytest.fixture
 def no_cuda():
     if torch.cuda.is_available():
         pytest.skip("checks the refusal on a machine without CUDA")
@@ -115,16 +108,18 @@ def test_fwd_bwd_step_matches_jax_value_and_grad():
 
 
 def test_importing_the_port_loads_no_jax():
-    """Importing every module of the port and chip_smoke, a CPU mesh
-    render with its replay backward, and a CPU bounce-loop mesh render
-    with its autograd backward (diff/mesh), load no jax and no module of
-    the JAX package."""
+    """Importing every module of the port, chip_smoke and the card-only
+    tests (tests/test_torch_cuda.py), a CPU mesh render with its replay
+    backward, a CPU bounce-loop mesh render with its autograd backward
+    (diff/mesh), and a CPU camera-gradient render (diff/camera_fused) load
+    no jax and no module of the JAX package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import ascendpathtracing_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "import chip_smoke\n"
+        "import tests.test_torch_cuda\n"
         "from ascendpathtracing_tpu_torch import cli\n"
         "assert cli.mesh_vjp_check(__import__('torch').device('cpu'))['ok']\n"
         "import numpy, torch\n"
@@ -141,6 +136,14 @@ def test_importing_the_port_loads_no_jax():
         "    assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0\n"
         "for kw in ({'use_bvh': True}, {'pallas_bvh_kernel': True, 'pallas_kernel': 'lockstep'}):\n"
         "    assert mm.render_pt_mesh(rays, mm.mesh_scene_to_device(ms, **kw)).shape == (256, 3)\n"
+        "from ascendpathtracing_tpu_torch.diff import CameraParams, camera_fused as cf\n"
+        "from ascendpathtracing_tpu_torch.ops import mesh_pt_kernels as mpt\n"
+        "pl, cb, sb, t24, mats, grid = mpt.mesh_pt_tables(ms)\n"
+        "cam = {k: v.requires_grad_(True) for k, v in CameraParams().items()}\n"
+        "_, depth, _ = cf.render_with_camera(cam, pl, cb, sb, t24, materials=mats, width=8,\n"
+        "    height=8, spp4=4, bounces=2, **mpt.pt_tables_kwargs(grid))\n"
+        "g = torch.autograd.grad(depth.mean(), [cam['pos']])[0]\n"
+        "assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0\n"
         "assert 'jax' not in sys.modules, sorted(k for k in sys.modules if 'jax' in k)\n"
         "ref = sorted(k for k in sys.modules if k == 'ascendpathtracing_tpu'\n"
         "             or k.startswith('ascendpathtracing_tpu.'))\n"
@@ -149,7 +152,8 @@ def test_importing_the_port_loads_no_jax():
         "new = {'accel.tri', 'models.mesh', 'ops.chunk_grid', 'ops.wbvh_kernels',\n"
         "       'ops.mesh_pt_kernels', 'ops.histogram_kernels', 'diff.mesh_fused',\n"
         "       'config', 'scenes', 'camera', 'oracle', 'utils.io', 'accel.meshes',\n"
-        "       'accel.bvh', 'ops.bvh_kernels', 'ops.sort', 'diff.mesh'}\n"
+        "       'accel.bvh', 'ops.bvh_kernels', 'ops.sort', 'diff.mesh', 'diff.camera',\n"
+        "       'diff.fd', 'diff.camera_fused'}\n"
         "assert {p.__name__ + '.' + m for m in new} <= set(mods), mods\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -158,7 +162,7 @@ def test_importing_the_port_loads_no_jax():
         text=True, timeout=300, check=False,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 31
+    assert int(out.stdout.strip()) >= 34
 
 
 def test_backend_cuda_exits_2_without_cuda(no_cuda, tmp_path, capsys):
@@ -221,12 +225,3 @@ def test_chip_smoke_refuses_without_cuda(no_cuda):
     )
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
-
-
-# ------------------------------------------------------- on a card ----
-@pytest.mark.cuda
-def test_cuda_cli_render_matches_oracle(cuda, tmp_path, capsys):
-    assert cli.main(["render", "--backend", "cuda", "--width", "64", "--height",
-                     "64", "--bounces", "1", "--oracle", "--out", str(tmp_path)]) == 0
-    stats = _json_line(capsys)
-    assert stats["backend"] == "cuda" and stats["oracle_rays_bitexact"] == 1.0
