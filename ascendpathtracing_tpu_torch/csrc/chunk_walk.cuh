@@ -1,9 +1,9 @@
-// The chunk-grid walk shared by the traversal kernel (wbvh.cu) and the
-// fused sphere+mesh path tracer (mesh_pt.cu): the slab test of a box, the
-// precomputed-plane triangle test, and a per-thread walk over 1-3 levels
-// of boxes (ops/chunk_grid.py builds the tables).  Same parity rule as
-// the kernels: -fmad=false, IEEE division, the Pallas kernels' op order
-// (pallas_wbvh.py:293-329 and :626-651).
+// The chunk-grid walk of the traversal kernel (wbvh.cu): the slab test of
+// a box, the precomputed-plane triangle test (both shared with the fused
+// sphere+mesh path tracer's warp walk, warp_walk.cuh), and a per-thread
+// walk over 1-3 levels of boxes (ops/chunk_grid.py builds the tables).
+// Same parity rule as the kernels: -fmad=false, IEEE division, the Pallas
+// kernels' op order (pallas_wbvh.py:293-329 and :626-651).
 //
 // Order.  The Pallas kernels list the hit chunks of a ray tile in
 // increasing chunk index (compact_worklist: supers in order, then each
@@ -41,6 +41,18 @@ __device__ __forceinline__ T nan_max(T a, T b) {
   return (a > b || a != a) ? a : b;
 }
 
+// box_hit's min and max: nan_min and nan_max.
+struct NanMinMax {
+  template <typename T>
+  static __device__ __forceinline__ T lo(T a, T b) {
+    return nan_min(a, b);
+  }
+  template <typename T>
+  static __device__ __forceinline__ T hi(T a, T b) {
+    return nan_max(a, b);
+  }
+};
+
 // A ray with the slab test's inverse direction, 1 / (d == 0 ? 1e-30 : d).
 template <typename T>
 struct RayInv {
@@ -63,31 +75,63 @@ __device__ __forceinline__ RayInv<T> make_ray(T ox, T oy, T oz, T dx, T dy,
   return r;
 }
 
-// Slab test of box b (min xyz, max xyz; float32, widened to T).
-// kBounded adds the mesh path tracer's entry bound tnear < gate
-// (_slab_tmin); otherwise it is _slab.
-template <bool kBounded, typename T>
-__device__ __forceinline__ bool box_hit(const float* b, const RayInv<T>& r,
-                                        T gate) {
+// The slab interval [tnear, tfar] of box b (min xyz, max xyz; float32,
+// widened to T) along the ray; MM gives the NaN-propagating min and max.
+template <typename MM, typename T>
+__device__ __forceinline__ void slab(const float* b, const RayInv<T>& r, T& tnear,
+                                     T& tfar) {
   const T t1x = (T(b[0]) - r.ox) * r.ix;
   const T t2x = (T(b[3]) - r.ox) * r.ix;
   const T t1y = (T(b[1]) - r.oy) * r.iy;
   const T t2y = (T(b[4]) - r.oy) * r.iy;
   const T t1z = (T(b[2]) - r.oz) * r.iz;
   const T t2z = (T(b[5]) - r.oz) * r.iz;
-  const T tnear =
-      nan_max(nan_max(nan_min(t1x, t2x), nan_min(t1y, t2y)), nan_min(t1z, t2z));
-  const T tfar =
-      nan_min(nan_min(nan_max(t1x, t2x), nan_max(t1y, t2y)), nan_max(t1z, t2z));
-  const bool hit = tfar >= nan_max(tnear, T(0));
+  tnear = MM::hi(MM::hi(MM::lo(t1x, t2x), MM::lo(t1y, t2y)), MM::lo(t1z, t2z));
+  tfar = MM::lo(MM::lo(MM::hi(t1x, t2x), MM::hi(t1y, t2y)), MM::hi(t1z, t2z));
+}
+
+// Slab test of box b: _slab, or with kBounded the mesh path tracer's
+// entry bound tnear < gate as well (_slab_tmin).
+template <bool kBounded, typename MM = NanMinMax, typename T>
+__device__ __forceinline__ bool box_hit(const float* b, const RayInv<T>& r,
+                                        T gate) {
+  T tnear, tfar;
+  slab<MM>(b, r, tnear, tfar);
+  const bool hit = tfar >= MM::hi(tnear, T(0));
   return kBounded ? (hit && tnear < gate) : hit;
 }
 
-// The triangles of chunk c against the ray: t = (d0 - n.o) / (n.d) with
-// no guard (a zero pad row gives 0/0 = NaN, which fails every compare),
-// w = (o - v0) + t d, u = s1.w, v = s2.w.  A hit with t < tmin replaces
-// the running winner.  Rows are float32, widened to T, `stride` floats
-// apart; read through the read-only cache.
+// A triangle row read at each use through the read-only cache (any row):
+// v0 xyz, n xyz, s1 xyz, s2 xyz, d0 at [0, 13).
+struct RowRef {
+  const float* __restrict__ p;
+  __device__ __forceinline__ float operator[](int i) const { return __ldg(p + i); }
+};
+
+// The precomputed-plane test of one triangle row (a RowRef, or values
+// already loaded) against a ray: t = (d0 - n.o) / (n.d) with no guard (a
+// zero pad row gives 0/0 = NaN, which fails every compare), w = (o - v0)
+// + t d, u = s1.w, v = s2.w.  True where the ray hits with t > eps.  The
+// row is float32, widened to T.
+template <typename T, typename Row>
+__device__ __forceinline__ bool tri_hit(const Row& q, T ox, T oy, T oz, T dx,
+                                        T dy, T dz, T eps, T& t) {
+  const T nx = T(q[3]);
+  const T ny = T(q[4]);
+  const T nz = T(q[5]);
+  const T nd = nx * dx + ny * dy + nz * dz;
+  const T no = nx * ox + ny * oy + nz * oz;
+  t = (T(q[12]) - no) / nd;
+  const T wx = (ox - T(q[0])) + t * dx;
+  const T wy = (oy - T(q[1])) + t * dy;
+  const T wz = (oz - T(q[2])) + t * dz;
+  const T u = T(q[6]) * wx + T(q[7]) * wy + T(q[8]) * wz;
+  const T v = T(q[9]) * wx + T(q[10]) * wy + T(q[11]) * wz;
+  return u >= T(0) && v >= T(0) && u + v <= T(1) && t > eps;
+}
+
+// The triangles of chunk c against the ray (rows `stride` floats apart):
+// a hit with t < tmin replaces the running winner.
 template <typename T>
 __device__ __forceinline__ void test_chunk(const float* __restrict__ tris,
                                            int stride, int c, int tpc,
@@ -96,20 +140,8 @@ __device__ __forceinline__ void test_chunk(const float* __restrict__ tris,
   const int base = c * tpc;
   for (int j = 0; j < tpc; ++j) {
     const float* row = tris + static_cast<long long>(base + j) * stride;
-    const T nx = T(__ldg(row + 3));
-    const T ny = T(__ldg(row + 4));
-    const T nz = T(__ldg(row + 5));
-    const T nd = nx * r.dx + ny * r.dy + nz * r.dz;
-    const T no = nx * r.ox + ny * r.oy + nz * r.oz;
-    const T t = (T(__ldg(row + 12)) - no) / nd;
-    const T wx = (r.ox - T(__ldg(row + 0))) + t * r.dx;
-    const T wy = (r.oy - T(__ldg(row + 1))) + t * r.dy;
-    const T wz = (r.oz - T(__ldg(row + 2))) + t * r.dz;
-    const T u = T(__ldg(row + 6)) * wx + T(__ldg(row + 7)) * wy +
-                T(__ldg(row + 8)) * wz;
-    const T v = T(__ldg(row + 9)) * wx + T(__ldg(row + 10)) * wy +
-                T(__ldg(row + 11)) * wz;
-    if (u >= T(0) && v >= T(0) && u + v <= T(1) && t > eps && t < tmin) {
+    T t;
+    if (tri_hit(RowRef{row}, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, eps, t) && t < tmin) {
       tmin = t;
       slot = base + j;
     }
@@ -146,13 +178,13 @@ struct NoCounts {
 // Calls chunk(c) for every chunk whose box the ray enters, in increasing
 // c; a chunk is reached only through a hit super (and super-super).
 // cnt.chunk / super / super2 hear of each box the ray enters.
-template <bool kBounded, typename T, typename ChunkFn, typename Counts>
+template <typename T, typename ChunkFn, typename Counts>
 __device__ __forceinline__ void walk_chunks(const ChunkGrid& g,
-                                            const RayInv<T>& r, T gate,
+                                            const RayInv<T>& r,
                                             ChunkFn&& chunk, Counts&& cnt) {
   auto chunks = [&](int c0, int c1) {
     for (int c = c0; c < c1; ++c) {
-      if (box_hit<kBounded>(g.cboxes + 6 * c, r, gate)) {
+      if (box_hit<false>(g.cboxes + 6 * c, r, T(0))) {
         cnt.chunk(c);
         chunk(c);
       }
@@ -160,7 +192,7 @@ __device__ __forceinline__ void walk_chunks(const ChunkGrid& g,
   };
   auto supers = [&](int s0, int s1) {
     for (int s = s0; s < s1; ++s) {
-      if (box_hit<kBounded>(g.sboxes + 6 * s, r, gate)) {
+      if (box_hit<false>(g.sboxes + 6 * s, r, T(0))) {
         cnt.super(s);
         chunks(s * g.supers_per, (s + 1) * g.supers_per);
       }
@@ -172,7 +204,7 @@ __device__ __forceinline__ void walk_chunks(const ChunkGrid& g,
     supers(0, g.n_supers);
   } else {
     for (int s2 = 0; s2 < g.n_supers2; ++s2) {
-      if (box_hit<kBounded>(g.ssboxes + 6 * s2, r, gate)) {
+      if (box_hit<false>(g.ssboxes + 6 * s2, r, T(0))) {
         cnt.super2(s2);
         supers(s2 * g.supers2_per, (s2 + 1) * g.supers2_per);
       }

@@ -13,64 +13,90 @@
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false \
 //        -shared -Xcompiler -fPIC -o libmesh_pt.so mesh_pt.cu
 //
-// PARITY RULE, as in render_pt.cu.  The sample (camera, bounce loop,
-// shading, RR, pixel loop) is pt_trace.cuh, the same code as the sphere
-// kernel's, and the random stream is keyed exactly as render_pt keys its
-// own (philox.cuh), so a mesh that no ray reaches gives render_pt's image
+// PARITY RULE, as in render_pt.cu.  The sample (camera ray, bounce,
+// shading, RR) is pt_trace.cuh, the same code as the sphere kernel's,
+// and the random stream is keyed exactly as render_pt keys its own
+// (philox.cuh), so a mesh that no ray reaches gives render_pt's image
 // bit for bit.  The plain twin (ops/mesh_pt_kernels.render_pt_mesh_plain)
-// gives the same image.
+// gives the same image, wid, resv, suv and kstats.
 //
 // Each bounce: the spheres first (closest_hit, strict <), then the chunk
-// walk (chunk_walk.cuh) gated by the tmin after the spheres, before the
-// triangles (pallas_mesh_pt.py:310-321; never the running triangle tmin),
-// with the strict t < tmin running minimum, so a triangle needs a
-// strictly smaller t than the sphere.  The winner is a sphere index or a
-// triangle slot; its shading values are read once from the sphere table
-// or from the slot's 24-float row (unit normal 13-15, not renormalized;
-// albedo 16-18; emission 19-21; the material one-hots 22-23 as > 0.5; an
-// origin offset of eps, since a triangle has r2 = 0).  The Pallas kernel
-// carries the same values through its loop.  A dead path leaves the loop
-// (the Pallas kernel's -inf gate of dead lanes).
+// walk gated by the tmin after the spheres, before the triangles
+// (pallas_mesh_pt.py:310-321; never the running triangle tmin); a
+// triangle needs a strictly smaller t than the sphere.  The winner is a
+// sphere index or a triangle slot; its shading values are read once from
+// the sphere table or from the slot's 24-float row (unit normal 13-15,
+// not renormalized; albedo 16-18; emission 19-21; the material one-hots
+// 22-23 as > 0.5; an origin offset of eps, since a triangle has r2 = 0).
 //
-// Design: one thread per pixel, layers in order, as render_pt.cu; the
-// [10, S] spheres in shared memory, the boxes in dynamic shared memory
-// when they fit (s4: 8 KB), the triangle rows in global memory through
-// the read-only cache (s4: 320 chunks x 16 x 96 B = 491 KB).
+// What bounded it on the H100: FP32 instruction throughput under
+// divergence.  The TPU kernel is coherent by construction: it compacts
+// one worklist per 2048-lane tile (compact_worklist) and tests each
+// listed chunk for the whole tile.  A thread per pixel that walks its own chunk list and
+// its own paths leaves a warp running the union of its lanes' chunks
+// (~7.5 x 16 triangle tests per bounce at the s4 cell where a lane needs
+// ~0.24 x 16) and, for every sample layer, its longest path.  So:
 //
-// Bound on the H100: FP32 instruction throughput and divergence.  Per
-// sample-bounce ~14*S flops for the spheres, ~20 per box tested and ~30
-// per triangle tested; paths in a warp walk different chunk lists and
-// end at different bounces, so a warp runs as long as its longest path.
-// The residual stores add 32 bytes per sample-bounce (17.2 GB at
-// 1024^2 x 64 spp x 8 bounces): coalesced, one write per value.
+// - Path regeneration (pt_trace.cuh's render_pixel_regen): one loop per
+//   warp in which every lane advances its path by one bounce; a lane
+//   whose path ends begins its pixel's next sample layer, at most one
+//   layer ahead of the warp's slowest lane, so the warp meets at every
+//   hit query and costs about the sum of its lanes' bounces.
+// - A per-warp worklist (warp_walk.cuh): the spheres stay per lane; the
+//   lanes whose ray enters the root box (the union of the grid's top
+//   level) expand over the top level's boxes, (lane, box) entries over
+//   their children's boxes and (lane, chunk) entries over the chunks'
+//   triangles, 32 pairs a step, from queues in shared memory.
+//
+// What bounds it now: the per-lane spheres and shading, and the steps of
+// the walk (shuffles, box and triangle tests, the queues); chip_smoke.py's
+// mesh_times phase times the same paths with the spheres alone and with
+// the mesh out of reach.  The residual stores add 32 bytes per
+// sample-bounce (17.2 GB at 1024^2 x 64 spp x 8 bounces); lanes at most
+// one layer apart keep a layer plane's stores close enough in time to
+// merge in the L2.
+//
+// Tie-break: the box gate is the sphere tmin, so the set of (ray,
+// triangle) pairs tested does not depend on the order they run in, and
+// each ray keeps the lexicographic minimum of (t, slot) over that set
+// (an atomicMin on t's bits, then one on the slot among the pairs at that
+// t).  The per-thread walk's strict t < tmin in increasing slot order
+// picks the same pair, so the result is bitwise the twin's by
+// construction.
+//
+// Memory: the [10, S] spheres and the warps' queues (16,576 bytes a block) in
+// shared memory, the boxes in dynamic shared memory when they fit (s4: 8
+// KB), the triangle rows in global memory through the read-only cache,
+// 16 bytes a load (s4: 320 chunks x 16 x 96 B = 491 KB).
 //
 // The residual store is a template parameter (the Sink), not a runtime
 // branch: render_pt_mesh_kernel<T, NoResiduals, NoStats> is the
-// forward-only kernel, unchanged, <T, Residuals<T>, NoStats> the training
-// forward and <T, CameraResiduals<T>, NoStats> the camera path's.  The
-// stats are a second template parameter: NoStats records nothing.
+// forward-only kernel, <T, Residuals<T>, NoStats> the training forward
+// and <T, CameraResiduals<T>, NoStats> the camera path's.  The stats are
+// a second template parameter: NoStats records nothing.
 //
 // with_stats (pallas_mesh_pt.py:329-342): for each cell (a tile of
 // stats_tile pixels x one sample layer, cell = tile * spp4 + layer) and
 // bounce, the number of chunks, supers and super-supers whose box some
-// live path of the cell enters (the chunk walk's gate included): the
-// Pallas kernel's worklist length k and phase-A hit counts, unions over
-// the cell's lanes.  Each box a ray enters sets its bit in a scratch
+// live path of the cell enters (the walk's gate included): the Pallas
+// kernel's worklist length k and phase-A hit counts, unions over the
+// cell's lanes.  Each box a ray enters sets its bit in a scratch
 // [cells, bounces, words] (the chunks' words, then the supers', then the
-// super-supers') with one atomicOr, and kstats_kernel then counts the
-// bits.  The union of the
-// rays' sets equals the Pallas count where child boxes nest in their
-// parents (the slab test is monotone in the box bounds, so that holds
-// through rounding); a grid with pad boxes ([-1, 1]^3 after the slab
-// test's swap) outside their parent can list more on the TPU.  The build
-// log shows the registers of every instantiation.
+// super-supers') with one atomicOr, made for the ray's own cell and
+// bounce whichever lane tests the box, and kstats_kernel then counts the
+// bits.  The union of the rays' sets equals the Pallas count where child
+// boxes nest in their parents (the slab test is monotone in the box
+// bounds, so that holds through rounding); a grid with pad boxes ([-1,
+// 1]^3 after the slab test's swap) outside their parent can list more on
+// the TPU.  The build log shows the registers of every instantiation;
+// apt_mesh_pt_blocks_per_sm their resident blocks.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-#include "chunk_walk.cuh"
 #include "pt_trace.cuh"
+#include "warp_walk.cuh"
 
 namespace {
 
@@ -110,7 +136,8 @@ struct NoStats {
   __device__ __forceinline__ NoCounts at(int, int) const { return NoCounts(); }
 };
 
-// Spheres + a chunk-grid mesh of 24-float attribute rows.
+// Spheres + a chunk-grid mesh of 24-float attribute rows; the warp walks
+// the mesh together (warp_walk.cuh).
 template <typename T, typename Stats>
 struct MeshScene {
   Spheres<T> sph;
@@ -118,20 +145,17 @@ struct MeshScene {
   const float* tris;  // [C*T, TRI_ATTR_F]
   int tpc;
   Stats stats;
+  WarpList* list;  // this warp's
 
-  __device__ __forceinline__ bool hit(T ox, T oy, T oz, T dx, T dy, T dz,
-                                      T eps, T& tmin, Winner& w, int layer,
-                                      int k) const {
+  __device__ __forceinline__ bool hit_warp(bool live, T ox, T oy, T oz, T dx,
+                                           T dy, T dz, T eps, T& tmin,
+                                           Winner& w, int layer, int k) const {
     w.sphere = sph.hit(ox, oy, oz, dx, dy, dz, eps, tmin);
     const RayInv<T> r = make_ray(ox, oy, oz, dx, dy, dz);
     const T gate = tmin;  // after the spheres, before the triangles
-    int slot = -1;
-    walk_chunks<true>(
-        g, r, gate,
-        [&](int c) { test_chunk(tris, TRI_ATTR_F, c, tpc, r, eps, tmin, slot); },
-        stats.at(layer, k));
-    w.slot = slot;
-    return w.sphere >= 0 || slot >= 0;
+    w.slot = walk_chunks_warp(g, *list, tris, tpc, r, gate, eps, live,
+                              stats.at(layer, k), tmin);
+    return live && (w.sphere >= 0 || w.slot >= 0);
   }
 
   __device__ __forceinline__ Surface<T> surface(const Winner& w, T hx, T hy,
@@ -159,21 +183,21 @@ struct MeshScene {
 // The fused sphere+mesh path tracer.  out [3, W*H]: per-pixel means over
 // the spp4 sample layers; pixel p is column p / H, row p % H.
 // ---------------------------------------------------------------------------
-// __launch_bounds__(BLOCK, 1): with the block size alone, ptxas (CUDA
-// 12.9) caps this kernel at 48 (f32) / 80 (f64) registers and spills;
-// one resident block per SM lifts the cap (75 / 106 registers, no spills).
-// The float forward and residual kernels fit 80 registers, so three
-// blocks per SM.  The float camera kernel took 89 registers and ran two
-// blocks per SM (the s4 frame 314 ms instead of 264 ms on an H100 80GB
-// HBM3 at 700 W); MinBlocks asks ptxas for three, which gives 80
-// registers, no spills and the residual kernel's frame time again
-// (chip_smoke times the two in turns).
+// __launch_bounds__(BLOCK, MinBlocks): ptxas fits the registers to
+// MinBlocks resident blocks of 256 threads per SM (65,536 registers: 1
+// block up to 255 a thread, 2 up to 128, 3 up to 80).  Left to itself
+// ptxas gives the float instantiations 88-101 registers (two blocks per
+// SM); asked for three blocks, the forward, residual and camera ones fit
+// 78-80 registers without spills and run the s4 frame faster on an H100,
+// while the stats ones (99-101) would spill, so they keep one.  The
+// double instantiations (120-140 registers) serve the parity and FD
+// gates.
 template <typename T, typename Sink, typename Stats>
 struct MinBlocks {
   static constexpr int value = 1;
 };
-template <>
-struct MinBlocks<float, CameraResiduals<float>, NoStats> {
+template <typename Sink>
+struct MinBlocks<float, Sink, NoStats> {
   static constexpr int value = 3;
 };
 
@@ -187,6 +211,7 @@ __global__ void __launch_bounds__(BLOCK, (MinBlocks<T, Sink, Stats>::value))
                           bool shared_boxes, const Sink sink, const Stats stats) {
   __shared__ T sc[PLANES][MAX_S];
   __shared__ int mat[MAX_S];
+  __shared__ WarpList lists[BLOCK / WARP];
   extern __shared__ float smem[];
   if (static_cast<int>(threadIdx.x) < s_count) {
     mat[threadIdx.x] = materials[threadIdx.x];
@@ -195,7 +220,6 @@ __global__ void __launch_bounds__(BLOCK, (MinBlocks<T, Sink, Stats>::value))
   world.g = boxes_to_shared(grid, smem, shared_boxes);  // syncs
   load_scene(sc, scene, s_count);                       // syncs
   const long long pix = static_cast<long long>(blockIdx.x) * BLOCK + threadIdx.x;
-  if (pix >= p.n_pix) return;
   world.sph.sc = sc;
   world.sph.mat = mat;
   world.sph.count = s_count;
@@ -203,7 +227,9 @@ __global__ void __launch_bounds__(BLOCK, (MinBlocks<T, Sink, Stats>::value))
   world.tpc = tpc;
   world.stats = stats;
   world.stats.begin(pix);
-  render_pixel(world, p, pix, out, sink);
+  world.list = &lists[threadIdx.x / WARP];
+  init_root(world.g, *world.list);
+  render_pixel_regen(world, p, pix, out, sink);
 }
 
 // kstats [3 * bounces, cells] from the marks of each (cell, bounce): rows
@@ -234,20 +260,54 @@ struct Launch {
   bool shared_boxes;
 };
 
+// Launches the instantiation for (T, Sink, Stats), its boxes in l.smem
+// bytes of dynamic shared memory: with the warps' queues that may pass
+// the 48 KB a launch gets without asking.
+template <typename T, typename Sink, typename Stats>
+void launch_stats(const Launch& l, const T* sc, const int32_t* mt, const float* tr,
+                  T* o, const PtParams<T>& p, const ChunkGrid& g, const Sink& sink,
+                  const Stats& stats) {
+  const cudaError_t e = cudaFuncSetAttribute(render_pt_mesh_kernel<T, Sink, Stats>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             static_cast<int>(l.smem));
+  if (e != cudaSuccess) return;  // the launcher's cudaGetLastError reports it
+  render_pt_mesh_kernel<T, Sink, Stats><<<l.grid, BLOCK, l.smem, l.stream>>>(
+      sc, mt, tr, o, p, g, l.s_count, l.tpc, l.shared_boxes, sink, stats);
+}
+
 template <typename T, typename Sink>
 void launch_sink(const Launch& l, const T* sc, const int32_t* mt, const float* tr,
                  T* o, const PtParams<T>& p, const ChunkGrid& g, const Sink& sink,
                  const CellStats* stats) {
   if (stats == nullptr) {
-    render_pt_mesh_kernel<T, Sink, NoStats><<<l.grid, BLOCK, l.smem, l.stream>>>(
-        sc, mt, tr, o, p, g, l.s_count, l.tpc, l.shared_boxes, sink, NoStats());
+    launch_stats(l, sc, mt, tr, o, p, g, sink, NoStats());
   } else {
-    render_pt_mesh_kernel<T, Sink, CellStats><<<l.grid, BLOCK, l.smem, l.stream>>>(
-        sc, mt, tr, o, p, g, l.s_count, l.tpc, l.shared_boxes, sink, *stats);
+    launch_stats(l, sc, mt, tr, o, p, g, sink, *stats);
   }
 }
 
 inline int words_of(int boxes) { return (boxes + 31) / 32; }
+
+// Resident blocks per SM of the instantiations of type T at `smem` bytes
+// of dynamic shared memory into out[6]: (forward, residuals, camera) x
+// (without, with stats).
+template <typename T>
+int blocks_per_sm(size_t smem, int* out) {
+  const void* kernels[6] = {
+      reinterpret_cast<const void*>(render_pt_mesh_kernel<T, NoResiduals, NoStats>),
+      reinterpret_cast<const void*>(render_pt_mesh_kernel<T, NoResiduals, CellStats>),
+      reinterpret_cast<const void*>(render_pt_mesh_kernel<T, Residuals<T>, NoStats>),
+      reinterpret_cast<const void*>(render_pt_mesh_kernel<T, Residuals<T>, CellStats>),
+      reinterpret_cast<const void*>(render_pt_mesh_kernel<T, CameraResiduals<T>, NoStats>),
+      reinterpret_cast<const void*>(render_pt_mesh_kernel<T, CameraResiduals<T>, CellStats>),
+  };
+  for (int i = 0; i < 6; ++i) {
+    const cudaError_t e =
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + i, kernels[i], BLOCK, smem);
+    if (e != cudaSuccess) return e;
+  }
+  return 0;
+}
 
 template <typename T>
 int launch_mesh_pt(const void* scene, const void* materials,
@@ -261,7 +321,9 @@ int launch_mesh_pt(const void* scene, const void* materials,
                    int supers2_per, int bounces, int rr_depth, double eps,
                    unsigned seed, const double* cam, void* stream) {
   if (s_count < 1 || s_count > MAX_S || tris == nullptr ||
-      (wid == nullptr) != (resv == nullptr) || (suv != nullptr && wid == nullptr) ||
+      reinterpret_cast<uintptr_t>(tris) % 16 != 0 ||  // load_row16
+      (wid == nullptr) != (resv == nullptr) ||
+      (suv != nullptr && wid == nullptr && bounces > 0) ||
       (kstats == nullptr) != (marks == nullptr)) {
     return cudaErrorInvalidValue;
   }
@@ -276,6 +338,9 @@ int launch_mesh_pt(const void* scene, const void* materials,
   g.supers2_per = supers2_per;
   int err = check_grid(g, tris_per_chunk);
   if (err != 0) return err;
+  // queue entries carry chunk << 5; a queue expands to QUEUE_CAP x
+  // (chunks an entry, tris_per_chunk) items, counted in int
+  if (n_chunks > (1 << 24) || tris_per_chunk > (1 << 24)) return cudaErrorInvalidValue;
   PtParams<T> p;
   err = make_pt_params(p, uniforms, width, height, spp4, bounces, rr_depth,
                        eps, seed, cam);
@@ -310,7 +375,7 @@ int launch_mesh_pt(const void* scene, const void* materials,
   const auto mt = static_cast<const int32_t*>(materials);
   const auto tr = static_cast<const float*>(tris);
   const auto o = static_cast<T*>(out);
-  if (wid == nullptr) {
+  if (wid == nullptr && suv == nullptr) {
     launch_sink(l, sc, mt, tr, o, p, g, NoResiduals(), st);
   } else {
     Residuals<T> res;
@@ -342,7 +407,8 @@ int launch_mesh_pt(const void* scene, const void* materials,
 // after the launch (0 = success); the wrapper raises on anything else.
 // cam points at 11 host doubles; pointers and the stream arrive as void*.
 // wid and resv are both null (forward only) or both set (residuals); suv
-// (with_camera) needs them.  kstats [3 * bounces, cells] int32 and marks
+// (with_camera) needs them, unless there are no bounces (then both are
+// empty, and null).  kstats [3 * bounces, cells] int32 and marks
 // (scratch of cells * bounces * words uint32, words = ceil(C / 32) +
 // ceil(Cs / 32) + ceil(Css / 32)) are both null or both set (with_stats,
 // stats_tile pixels a cell).
@@ -373,5 +439,25 @@ const char* apt_mesh_pt_error_string(int err) {
 
 APT_MESH_PT(f32, float)
 APT_MESH_PT(f64, double)
+
+// Resident blocks per SM of every instantiation at `smem` bytes of dynamic
+// shared memory (the boxes'), out[12]: float then double, each (forward,
+// residuals, camera) x (without, with stats).
+int apt_mesh_pt_blocks_per_sm(long long smem, int* out) {
+  const int err = blocks_per_sm<float>(static_cast<size_t>(smem), out);
+  return err != 0 ? err : blocks_per_sm<double>(static_cast<size_t>(smem), out + 6);
+}
+
+// The worklist's capacity (entries per queue per warp).
+int apt_mesh_pt_queue_cap() { return QUEUE_CAP; }
+
+// The queue overflows since the last reset into out[2] (super queue,
+// chunk queue; after the device is idle), then zeroes them.
+int apt_mesh_pt_queue_overflows(unsigned long long* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, queue_overflows, sizeof(queue_overflows));
+  if (e != cudaSuccess) return e;
+  const unsigned long long zero[2] = {0, 0};
+  return cudaMemcpyToSymbol(queue_overflows, zero, sizeof(zero));
+}
 
 }  // extern "C"

@@ -1,10 +1,11 @@
 // The path-tracing sample shared by the fused kernels (render_pt.cu for
 // spheres, mesh_pt.cu for spheres + a chunk-grid mesh): the camera ray
-// with tent-filter jitter, the bounce loop with diffuse, mirror and
-// glass, Russian roulette, and the per-pixel mean over the sample layers.
-// The scene is a template parameter: its hit() finds the nearest winner
-// of a ray (told the sample layer and bounce) and its surface() returns
-// what the shading needs from it.
+// with tent-filter jitter, one bounce with diffuse, mirror and glass and
+// Russian roulette, and the per-pixel mean over the sample layers, as a
+// per-thread loop (render_pixel) or a warp's loop with path regeneration
+// (render_pixel_regen).  The scene is a template parameter: its hit() or
+// hit_warp() finds the nearest winner of a ray (told the sample layer and
+// bounce) and its surface() returns what the shading needs from it.
 // Same parity rule as the kernels: -fmad=false, never --use_fast_math;
 // IEEE sqrt and division; 1/sqrt(x) wherever the Pallas kernels have
 // rsqrt; full-precision sinf/cosf; the Pallas kernels' op order term for
@@ -14,6 +15,7 @@
 
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstdint>
 
 #include "philox.cuh"
@@ -178,16 +180,21 @@ struct CameraResiduals : Residuals<T> {
   }
 };
 
-// One sample of pixel (pi, pj) in sample layer `layer` -> its radiance.
-// The surfaces' material flags are exclusive (a sphere has one code; a
-// triangle row's one-hots come from one code).
-template <typename T, typename Scene, typename Sink>
-__device__ __forceinline__ void trace_sample(const Scene& scene,
-                                             const PtParams<T>& p, int layer,
-                                             T pi, T pj, SampleUniforms<T>& u,
-                                             T& lr, T& lg, T& lb,
-                                             const Sink& sink) {
-  // ---- camera ray: tent-filter jitter on the (sy, sx) sub-pixel -------
+// One path between bounces: the ray of its next bounce, its throughput
+// and the radiance gathered so far.
+template <typename T>
+struct Path {
+  T ox, oy, oz, dx, dy, dz;
+  T tr, tg, tb;
+  T lr, lg, lb;
+};
+
+// The camera ray of pixel (pi, pj) in sample layer `layer`: tent-filter
+// jitter on the (sy, sx) sub-pixel; the sink keeps its (su, sv).
+template <typename T, typename Sink>
+__device__ __forceinline__ Path<T> camera_path(const PtParams<T>& p, int layer,
+                                               T pi, T pj, SampleUniforms<T>& u,
+                                               const Sink& sink) {
   const int s = p.spp4 / 4;
   const int sy = layer / (2 * s);
   const int sx = (layer / s) % 2;
@@ -202,140 +209,168 @@ __device__ __forceinline__ void trace_sample(const Scene& scene,
   const T ddx = su * c[6] + sv * c[7] + c[3];
   const T ddy = sv * c[8] + c[4];
   const T ddz = sv * c[9] + c[5];
-  T ox = c[0] + ddx * c[10];
-  T oy = c[1] + ddy * c[10];
-  T oz = c[2] + ddz * c[10];
+  Path<T> path;
+  path.ox = c[0] + ddx * c[10];
+  path.oy = c[1] + ddy * c[10];
+  path.oz = c[2] + ddz * c[10];
   const T inv = T(1) / root(ddx * ddx + ddy * ddy + ddz * ddz);
-  T dx = ddx * inv, dy = ddy * inv, dz = ddz * inv;
-
-  T tr = T(1), tg = T(1), tb = T(1);
-  lr = T(0);
-  lg = T(0);
-  lb = T(0);
-  int k = 0;
-  for (; k < p.bounces; ++k) {
-    T tmin;
-    Winner w;
-    // a miss ends the path; (layer, k) say where the walk is, for stats
-    if (!scene.hit(ox, oy, oz, dx, dy, dz, p.eps, tmin, w, layer, k)) break;
-
-    const T hx = ox + dx * tmin;
-    const T hy = oy + dy * tmin;
-    const T hz = oz + dz * tmin;
-    const Surface<T> sf = scene.surface(w, hx, hy, hz);
-    const T nx = sf.nx, ny = sf.ny, nz = sf.nz;
-    const T dn = dx * nx + dy * ny + dz * nz;
-    const bool into = dn < T(0);
-    const T sgn = into ? T(1) : T(-1);
-    const T nlx = nx * sgn, nly = ny * sgn, nlz = nz * sgn;
-
-    lr = lr + tr * sf.er;
-    lg = lg + tg * sf.eg;
-    lb = lb + tb * sf.eb;
-
-    const int q = 2 + 3 * k;  // this bounce's uniforms: q, q + 1, q + 2
-    T ndx, ndy, ndz;
-    T scl = T(1);
-    if (sf.diff) {
-      // Cosine hemisphere sample, not renormalized (pallas :406-426).
-      const T u0 = u(q);
-      const T u1 = u(q + 1);
-      const T phi = T(2.0 * 3.14159265358979) * u0;
-      const T r2sq = root(u1);
-      const bool flip = absv(nlx) > T(0.1);
-      const T axx = flip ? T(0) : T(1);
-      const T axy = flip ? T(1) : T(0);
-      T ux = axy * nlz;
-      T uy = (-axx) * nlz;
-      T uz = axx * nly - axy * nlx;
-      const T un = T(1) / root(maxv(ux * ux + uy * uy + uz * uz, T(1e-20)));
-      ux = ux * un;
-      uy = uy * un;
-      uz = uz * un;
-      const T vx = nly * uz - nlz * uy;
-      const T vy = nlz * ux - nlx * uz;
-      const T vz = nlx * uy - nly * ux;
-      const T cw = root(maxv(T(1) - u1, T(0)));
-      const T cphi = cosv(phi) * r2sq;
-      const T sphi = sinv(phi) * r2sq;
-      ndx = ux * cphi + vx * sphi + nlx * cw;
-      ndy = uy * cphi + vy * sphi + nly * cw;
-      ndz = uz * cphi + vz * sphi + nlz * cw;
-    } else {
-      // Mirror reflection about the geometric normal (pallas :428-430).
-      const T td = T(2) * dn;
-      ndx = dx - td * nx;
-      ndy = dy - td * ny;
-      ndz = dz - td * nz;
-      if (sf.refr) {
-        // Dielectric, IOR 1.5, Schlick Fresnel (pallas :432-457).
-        constexpr double kR0 = (0.5 * 0.5) / (2.5 * 2.5);
-        const T u0 = u(q);
-        const T nnt = into ? T(1.0 / 1.5) : T(1.5);
-        const T ddn = dx * nlx + dy * nly + dz * nlz;
-        const T cos2t = T(1) - nnt * nnt * (T(1) - ddn * ddn);
-        const bool tir = cos2t < T(0);
-        const T sqc = root(maxv(cos2t, T(0)));
-        const T coef = sgn * (ddn * nnt + sqc);
-        T tdx = dx * nnt - nx * coef;
-        T tdy = dy * nnt - ny * coef;
-        T tdz = dz * nnt - nz * coef;
-        const T tinv =
-            T(1) / root(maxv(tdx * tdx + tdy * tdy + tdz * tdz, T(1e-20)));
-        tdx = tdx * tinv;
-        tdy = tdy * tinv;
-        tdz = tdz * tinv;
-        const T cth = T(1) - (into ? -ddn : tdx * nx + tdy * ny + tdz * nz);
-        const T re = T(kR0) + T(1.0 - kR0) * cth * cth * cth * cth * cth;
-        const T pp = T(0.25) + T(0.5) * re;
-        const bool pick_refl = (u0 < pp) || tir;
-        if (!pick_refl) {
-          ndx = tdx;
-          ndy = tdy;
-          ndz = tdz;
-        }
-        scl = tir ? T(1) : (pick_refl ? re / pp : (T(1) - re) / (T(1) - pp));
-      }
-    }
-    tr = tr * sf.ar * scl;
-    tg = tg * sf.ag * scl;
-    tb = tb * sf.ab * scl;
-
-    T s_res = scl;  // the residual's detached scalar
-    if (k >= p.rr_depth) {  // Russian roulette (pallas :469-476)
-      const T pmax = minv(maxv(maxv(maxv(tr, tg), tb), T(0.1)), T(0.95));
-      if (!(u(q + 2) < pmax)) {
-        // The bounce on which RR ends the path is live: its winner is
-        // stored with s = scl and no 1/pmax.
-        sink.store(k, w, sf, scl);
-        ++k;
-        break;
-      }
-      const T pinv = T(1) / pmax;
-      tr = tr * pinv;
-      tg = tg * pinv;
-      tb = tb * pinv;
-      s_res = scl * pinv;
-    }
-    sink.store(k, w, sf, s_res);
-
-    // Scale-aware offset, 0 for glass (pallas :482-491); the float32
-    // REL_OFFSET in both instantiations; r2 = 0 keeps the eps floor.
-    const T off = sf.refr ? T(0) : maxv(p.eps, T(1e-6) * root(sf.r2));
-    ox = hx + nlx * off;
-    oy = hy + nly * off;
-    oz = hz + nlz * off;
-    dx = ndx;
-    dy = ndy;
-    dz = ndz;
-  }
-  sink.fill_dead(k, p.bounces);  // after a miss or RR's end
+  path.dx = ddx * inv;
+  path.dy = ddy * inv;
+  path.dz = ddz * inv;
+  path.tr = T(1);
+  path.tg = T(1);
+  path.tb = T(1);
+  path.lr = T(0);
+  path.lg = T(0);
+  path.lb = T(0);
+  return path;
 }
 
-// One thread's pixel: the spp4 sample layers in order, each adding
-// L / spp4 to registers written once to out [3, W*H] (pixel p is column
-// p / H, row p % H, as the Pallas kernels'): no atomics, and an image
-// that repeats bit for bit.  `sink` takes the replay residuals.
+// Bounce k of a path whose ray hit winner w at tmin: emission, the BSDF
+// sample, throughput, Russian roulette, the residual store and the next
+// ray.  Returns false where Russian roulette ended the path; the next ray
+// is made all the same and goes unread (no branch around it: render_pt's
+// kernel keeps the registers and the time of its per-thread sample that
+// way).  The surfaces' material flags are exclusive (a sphere has one
+// code; a triangle row's one-hots come from one code).
+template <typename T, typename Scene, typename Sink>
+__device__ __forceinline__ bool bounce_path(const Scene& scene,
+                                            const PtParams<T>& p, Path<T>& path,
+                                            int k, T tmin, const Winner& w,
+                                            SampleUniforms<T>& u,
+                                            const Sink& sink) {
+  const T dx = path.dx, dy = path.dy, dz = path.dz;
+  const T hx = path.ox + dx * tmin;
+  const T hy = path.oy + dy * tmin;
+  const T hz = path.oz + dz * tmin;
+  const Surface<T> sf = scene.surface(w, hx, hy, hz);
+  const T nx = sf.nx, ny = sf.ny, nz = sf.nz;
+  const T dn = dx * nx + dy * ny + dz * nz;
+  const bool into = dn < T(0);
+  const T sgn = into ? T(1) : T(-1);
+  const T nlx = nx * sgn, nly = ny * sgn, nlz = nz * sgn;
+
+  path.lr = path.lr + path.tr * sf.er;
+  path.lg = path.lg + path.tg * sf.eg;
+  path.lb = path.lb + path.tb * sf.eb;
+
+  const int q = 2 + 3 * k;  // this bounce's uniforms: q, q + 1, q + 2
+  T ndx, ndy, ndz;
+  T scl = T(1);
+  if (sf.diff) {
+    // Cosine hemisphere sample, not renormalized (pallas :406-426).
+    const T u0 = u(q);
+    const T u1 = u(q + 1);
+    const T phi = T(2.0 * 3.14159265358979) * u0;
+    const T r2sq = root(u1);
+    const bool flip = absv(nlx) > T(0.1);
+    const T axx = flip ? T(0) : T(1);
+    const T axy = flip ? T(1) : T(0);
+    T ux = axy * nlz;
+    T uy = (-axx) * nlz;
+    T uz = axx * nly - axy * nlx;
+    const T un = T(1) / root(maxv(ux * ux + uy * uy + uz * uz, T(1e-20)));
+    ux = ux * un;
+    uy = uy * un;
+    uz = uz * un;
+    const T vx = nly * uz - nlz * uy;
+    const T vy = nlz * ux - nlx * uz;
+    const T vz = nlx * uy - nly * ux;
+    const T cw = root(maxv(T(1) - u1, T(0)));
+    const T cphi = cosv(phi) * r2sq;
+    const T sphi = sinv(phi) * r2sq;
+    ndx = ux * cphi + vx * sphi + nlx * cw;
+    ndy = uy * cphi + vy * sphi + nly * cw;
+    ndz = uz * cphi + vz * sphi + nlz * cw;
+  } else {
+    // Mirror reflection about the geometric normal (pallas :428-430).
+    const T td = T(2) * dn;
+    ndx = dx - td * nx;
+    ndy = dy - td * ny;
+    ndz = dz - td * nz;
+    if (sf.refr) {
+      // Dielectric, IOR 1.5, Schlick Fresnel (pallas :432-457).
+      constexpr double kR0 = (0.5 * 0.5) / (2.5 * 2.5);
+      const T u0 = u(q);
+      const T nnt = into ? T(1.0 / 1.5) : T(1.5);
+      const T ddn = dx * nlx + dy * nly + dz * nlz;
+      const T cos2t = T(1) - nnt * nnt * (T(1) - ddn * ddn);
+      const bool tir = cos2t < T(0);
+      const T sqc = root(maxv(cos2t, T(0)));
+      const T coef = sgn * (ddn * nnt + sqc);
+      T tdx = dx * nnt - nx * coef;
+      T tdy = dy * nnt - ny * coef;
+      T tdz = dz * nnt - nz * coef;
+      const T tinv =
+          T(1) / root(maxv(tdx * tdx + tdy * tdy + tdz * tdz, T(1e-20)));
+      tdx = tdx * tinv;
+      tdy = tdy * tinv;
+      tdz = tdz * tinv;
+      const T cth = T(1) - (into ? -ddn : tdx * nx + tdy * ny + tdz * nz);
+      const T re = T(kR0) + T(1.0 - kR0) * cth * cth * cth * cth * cth;
+      const T pp = T(0.25) + T(0.5) * re;
+      const bool pick_refl = (u0 < pp) || tir;
+      if (!pick_refl) {
+        ndx = tdx;
+        ndy = tdy;
+        ndz = tdz;
+      }
+      scl = tir ? T(1) : (pick_refl ? re / pp : (T(1) - re) / (T(1) - pp));
+    }
+  }
+  path.tr = path.tr * sf.ar * scl;
+  path.tg = path.tg * sf.ag * scl;
+  path.tb = path.tb * sf.ab * scl;
+
+  T s_res = scl;  // the residual's detached scalar
+  bool goes_on = true;
+  if (k >= p.rr_depth) {  // Russian roulette (pallas :469-476)
+    const T pmax =
+        minv(maxv(maxv(maxv(path.tr, path.tg), path.tb), T(0.1)), T(0.95));
+    if (!(u(q + 2) < pmax)) {
+      goes_on = false;
+    } else {
+      const T pinv = T(1) / pmax;
+      path.tr = path.tr * pinv;
+      path.tg = path.tg * pinv;
+      path.tb = path.tb * pinv;
+      s_res = scl * pinv;
+    }
+  }
+  // The bounce on which RR ends the path is live: its winner is stored
+  // with s = scl and no 1/pmax.
+  sink.store(k, w, sf, s_res);
+  // Scale-aware offset, 0 for glass (pallas :482-491); the float32
+  // REL_OFFSET in both instantiations; r2 = 0 keeps the eps floor.
+  const T off = sf.refr ? T(0) : maxv(p.eps, T(1e-6) * root(sf.r2));
+  path.ox = hx + nlx * off;
+  path.oy = hy + nly * off;
+  path.oz = hz + nlz * off;
+  path.dx = ndx;
+  path.dy = ndy;
+  path.dz = ndz;
+  return goes_on;
+}
+
+// Points the uniform reader and the sink at sample layer a of pixel pix.
+template <typename T, typename Sink>
+__device__ __forceinline__ void begin_sample(const PtParams<T>& p, long long pix,
+                                             int a, SampleUniforms<T>& u,
+                                             Sink& sink) {
+  u.buf = p.uniforms == nullptr
+              ? nullptr
+              : p.uniforms + static_cast<long long>(a) * p.nu * p.n_pix + pix;
+  u.layer = static_cast<uint32_t>(a);
+  u.block = 0xffffffffu;
+  sink.begin(pix, a, p.n_pix);
+}
+
+// One thread's pixel: the spp4 sample layers in order, each path run to
+// its end, each adding L / spp4 to registers written once to out [3,
+// W*H] (pixel p is column p / H, row p % H, as the Pallas kernels'): no
+// atomics, and an image that repeats bit for bit.  `sink` takes the
+// replay residuals.  The scene's hit(ray, eps, tmin, winner, layer, k)
+// is the thread's own.
 template <typename T, typename Scene, typename Sink = NoResiduals>
 __device__ __forceinline__ void render_pixel(const Scene& scene,
                                              const PtParams<T>& p,
@@ -349,21 +384,104 @@ __device__ __forceinline__ void render_pixel(const Scene& scene,
   const T pj = T(pix % p.height);
   T ar = T(0), ag = T(0), ab = T(0);
   for (int a = 0; a < p.spp4; ++a) {
-    u.buf = p.uniforms == nullptr
-                ? nullptr
-                : p.uniforms + static_cast<long long>(a) * p.nu * p.n_pix + pix;
-    u.layer = static_cast<uint32_t>(a);
-    u.block = 0xffffffffu;
-    sink.begin(pix, a, p.n_pix);
-    T lr, lg, lb;
-    trace_sample(scene, p, a, pi, pj, u, lr, lg, lb, sink);
-    ar = ar + lr * p.inv_spp;
-    ag = ag + lg * p.inv_spp;
-    ab = ab + lb * p.inv_spp;
+    begin_sample(p, pix, a, u, sink);
+    Path<T> path = camera_path(p, a, pi, pj, u, sink);
+    int k = 0;
+    for (; k < p.bounces; ++k) {
+      T tmin;
+      Winner w;
+      // a miss ends the path
+      if (!scene.hit(path.ox, path.oy, path.oz, path.dx, path.dy, path.dz,
+                     p.eps, tmin, w, a, k)) {
+        break;
+      }
+      if (!bounce_path(scene, p, path, k, tmin, w, u, sink)) {
+        ++k;  // the bounce on which RR ends the path is live
+        break;
+      }
+    }
+    sink.fill_dead(k, p.bounces);  // after a miss or RR's end
+    ar = ar + path.lr * p.inv_spp;
+    ag = ag + path.lg * p.inv_spp;
+    ab = ab + path.lb * p.inv_spp;
   }
   out[pix] = ar;
   out[p.n_pix + pix] = ag;
   out[2 * p.n_pix + pix] = ab;
+}
+
+// render_pixel's result for a scene whose hit is warp-collective:
+// hit_warp(live, ray, eps, tmin, winner, layer, k) is called by all 32
+// lanes of the warp together, `live` false on a lane with no ray to
+// trace.  Path regeneration: each step of the loop advances every lane's
+// path by one bounce; a lane whose path ends (a miss, Russian roulette,
+// the last bounce) finishes that sample (L / spp4 into its registers,
+// the dead bounces' residuals) and begins its pixel's next layer, so the
+// warp meets at every hit query and costs about the sum of its lanes'
+// bounces, not the sum over layers of its longest path.  A lane runs at
+// most one layer ahead of the warp's slowest.  Each lane keeps one pixel
+// and takes its layers 0..spp4-1 in order, so the per-pixel sum and the
+// image are render_pixel's bit for bit.  Lanes past n_pix only take part
+// in the queries.
+template <typename T, typename Scene, typename Sink>
+__device__ __forceinline__ void render_pixel_regen(const Scene& scene,
+                                                   const PtParams<T>& p,
+                                                   long long pix, T* out,
+                                                   Sink sink) {
+  const bool mine = pix < p.n_pix;
+  SampleUniforms<T> u;
+  u.stride = p.n_pix;
+  u.pixel = static_cast<uint32_t>(pix);
+  u.seed = p.seed;
+  // The pixel's column and row are worked out again for each sample: two
+  // registers fewer through the loop.
+  const auto begin = [&](int layer) {
+    begin_sample(p, pix, layer, u, sink);
+    const uint32_t h = static_cast<uint32_t>(p.height);  // u.pixel is pix
+    return camera_path(p, layer, T(u.pixel / h), T(u.pixel % h), u, sink);
+  };
+  T ar = T(0), ag = T(0), ab = T(0);
+  int a = 0, k = 0;  // the lane's sample layer and its path's next bounce
+  Path<T> path = {};
+  bool work = mine;      // layers left to take
+  bool waiting = false;  // layer a not begun yet
+  if (work) path = begin(a);
+  while (__any_sync(0xffffffffu, work)) {
+    const bool live = work && !waiting && k < p.bounces;
+    T tmin;
+    Winner w;
+    const bool hit = scene.hit_warp(live, path.ox, path.oy, path.oz, path.dx,
+                                    path.dy, path.dz, p.eps, tmin, w, a, k);
+    bool goes_on = false;
+    if (live && hit) {
+      goes_on = bounce_path(scene, p, path, k, tmin, w, u, sink);
+      ++k;
+    }
+    if (work && !waiting && (!goes_on || k == p.bounces)) {
+      // The path ended (a miss, RR, its last bounce): finish its sample.
+      sink.fill_dead(k, p.bounces);
+      ar = ar + path.lr * p.inv_spp;
+      ag = ag + path.lg * p.inv_spp;
+      ab = ab + path.lb * p.inv_spp;
+      work = ++a < p.spp4;
+      waiting = work;
+    }
+    // A lane begins its next layer once no lane of the warp is on an
+    // earlier layer than the one it finished: at most one layer ahead, so
+    // that a warp's residual stores of one layer plane come close
+    // together in time and merge in the L2.
+    const int oldest = __reduce_min_sync(0xffffffffu, work && !waiting ? a : INT_MAX);
+    if (waiting && a - 1 <= oldest) {
+      path = begin(a);
+      k = 0;
+      waiting = false;
+    }
+  }
+  if (mine) {
+    out[pix] = ar;
+    out[p.n_pix + pix] = ag;
+    out[2 * p.n_pix + pix] = ab;
+  }
 }
 
 // PtParams from the launcher's host arguments; 0 or an error code.

@@ -46,7 +46,8 @@
 #include <cstdint>
 
 // MAX_S, PLANES, BLOCK, load_scene, closest_hit (sphere_hit.cuh);
-// Philox (philox.cuh); PtParams, Spheres, trace_sample, render_pixel.
+// Philox (philox.cuh); PtParams, Spheres, camera_path, bounce_path,
+// render_pixel.
 #include "pt_trace.cuh"
 
 namespace {

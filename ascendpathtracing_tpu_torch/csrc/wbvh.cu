@@ -65,9 +65,8 @@ __global__ void __launch_bounds__(BLOCK)
   T tmin = miss_t<T>();
   int slot = -1;
   WalkCounts cnt = {0, 0, 0};
-  walk_chunks<false>(
-      g, r, T(0),
-      [&](int c) { test_chunk(tris, p.stride, c, p.tpc, r, p.eps, tmin, slot); },
+  walk_chunks(
+      g, r, [&](int c) { test_chunk(tris, p.stride, c, p.tpc, r, p.eps, tmin, slot); },
       cnt);
   tmin_out[i] = tmin;
   hit_out[i] = slot < 0 ? 0 : slot;

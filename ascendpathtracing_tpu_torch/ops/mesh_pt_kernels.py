@@ -59,6 +59,7 @@ from ascendpathtracing_tpu_torch.ops import build, pt_kernels
 from ascendpathtracing_tpu_torch.ops import chunk_grid as cg
 from ascendpathtracing_tpu_torch.ops.render_kernels import MAX_S, on_cpu
 from ascendpathtracing_tpu_torch.ops.wbvh_kernels import (
+    PlainGrid,
     check_grid,
     plain_grid,
     walk_plain,
@@ -95,10 +96,51 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, f"apt_render_pt_mesh_{suffix}")
         fn.argtypes = _SIGNATURE
         fn.restype = _I
+    lib.apt_mesh_pt_blocks_per_sm.argtypes = (ctypes.c_longlong, ctypes.POINTER(_I))
+    lib.apt_mesh_pt_blocks_per_sm.restype = _I
+    lib.apt_mesh_pt_queue_cap.argtypes = ()
+    lib.apt_mesh_pt_queue_cap.restype = _I
+    lib.apt_mesh_pt_queue_overflows.argtypes = (ctypes.POINTER(ctypes.c_ulonglong),)
+    lib.apt_mesh_pt_queue_overflows.restype = _I
     if lib.apt_mesh_pt_max_spheres() != MAX_S:
         raise RuntimeError(f"library MAX_S {lib.apt_mesh_pt_max_spheres()} != {MAX_S}")
     lib._apt_declared = True
     return lib
+
+
+def _raise_on(lib, err, what):
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} "
+                           f"({lib.apt_mesh_pt_error_string(err).decode()})")
+
+
+#: The kernel's instantiations in ``blocks_per_sm``'s order.
+INSTANTIATIONS = tuple(f"{t}_{sink}{stats}" for t in ("f32", "f64")
+                       for sink in ("forward", "residuals", "camera")
+                       for stats in ("", "_stats"))
+
+
+def blocks_per_sm(box_bytes: int) -> dict:
+    """Resident blocks per SM of every instantiation of the kernel on the
+    current card, with ``box_bytes`` of boxes in dynamic shared memory
+    (0 where they do not fit) -> {instantiation: blocks}."""
+    lib = load_library()
+    out = (_I * len(INSTANTIATIONS))()
+    _raise_on(lib, lib.apt_mesh_pt_blocks_per_sm(box_bytes, out), "apt_mesh_pt_blocks_per_sm")
+    return dict(zip(INSTANTIATIONS, out))
+
+
+def queue_overflows() -> dict:
+    """The warp worklist's capacity (entries per queue per warp) and the
+    times a warp found its super queue or its chunk queue full and worked
+    it off, summed over the launches since the last call (which zeroes
+    them).  Synchronizes the device."""
+    lib = load_library()
+    torch.cuda.synchronize()
+    out = (ctypes.c_ulonglong * 2)()
+    _raise_on(lib, lib.apt_mesh_pt_queue_overflows(out), "apt_mesh_pt_queue_overflows")
+    return {"capacity": lib.apt_mesh_pt_queue_cap(), "super_queue": out[0],
+            "chunk_queue": out[1]}
 
 
 # ------------------------------------------------------------ tables ----
@@ -212,9 +254,10 @@ def render_pt_mesh_plain(scene_planes, cboxes, sboxes, tris24, ssboxes=None, *,
     """Plain twin of :func:`render_pt_mesh`: the kernel's arithmetic and
     random stream as torch ops, one sample layer at a time; the mesh is
     walked for the live paths only.  ``walk_counts``, an int64 [bounces,
-    4] tensor when given, is added to in place, a row per bounce: the
-    rays walked and, summed over them, ``walk_plain``'s counts (chunks
-    tested, supers hit, super-supers hit), the walk's work for a bound."""
+    5] tensor when given, is added to in place, a row per bounce: the
+    rays walked, summed over them ``walk_plain``'s counts (chunks tested,
+    supers hit, super-supers hit), and the rays that enter the kernel's
+    root box (:func:`root_entries`), the walk's work for a bound."""
     *_, ssboxes = check_grid(cboxes, sboxes, ssboxes, tris24,
                              tris_per_chunk=tris_per_chunk, supers_per=supers_per,
                              supers2_per=supers2_per, widths=(TRI_PT_F,))
@@ -251,7 +294,9 @@ def render_pt_mesh_plain(scene_planes, cboxes, sboxes, tris24, ssboxes=None, *,
             tmin = tmin.index_put((ids,), tsub)
             if counts is not None:
                 walk_counts[k, 0] += ids.numel()
-                walk_counts[k, 1:] += counts.sum(dim=1)
+                walk_counts[k, 1:4] += counts.sum(dim=1)
+                walk_counts[k, 4] += int(root_entries(
+                    grid, tuple(c[ids] for c in o3), tuple(c[ids] for c in d3), gate).sum())
             if marks is not None:
                 for level, m in enumerate(marks[1]):
                     kstats[level * bounces + k, layer::spp4] = m.sum(dim=1, dtype=torch.int32)
@@ -268,6 +313,109 @@ def render_pt_mesh_plain(scene_planes, cboxes, sboxes, tris24, ssboxes=None, *,
         res=res, suv=suv,
     )
     return _outputs(img, res, suv, kstats)
+
+
+#: ``csrc/warp_walk.cuh``'s ROOT_MAX_BOXES: the kernel's walk tests a root
+#: box where the grid's top level has at most this many boxes.
+ROOT_MAX_BOXES = 4096
+
+
+def root_entries(grid: PlainGrid, o3, d3, gate):
+    """[M] bool: the rays whose test of the warp walk's root box passes
+    (``warp_walk.cuh``'s init_root and enters_root): the box is the union
+    of the top level's boxes (NaN bounds ignored), a NaN in the test
+    counts as entering, and every ray enters where the top level has more
+    than ROOT_MAX_BOXES boxes.  Only those rays test the top level's
+    boxes; every ray entering one of them enters the root."""
+    top = grid.ssboxes or grid.sboxes or grid.cboxes
+    if len(top) > ROOT_MAX_BOXES:
+        return torch.ones(o3[0].shape, dtype=torch.bool, device=o3[0].device)
+    b = np.asarray(top, dtype=np.float32).reshape(-1, 6)
+    corners = (np.fmin(b[:, :3], b[:, 3:]), np.fmax(b[:, :3], b[:, 3:]))
+    root = [*np.fmin.reduce(corners[0], axis=0).tolist(),
+            *np.fmax.reduce(corners[1], axis=0).tolist()]
+    inv = [1.0 / torch.where(d == 0, 1e-30, d) for d in d3]
+    t1 = [(root[a] - o3[a]) * inv[a] for a in range(3)]
+    t2 = [(root[a + 3] - o3[a]) * inv[a] for a in range(3)]
+    lo = [torch.minimum(x, y) for x, y in zip(t1, t2)]
+    hi = [torch.maximum(x, y) for x, y in zip(t1, t2)]
+    tnear = torch.maximum(torch.maximum(lo[0], lo[1]), lo[2])
+    tfar = torch.minimum(torch.minimum(hi[0], hi[1]), hi[2])
+    zero = torch.zeros((), dtype=tnear.dtype, device=tnear.device)
+    return ~(tfar < torch.maximum(tnear, zero)) & ~(tnear >= gate)
+
+
+def _slab_all(boxes, ray, gate):
+    """_slab_tmin of every box against every ray -> [M, B] bool, the
+    op order of ``wbvh_kernels._slab`` (NaN-propagating min/max)."""
+    b = torch.tensor(boxes, dtype=ray[0].dtype, device=ray[0].device).reshape(-1, 6).T
+    o, inv = ray[:3], ray[3:]
+    t1 = [(b[i][None] - o[i][:, None]) * inv[i][:, None] for i in range(3)]
+    t2 = [(b[i + 3][None] - o[i][:, None]) * inv[i][:, None] for i in range(3)]
+    lo = [torch.minimum(a, c) for a, c in zip(t1, t2)]
+    hi = [torch.maximum(a, c) for a, c in zip(t1, t2)]
+    tnear = torch.maximum(torch.maximum(lo[0], lo[1]), lo[2])
+    tfar = torch.minimum(torch.minimum(hi[0], hi[1]), hi[2])
+    return (tfar >= torch.maximum(tnear, torch.zeros((), dtype=tnear.dtype))) & (
+        tnear < gate[:, None])
+
+
+def walk_pairs_plain(grid: PlainGrid, o3, d3, tmin, *, eps, gate, generator=None, step=32):
+    """The answer of the kernel's warp walk (``csrc/warp_walk.cuh``) as
+    torch ops, for tests: every (ray, triangle) pair of every chunk whose
+    box the ray enters (through its super-super's and super's boxes; every
+    box gated by ``gate``), taken ``step`` pairs at a time in the order
+    ``order`` (a permutation of the pairs; default ray by ray, chunks and
+    rows in order), each step folded into each ray's lexicographic minimum
+    of (t, slot) as the kernel folds it: t first, then the lowest slot at
+    that t, and a step that lowers a ray's t voids the slot kept for the
+    larger one.  A triangle must beat ``tmin`` [M] strictly, which takes
+    the winner's t in place.  Returns slot [M] int64, -1 where none wins:
+    what :func:`walk_plain`'s strict running minimum in slot order gives."""
+    ox, oy, oz = o3
+    dx, dy, dz = d3
+    inv = [1.0 / torch.where(d == 0, 1e-30, d) for d in d3]
+    ray = (ox, oy, oz, *inv)
+    m, T = ox.shape[0], grid.tris_per_chunk
+    enter = _slab_all(grid.cboxes, ray, gate)  # [M, C]
+    if grid.sboxes:
+        sup = _slab_all(grid.sboxes, ray, gate)
+        if grid.ssboxes:
+            sup = sup & _slab_all(grid.ssboxes, ray, gate).repeat_interleave(
+                grid.supers2_per, dim=1)
+        enter = enter & sup.repeat_interleave(grid.supers_per, dim=1)
+    rc = enter.nonzero()  # (ray, chunk) pairs, ray-major
+    ray_p = rc[:, 0].repeat_interleave(T)
+    slot_p = (rc[:, 1:2] * T + torch.arange(T, device=ox.device)).reshape(-1)
+    if generator is not None:
+        order = torch.randperm(ray_p.shape[0], generator=generator).to(ray_p.device)
+        ray_p, slot_p = ray_p[order], slot_p[order]
+    row = grid.rows[slot_p].T  # [24, P]
+    rox, roy, roz, rdx, rdy, rdz = (c[ray_p] for c in (*o3, *d3))
+    nd = row[3] * rdx + row[4] * rdy + row[5] * rdz
+    no = row[3] * rox + row[4] * roy + row[5] * roz
+    t = (row[12] - no) / nd
+    wx = (rox - row[0]) + t * rdx
+    wy = (roy - row[1]) + t * rdy
+    wz = (roz - row[2]) + t * rdz
+    u = row[6] * wx + row[7] * wy + row[8] * wz
+    v = row[9] * wx + row[10] * wy + row[11] * wz
+    cand = (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > eps) & (t < tmin[ray_p])
+    none = torch.iinfo(torch.int64).max
+    best_t = torch.full((m,), float("inf"), dtype=ox.dtype, device=ox.device)
+    best_slot = torch.full((m,), none, dtype=torch.int64, device=ox.device)
+    at = cand.nonzero()[:, 0]
+    for s in torch.unique(at // step).tolist():  # the steps with a candidate
+        sel = at[(at >= s * step) & (at < (s + 1) * step)]
+        r, ts, ss = ray_p[sel], t[sel], slot_p[sel]
+        before = best_t[r]
+        best_t.scatter_reduce_(0, r, ts, reduce="amin")
+        win = ts == best_t[r]
+        best_slot[r[win & (ts < before)]] = none
+        best_slot.scatter_reduce_(0, r[win], ss[win], reduce="amin")
+    won = best_slot != none
+    tmin[won] = best_t[won]
+    return torch.where(won, best_slot, -1)
 
 
 # ---------------------------------------------------------- wrapper ----
@@ -302,6 +450,8 @@ def render_pt_mesh(scene_planes, cboxes, sboxes, tris24, ssboxes=None, *,
               with_stats=with_stats, stats_tile=stats_tile)
     if cpu:
         return render_pt_mesh_plain(scene_planes, cboxes, sboxes, tris24, ssboxes, **kw)
+    if tris24.data_ptr() % 16:  # the kernel reads rows 16 bytes at a time
+        tris24 = tris24.clone()
     n_pix = width * height
     dtype, device = scene_planes.dtype, scene_planes.device
     out = torch.empty((3, n_pix), dtype=dtype, device=device)

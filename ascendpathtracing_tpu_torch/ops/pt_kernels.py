@@ -191,14 +191,14 @@ def pad_scene(scene_planes, materials):
 def _trace_layer(hit_fn, u, layer, i_idx, j_idx, *, width, height, spp4,
                  bounces, rr_depth, eps, cam, res=None, suv=None):
     """One sample layer of every pixel -> radiance (lr, lg, lb), the
-    kernels' ``trace_sample`` as [P]-wide tensor ops.  ``hit_fn(o3, d3,
-    alive, layer, k)`` -> (tmin, ``surface(...)``, winner code) finds each
-    ray's winner at bounce k.  A path that has ended keeps computing,
-    masked (the Pallas kernel's lanes).  ``res`` = (wid [bounces, P], resv
-    [bounces, 7, P]) views take the replay residuals: the winner code,
-    albedo, emission and s = scl x RR weight on live bounces, -1 and zeros
-    on dead ones; the ``suv`` [2, P] view the screen coordinates (su, sv)
-    of the primary rays."""
+    kernels' ``camera_path`` and ``bounce_path`` as [P]-wide tensor ops.
+    ``hit_fn(o3, d3, alive, layer, k)`` -> (tmin, ``surface(...)``, winner
+    code) finds each ray's winner at bounce k.  A path that has ended
+    keeps computing, masked (the Pallas kernel's lanes).  ``res`` = (wid
+    [bounces, P], resv [bounces, 7, P]) views take the replay residuals:
+    the winner code, albedo, emission and s = scl x RR weight on live
+    bounces, -1 and zeros on dead ones; the ``suv`` [2, P] view the screen
+    coordinates (su, sv) of the primary rays."""
     px, py, pz, dx0, dy0, dz0, cxx, cyx, cyy, cyz, push = cam
     s = spp4 // 4
     sy, sx = layer // (2 * s), (layer // s) % 2
@@ -207,8 +207,13 @@ def _trace_layer(hit_fn, u, layer, i_idx, j_idx, *, width, height, spp4,
     r2 = 2.0 * u[1]
     jx = torch.where(r1 < 1, sqrt_rn(r1) - 1.0, 1.0 - sqrt_rn(torch.clamp_min(2.0 - r1, 0.0)))
     jy = torch.where(r2 < 1, sqrt_rn(r2) - 1.0, 1.0 - sqrt_rn(torch.clamp_min(2.0 - r2, 0.0)))
-    su = (((sx + 0.5) + jx) / 2.0 + i_idx) / float(width) - 0.5
-    sv = (((sy + 0.5) + jy) / 2.0 + j_idx) / float(height) - 0.5
+    # Divide by tensors: torch on CUDA divides by a Python scalar as a
+    # product with its rounded reciprocal, not the kernels' IEEE division,
+    # which differs in the last bit where W or H is no power of two.
+    w_t, h_t = (torch.tensor(float(n), dtype=i_idx.dtype, device=i_idx.device)
+                for n in (width, height))
+    su = (((sx + 0.5) + jx) / 2.0 + i_idx) / w_t - 0.5
+    sv = (((sy + 0.5) + jy) / 2.0 + j_idx) / h_t - 0.5
     if suv is not None:
         suv[0] = su
         suv[1] = sv

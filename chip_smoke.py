@@ -1,9 +1,9 @@
 """Smoke test of the PyTorch/CUDA port (``ascendpathtracing_tpu_torch``) on
 one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
-Builds the port's CUDA kernels from the sources in this checkout (all four
+Builds the port's CUDA kernels from the sources in this checkout (all six
 libraries at once), checks each against its plain PyTorch twin (and the
 NumPy oracle) on the card, drives the main path once through the user
 entry points (the differentiable render at 4,194,304 rays x 8 bounces of
@@ -36,6 +36,13 @@ before each run, that each path went through its kernels, and times
 kernels, plain versions and, where one PyTorch call computes the same
 function, that call (``library_ms``) with CUDA events.  One line per
 phase; the first failed check raises and the script exits non-zero.
+With ``--parent DIR`` (the root of another checkout, e.g. the parent
+commit's port unpacked with ``git archive``) it also times, for each
+kernel whose sources differ between the two trees and which AB_SCRIPT
+can time, that kernel's frame in each tree: AB_SCRIPT runs from each
+tree's root with that tree's package, in turns (parent, new, new,
+parent); phase ``mesh_times`` reports them beside the queue overflows
+of one s4 frame.
 Before the last line it prints the card's name and power limit
 (nvidia-smi) and one JSON object with a row per kernel (its ``launches``
 are counted in the run its ``run`` field names; ``bound_ms`` is the
@@ -50,6 +57,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -69,11 +77,52 @@ MESH_CHUNKS = 8  # replay chunks of diff/mesh_fused.LAYER_CHUNK (8) layers of 64
 SEG_TOL = 1e-5  # segment-sum: |kernel - twin| <= SEG_TOL * sum of |rows| per segment
 SEG_ATOMIC_MS = 2.185  # the earlier, atomic segment-sum on the real replay stream (PERF.md)
 STATS_TILE = 2048  # with_stats: pixels per cell, the Pallas kernel's default tile
-# Registers of the fused mesh kernel's instantiations without stats, as
-# the build log showed them before the camera and stats outputs existed:
-# those outputs must leave them as they were.
-MESH_REGS_BEFORE = {"f32_forward": 75, "f64_forward": 106, "f32_residuals": 80,
-                    "f64_residuals": 114}
+# The A/B against another checkout (``--parent``): run from a tree's root
+# with the kernels to time as arguments, this code builds them from that
+# tree's sources, times each kernel's frame with that tree's package and
+# prints {kernel: median ms}.  The frames: render_pt.cu, the bench's PT
+# cell; mesh_pt.cu, the bench's s4 mesh frame; wbvh.cu and bvh.cu, the s4
+# mesh against 4,194,304 camera rays (phases 18 and 23).
+AB_SCRIPT = r"""
+import json, statistics, sys
+import numpy as np, torch
+from ascendpathtracing_tpu_torch import bench, camera, convert, scenes
+from ascendpathtracing_tpu_torch.models import mesh as mm
+from ascendpathtracing_tpu_torch.ops import build, bvh_kernels as bk
+from ascendpathtracing_tpu_torch.ops import mesh_pt_kernels as mpt, wbvh_kernels as wk
+
+dev = torch.device("cuda")
+
+def cam_rays():
+    return convert.rays_planes_from_numpy(
+        camera.generate_rays_numpy(1024, 1024, 1, seed=0).astype(np.float32), device=dev)
+
+def wbvh():
+    _, cb, sb, t24, _, grid = mpt.mesh_pt_tables(bench.mesh_scene(4), device=dev)
+    rays, kw = cam_rays(), mpt.pt_tables_kwargs(grid, dev)
+    return lambda: wk.intersect_chunks(rays, cb, sb, t24, attrs=True, **kw)
+
+def bvh():
+    d = mm.mesh_scene_to_device(bench.mesh_scene(4), device=dev, pallas_bvh_kernel=True,
+                                pallas_kernel="lockstep")
+    rays = cam_rays()
+    return lambda: bk.intersect_bvh(rays, *d["pallas_bvh"], max_leaf=d["static"].max_leaf)
+
+steps = {
+    "render_pt": lambda: bench.make_pt_step("kernel", True, scenes.cornell8(), device=dev,
+                                            bounces=8),
+    "mesh_pt": lambda: bench.make_mesh_step("kernel", bench.mesh_scene(4), device=dev,
+                                            bounces=8)[0],
+    "wbvh": wbvh,
+    "bvh": bvh,
+}
+build.build_all(sys.argv[1:])
+out = {}
+for name in sys.argv[1:]:
+    out[name] = statistics.median(bench.time_steps(steps[name](), iters=10, warmup=2)[0])
+print(json.dumps(out))
+"""
+AB_KERNELS = ("render_pt", "mesh_pt", "wbvh", "bvh")  # the frames AB_SCRIPT times
 # The H100 SXM's published peaks (NVIDIA's data sheet, dense, 700 W): HBM
 # bytes/s and float32 outside the tensor cores.
 HBM_BPS, FP32_OPS = 3.35e12, 67e12
@@ -213,6 +262,39 @@ def mesh_kernel_registers(log: str) -> dict:
     return out
 
 
+def kernel_sources(root: Path, name: str) -> dict:
+    """{file name: bytes} of csrc/<name>.cu in the tree at ``root`` and
+    of every csrc header it includes, directly or not."""
+    csrc = root / CSRC
+    out, todo = {}, [f"{name}.cu"]
+    while todo:
+        f = todo.pop()
+        if f in out or not (csrc / f).exists():
+            continue
+        out[f] = (csrc / f).read_bytes()
+        todo += re.findall(r'#include "([^"]+)"', out[f].decode())
+    return out
+
+
+def ab_kernels(root: Path) -> tuple:
+    """(the kernels whose sources differ between this tree and ``root``'s
+    that AB_SCRIPT times, those it cannot)."""
+    changed = [n.stem for n in sorted((REPO / CSRC).glob("*.cu"))
+               if kernel_sources(REPO, n.stem) != kernel_sources(root, n.stem)]
+    return ([n for n in changed if n in AB_KERNELS],
+            [n for n in changed if n not in AB_KERNELS])
+
+
+def run_in_tree(root: Path, code: str, args, timeout: int) -> str:
+    """Runs ``code`` with ``args`` in a Python process of its own from the
+    tree at ``root`` (its package first on the path); its stdout."""
+    proc = subprocess.run([sys.executable, "-c", code, *args], cwd=root,
+                          env={**os.environ, "PYTHONPATH": str(root)}, capture_output=True,
+                          text=True, timeout=timeout, check=False)
+    require(proc.returncode == 0, f"{root}: {proc.stderr[-3000:]}")
+    return proc.stdout
+
+
 def bound(nbytes, ops) -> dict:
     """The least time the card could take: the larger of the bytes over
     HBM_BPS and the operations over FP32_OPS."""
@@ -221,18 +303,20 @@ def bound(nbytes, ops) -> dict:
             else {"bound_ms": o_ms, "bound_by": "operations"})
 
 
-def walk_ops(counts, n_rays, grid) -> int:
+def walk_ops(counts, n_rays, grid, roots=None) -> int:
     """Operations of a chunk-grid walk: each ray tests the top level's
     boxes, each box it hits its children's boxes, each chunk it enters
     that chunk's triangles.  ``counts`` = (chunks tested, supers hit,
-    super-supers hit) summed over the rays."""
+    super-supers hit) summed over the rays.  With ``roots`` (the rays
+    entering the root box, the warp walk's), each ray tests the root
+    and only those rays the top level."""
     chunks, supers, supers2 = counts
+    top = grid.n_supers2 or grid.n_supers or grid.n_chunks
+    boxes = (n_rays * top if roots is None else n_rays + roots * top)
     if grid.n_supers2:
-        boxes = n_rays * grid.n_supers2 + supers2 * grid.supers2_per + supers * grid.supers_per
+        boxes += supers2 * grid.supers2_per + supers * grid.supers_per
     elif grid.n_supers:
-        boxes = n_rays * grid.n_supers + supers * grid.supers_per
-    else:
-        boxes = n_rays * grid.n_chunks
+        boxes += supers * grid.supers_per
     return boxes * BOX_OPS + chunks * grid.tris_per_chunk * TRI_OPS
 
 
@@ -263,7 +347,15 @@ def image_from_residuals(wid, resv, spp4, chunk):
     return img / spp4
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke test of the port on one CUDA card.")
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="root of another checkout (e.g. the parent commit's, from git "
+                         "archive): each kernel whose sources differ is timed in both "
+                         "trees in turns (phase mesh_times)")
+    args = ap.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -310,10 +402,22 @@ def main() -> int:
     # ---- 1. build (all six libraries at once) --------------------------
     t0 = time.time()
     libs = ("render_ref", "render_pt", "wbvh", "mesh_pt", "segsum", "bvh")
+    parent = None if args.parent is None else args.parent.resolve()
+    ab_names, ab_untimed = ab_kernels(parent) if parent else ((), ())
+    parent_build = None  # the other tree builds its kernels meanwhile
+    if ab_names:
+        parent_build = subprocess.Popen(
+            [sys.executable, "-c", "import sys\nfrom ascendpathtracing_tpu_torch.ops import "
+             "build\nbuild.build_all(sys.argv[1:])", *ab_names], cwd=parent,
+            env={**os.environ, "PYTHONPATH": str(parent)}, stdout=subprocess.DEVNULL,
+            stderr=subprocess.PIPE, text=True)
     build.build_all(libs)
     kernel_mods = (rk, ptk, wk, mpt, segk, bk)
     for mod in kernel_mods:
         mod.load_library()
+    if parent_build is not None:
+        _, err = parent_build.communicate()
+        require(parent_build.returncode == 0, f"--parent {parent}: build failed:\n{err[-3000:]}")
     require(mf.LAYER_CHUNK * MESH_CHUNKS == PT_SPP4, "replay chunks per step")
     build_s = time.time() - t0
     regs, spills = {}, {}
@@ -327,14 +431,19 @@ def main() -> int:
     other = {k: v for k, v in spills.items() if k not in f64_spills}
     require(len(spills) >= 2 * len(libs) and all(v == (0, 0) for v in other.values()),
             f"register spills: {other}")
+    # The fused mesh kernel's twelve instantiations: registers (the float
+    # ones without spills, above) and resident 256-thread blocks per SM
+    # with the s4 cell's 8,160 bytes of boxes in shared memory.
     mesh_regs = mesh_kernel_registers(build.library_path("mesh_pt").with_suffix(".log")
                                       .read_text())
-    require(len(mesh_regs) == 12 and all(mesh_regs[k] == v for k, v in MESH_REGS_BEFORE.items()),
-            f"fused mesh kernel registers {mesh_regs}, expected {MESH_REGS_BEFORE} unchanged")
-    require(mesh_regs["f32_camera"] <= 80,  # three blocks of 256 threads per SM (MinBlocks)
-            f"float camera kernel at {mesh_regs['f32_camera']} registers, more than 80")
+    mesh_blocks = mpt.blocks_per_sm(24 * (320 + 20))
+    require(sorted(mesh_regs) == sorted(mesh_blocks) and min(mesh_blocks.values()) >= 1,
+            f"fused mesh kernel: registers {mesh_regs}, blocks per SM {mesh_blocks}")
     phase("build", seconds=build_s, gpu=gpu, torch=torch.__version__,
           cuda=torch.version.cuda, ptxas=regs, mesh_pt_registers=mesh_regs,
+          mesh_pt_blocks_per_sm=mesh_blocks,
+          mesh_pt_queue_capacity=mpt.queue_overflows()["capacity"],
+          parent=None if parent is None else str(parent), ab_kernels=ab_names,
           f64_spill_bytes={k: v for k, v in f64_spills.items() if v != (0, 0)})
     print(gpu, flush=True)
 
@@ -881,7 +990,7 @@ def main() -> int:
     k4, kwid4, kresv4, ksuv4 = mpt.render_pt_mesh(
         m_planes, m_cb, m_sb, m_t24, spp4=MESH_TWIN_SPP4, with_residuals=True,
         with_camera=True, **full)
-    walk4 = torch.zeros((BOUNCES, 4), dtype=torch.int64, device=dev)  # a row per bounce
+    walk4 = torch.zeros((BOUNCES, 5), dtype=torch.int64, device=dev)  # a row per bounce
     p4, pwid4, presv4, psuv4, pks4 = mpt.render_pt_mesh_plain(
         m_planes, m_cb, m_sb, m_t24, spp4=MESH_TWIN_SPP4, with_residuals=True,
         with_camera=True, with_stats=True, stats_tile=STATS_TILE, walk_counts=walk4, **full)
@@ -985,15 +1094,60 @@ def main() -> int:
                                                     **m_kw))
     wbvh_ms = med_ms(wbvh_call)
     wbvh_plain_ms = statistics.median(bench.time_steps(wbvh_plain, iters=3, warmup=1)[0])
-    mesh_ms = statistics.median(bench.time_steps(
-        lambda: mpt.render_pt_mesh(m_planes, m_cb, m_sb, m_t24, spp4=PT_SPP4, **full),
-        iters=10, warmup=1)[0])
+
+    def mesh_frame():
+        return mpt.render_pt_mesh(m_planes, m_cb, m_sb, m_t24, spp4=PT_SPP4, **full)
+
+    mesh_ms = statistics.median(bench.time_steps(mesh_frame, iters=10, warmup=1)[0])
+    mpt.queue_overflows()  # from zero: one frame's overflows
+    require(torch.equal(mesh_frame(), m_img), "mesh frame does not repeat bit for bit")
+    overflows = mpt.queue_overflows()
+    # The A/B against --parent: AB_SCRIPT from each tree in turns; the
+    # means of each tree's two turns.
+    ab = {"not measured": "no --parent"} if parent is None else {
+        name: "sources differ; AB_SCRIPT has no frame for it" for name in ab_untimed}
+    if ab_names:
+        turns = {"parent": [], "new": []}
+        for who in ("parent", "new", "new", "parent"):
+            turns[who].append(json.loads(run_in_tree(
+                parent if who == "parent" else REPO, AB_SCRIPT, ab_names, 600)))
+        ab.update({name: {"parent_ms": statistics.mean(t[name] for t in turns["parent"]),
+                          "ms": statistics.mean(t[name] for t in turns["new"]),
+                          "turns": {who: [t[name] for t in ts] for who, ts in turns.items()}}
+                   for name in ab_names})
+    # Where the frame's time goes: the same spheres alone through
+    # render_pt.cu, and through mesh_pt.cu with the mesh out of every
+    # ray's reach (behind the camera: each ray still tests the 20 super
+    # boxes, and enters none); both give the sphere image bit for bit.
+    far = mpt.mesh_pt_tables(mm.MeshScene.cornell_with_mesh(*meshes.icosphere(
+        center=(50, 40, 400), radius=14.0, subdivisions=MESH_SUBDIV)), device=dev)
+    require((far[5].n_chunks, far[5].n_supers) == (m_grid.n_chunks, m_grid.n_supers),
+            "the unreachable mesh's grid differs from the cell's")
+    spheres_alone = dict(width=FULL_W, height=FULL_W, spp4=PT_SPP4, bounces=BOUNCES,
+                         rr_depth=PT_RR)
+
+    def spheres_frame():
+        return ptk.render_pt(m_planes, m_mats, **spheres_alone)
+
+    def unreachable_frame():
+        return mpt.render_pt_mesh(*far[:4], materials=far[4], **spheres_alone,
+                                  **mpt.pt_tables_kwargs(far[5], dev))
+
+    require(torch.equal(spheres_frame(), unreachable_frame()),
+            "unreachable s4 mesh: not render_pt's image bitwise")
+    breakdown = {"spheres_render_pt_ms": med_ms(spheres_frame, 10),
+                 "unreachable_mesh_ms": med_ms(unreachable_frame, 10), "frame_ms": mesh_ms}
+    del far
     mesh_plain_ms = statistics.median(twin_times)
     m_samples = FULL_W * FULL_W * PT_SPP4
-    phase("mesh_times", gpu=gpu, wbvh_4M_ms=wbvh_ms, wbvh_twin_4M_ms=wbvh_plain_ms,
-          mesh_pt_ms=mesh_ms, mesh_pt_msamples_per_s=m_samples / (mesh_ms * 1e-3) / 1e6,
-          mesh_twin_ms=mesh_plain_ms,
-          mesh_twin_size=f"{FULL_W}x{FULL_W}x{MESH_TWIN_SPP4}", twin_runs=len(twin_times))
+    # The phase's line waits for the frame's bound (phase 19's live
+    # sample-bounces).
+    mesh_times = dict(
+        gpu=gpu, wbvh_4M_ms=wbvh_ms, wbvh_twin_4M_ms=wbvh_plain_ms, mesh_pt_ms=mesh_ms,
+        mesh_pt_msamples_per_s=m_samples / (mesh_ms * 1e-3) / 1e6, mesh_twin_ms=mesh_plain_ms,
+        mesh_twin_size=f"{FULL_W}x{FULL_W}x{MESH_TWIN_SPP4}", twin_runs=len(twin_times),
+        queue_overflows_per_frame=overflows, breakdown=breakdown,
+        render_pt_ms=pt_ms, ab_vs_parent=ab)
     # wbvh: 4M camera rays with attrs, the walk of phase 14's counts.
     n_cam = rp_cam.shape[1]
     mesh_rows = {}
@@ -1007,6 +1161,8 @@ def main() -> int:
         }
         rows.append(mesh_rows[name])
     mesh_rows["wbvh"].update(bound(n_cam * (24 + 8 + 44), walk_ops(wbvh_walk, n_cam, m_grid)))
+    if isinstance(ab.get("mesh_pt"), dict):
+        mesh_rows["mesh_pt"]["parent_ms"] = ab["mesh_pt"]["parent_ms"]
     del rp_cam
     torch.cuda.empty_cache()
 
@@ -1112,10 +1268,15 @@ def main() -> int:
     # The walk's operations: phase 16's twin count over its 4 layers,
     # scaled by the live sample-bounces of the 64.
     walk_all = walk4.sum(dim=0)
-    mesh_walk = walk_ops(walk_all[1:].tolist(), int(walk_all[0]), m_grid) * mesh_live / twin_live4
+    mesh_walk = walk_ops(walk_all[1:4].tolist(), int(walk_all[0]), m_grid,
+                         roots=int(walk_all[4])) * mesh_live / twin_live4
     mesh_rows["mesh_pt"].update(bound(12 * FULL_W * FULL_W,
                                       mesh_live * (SPHERE_OPS * 9 + PT_SHADE_OPS)
                                       + FULL_W * FULL_W * PT_SPP4 * CAM_OPS + mesh_walk))
+    mesh_times["walk_root_entry_share_twin_spp4"] = int(walk_all[4]) / int(walk_all[0])
+    mesh_times["mesh_pt_bound_ms"] = mesh_rows["mesh_pt"]["bound_ms"]
+    mesh_times["mesh_pt_x_of_bound"] = mesh_ms / mesh_rows["mesh_pt"]["bound_ms"]
+    phase("mesh_times", **mesh_times)
     n_seg = 9 + n_slots
 
     # 20. The segment-sum kernel vs its twin in float64: kocc equal, each

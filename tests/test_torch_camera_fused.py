@@ -153,7 +153,7 @@ def test_kstats_per_pixel_cells_sum_to_the_walk_counts(tables):
     walk: summed over the cells, the chunk rows equal the twin's walk
     counts.  Unions over larger tiles lie between the largest path's
     count and the chunk count."""
-    walk = torch.zeros((BOUNCES, 4), dtype=torch.int64)
+    walk = torch.zeros((BOUNCES, 5), dtype=torch.int64)
     _, port, base = tables
     _, ks = mpt.render_pt_mesh_plain(*port, with_stats=True, stats_tile=1, walk_counts=walk,
                                      **base)

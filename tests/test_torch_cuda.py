@@ -117,6 +117,29 @@ def _mixed_scene(subdivisions=2):
     return ms
 
 
+def _tie_mesh(subdivisions=0, copies=3):
+    """An icosphere in the smallpt room whose every face is listed
+    ``copies`` times, the copies far apart in the face list, so that the
+    chunk grid's stable median split puts them in neighbouring chunks
+    (and supers): a ray that hits a face hits its copies at the same t."""
+    v, f = meshes.icosphere(center=(50, 40, 60), radius=14.0, subdivisions=subdivisions)
+    return v, np.concatenate([f] * copies, 0)
+
+
+def _layer_stack(layers=64):
+    """``layers`` square plates (two triangles each) facing the default
+    camera, 1 unit apart in z: a camera ray through the stack enters every
+    plate's box."""
+    x0, x1, y0, y1 = 20.0, 80.0, 15.0, 70.0
+    v, f = [], []
+    for i in range(layers):
+        z = 40.0 + i
+        b = len(v)
+        v += [(x0, y0, z), (x1, y0, z), (x1, y1, z), (x0, y1, z)]
+        f += [(b, b + 1, b + 2), (b, b + 2, b + 3)]
+    return np.asarray(v, np.float64), np.asarray(f, np.int64)
+
+
 # ------------------------------------------------ reference kernels ----
 @pytest.mark.cuda
 @pytest.mark.parametrize("np_dt", [np.float32, np.float64])
@@ -317,3 +340,127 @@ def test_render_with_camera_on_the_card(cuda):
         params, 32, 32, dtype=torch.float32).detach(), with_residuals=True,
         with_camera=True, **kw)
     assert all(torch.equal(a, b) for a, b in zip(twin, (image, wid, resv, suv)))
+
+
+# ------------------------------- the mesh kernel's warp walk, edge cases ----
+def _mesh_options_vs_twin(tables, cuda, *, stats_tile, **kw):
+    """The kernel against the twin with residuals, camera and stats:
+    image, wid, resv, suv bitwise and kstats equal; one launch."""
+    planes, cb, sb, t24, mats, grid = tables
+    kw = dict(materials=mats, with_residuals=True, with_camera=True, with_stats=True,
+              stats_tile=stats_tile, **mpt.pt_tables_kwargs(grid, cuda), **kw)
+    mpt.reset_launches()
+    k = mpt.render_pt_mesh(planes, cb, sb, t24, **kw)
+    assert mpt.LAUNCHES == {"mesh_pt": 1}
+    p = mpt.render_pt_mesh_plain(planes, cb, sb, t24, **kw)
+    same = [torch.equal(a, b) for a, b in zip(k, p)]
+    assert all(same), same
+    return k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("tpc", [1, 4])
+def test_mesh_pt_exact_ties_take_the_lowest_slot(cuda, dtype, tpc):
+    """Three copies of every face, in other chunks and across super
+    boundaries: every triangle hit is a three-way tie in t, and the
+    kernel's winners (wid) are the twin's, the lowest slot."""
+    v, f = _tie_mesh(subdivisions=1)
+    ms = mm.MeshScene.cornell_with_mesh(v, f, albedo=(0.85, 0.55, 0.2))
+    tables = mpt.mesh_pt_tables(ms, device=cuda, dtype=dtype, tris_per_chunk=tpc,
+                                supers_per=2)
+    k = _mesh_options_vs_twin(tables, cuda, width=32, height=24, spp4=4, bounces=4,
+                              rr_depth=2, stats_tile=256)
+    slots = k[1][k[1] >= tables[0].shape[1]] - tables[0].shape[1]
+    assert slots.numel() > 100
+    fos = torch.tensor(tables[5].face_of_slot, device=cuda)
+    nf = f.shape[0] // 3
+    first = torch.stack([torch.nonzero(fos % nf == x)[0, 0] for x in range(nf)])
+    assert torch.equal(slots, first[fos[slots].long() % nf])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_mesh_pt_queue_overflow(cuda, dtype):
+    """64 plates facing the camera, two triangles a chunk, four chunks a
+    super: each camera ray through the stack enters all 16 supers and all
+    64 chunks, so a warp's entries pass both queues many times over; none
+    is dropped."""
+    v, f = _layer_stack()
+    ms = mm.MeshScene.cornell_with_mesh(v, f, albedo=(0.7, 0.7, 0.7))
+    tables = mpt.mesh_pt_tables(ms, device=cuda, dtype=dtype, tris_per_chunk=2,
+                                supers_per=4)
+    assert tables[5].n_chunks == 64 and tables[5].n_supers == 16
+    cap = mpt.queue_overflows()["capacity"]
+    k = _mesh_options_vs_twin(tables, cuda, width=32, height=32, spp4=4, bounces=2,
+                              rr_depth=5, stats_tile=256)
+    over = mpt.queue_overflows()
+    assert over["capacity"] == cap and over["super_queue"] > 0 and over["chunk_queue"] > 0
+    assert int(k[4][0].max()) == 64 and int(k[4][2].max()) == 16  # bounce 0 enters them all
+    assert int((k[1][0] >= tables[0].shape[1]).sum()) > 200
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("spp4", [4, 8])
+@pytest.mark.parametrize("bounces", [0, 1, 8])
+@pytest.mark.parametrize("rr_depth", [0, 5])
+def test_mesh_pt_ragged_and_mixed_path_lengths(cuda, dtype, spp4, bounces, rr_depth):
+    """33 x 17 pixels (561: no multiple of a warp or a block), paths that
+    end at every bounce: each lane starts its pixel's next layer as its
+    path ends, and the result is the twin's bit for bit."""
+    tables = mpt.mesh_pt_tables(_mixed_scene(), device=cuda, dtype=dtype, tris_per_chunk=8,
+                                supers_per=4)
+    k = _mesh_options_vs_twin(tables, cuda, width=33, height=17, spp4=spp4,
+                              bounces=bounces, rr_depth=rr_depth, stats_tile=33)
+    assert bool(torch.isfinite(k[0]).all())
+    assert (float(k[0].max()) > 0.0) == (bounces > 0)
+
+
+@pytest.mark.cuda
+def test_mesh_pt_takes_rows_at_any_offset(cuda):
+    """The kernel reads a row 16 bytes at a time: rows that start 4 bytes
+    into an allocation give the image of an aligned copy."""
+    planes, cb, sb, t24, mats, grid = mpt.mesh_pt_tables(_mixed_scene(), device=cuda,
+                                                         tris_per_chunk=8, supers_per=4)
+    buf = torch.empty(t24.numel() + 1, dtype=t24.dtype, device=cuda)
+    shifted = buf[1:].view(t24.shape)
+    shifted.copy_(t24)
+    assert shifted.data_ptr() % 16 != 0
+    kw = dict(materials=mats, width=16, height=16, spp4=4, bounces=4, rr_depth=2,
+              **mpt.pt_tables_kwargs(grid, cuda))
+    assert torch.equal(mpt.render_pt_mesh(planes, cb, sb, shifted, **kw),
+                       mpt.render_pt_mesh(planes, cb, sb, t24, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_mesh_pt_top_level_past_the_root_limit(cuda, dtype):
+    """A 1-level grid of 5,120 one-triangle chunks, more than the
+    ROOT_MAX_BOXES (4,096) a warp unions into its root box: the root is
+    then unbounded, every live lane expands over the whole top level (its
+    boxes in global memory), and the result is the twin's."""
+    ms = mm.MeshScene.cornell_with_mesh(*meshes.icosphere(
+        center=(50, 40, 60), radius=14.0, subdivisions=4), albedo=(0.85, 0.55, 0.2))
+    tables = mpt.mesh_pt_tables(ms, device=cuda, dtype=dtype, tris_per_chunk=1,
+                                supers_per=0)
+    assert tables[5].n_supers == 0 and tables[5].n_chunks > mpt.ROOT_MAX_BOXES
+    k = _mesh_options_vs_twin(tables, cuda, width=16, height=16, spp4=4, bounces=2,
+                              rr_depth=1, stats_tile=256)
+    assert int((k[1] >= tables[0].shape[1]).sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_mesh_pt_boxes_near_the_shared_memory_limit(cuda, dtype):
+    """40,392 bytes of boxes (icosphere s5 in chunks of 13, 16 a super) go
+    to shared memory beside the warps' queues, past the 48 KB a launch
+    gets without asking: the kernel asks, and matches the twin."""
+    ms = mm.MeshScene.cornell_with_mesh(*meshes.icosphere(
+        center=(50, 40, 60), radius=14.0, subdivisions=5), albedo=(0.85, 0.55, 0.2))
+    tables = mpt.mesh_pt_tables(ms, device=cuda, dtype=dtype, tris_per_chunk=13,
+                                supers_per=16)
+    assert 24 * (tables[5].n_chunks + tables[5].n_supers) == 40392
+    k = _mesh_options_vs_twin(tables, cuda, width=16, height=16, spp4=4, bounces=3,
+                              rr_depth=2, stats_tile=256)
+    assert int((k[1] >= tables[0].shape[1]).sum()) > 0
