@@ -1,20 +1,23 @@
-// The chunk-grid walk of the traversal kernel (wbvh.cu): the slab test of
-// a box, the precomputed-plane triangle test (both shared with the fused
-// sphere+mesh path tracer's warp walk, warp_walk.cuh), and a per-thread
-// walk over 1-3 levels of boxes (ops/chunk_grid.py builds the tables).
-// Same parity rule as the kernels: -fmad=false, IEEE division, the Pallas
-// kernels' op order (pallas_wbvh.py:293-329 and :626-651).
+// The chunk grid's tests and tables, shared by the warp walk
+// (warp_walk.cuh) of the traversal kernel (wbvh.cu) and of the fused
+// sphere+mesh path tracer (mesh_pt.cu), and by the BVH kernel (bvh.cu):
+// the slab test of a box, the precomputed-plane triangle test, the box
+// tables of 1-3 levels (ops/chunk_grid.py builds them) and their copy to
+// shared memory.  Same parity rule as the kernels: -fmad=false, IEEE
+// division, the Pallas kernels' op order (pallas_wbvh.py:293-329 and
+// :626-651).
 //
 // Order.  The Pallas kernels list the hit chunks of a ray tile in
 // increasing chunk index (compact_worklist: supers in order, then each
 // hit super's chunks) and keep the running minimum with a strict
-// t < tmin, so the lowest slot wins a tie.  The walk visits chunks in
-// that same increasing order.  Gating is per ray: a chunk is tested for
-// a ray when that ray's own slab test passes (the Pallas kernels list it
-// for the whole 1024/2048-ray tile when any lane's test passes); the
-// two differ only if a ray hits a triangle inside a box its own slab
-// test rejects by rounding.  The plain twin (ops/wbvh_kernels.py) gates
-// per ray too, so kernel and twin stay bitwise equal.
+// t < tmin, so the lowest slot wins a tie; the plain twin
+// (ops/wbvh_kernels.walk_plain) walks each ray that way, and the warp
+// walk's lexicographic (t, slot) minimum gives the same winners.  Gating
+// is per ray: a chunk is tested for a ray when that ray's own slab test
+// passes (the Pallas kernels list it for the whole 1024/2048-ray tile
+// when any lane's test passes); the two differ only if a ray hits a
+// triangle inside a box its own slab test rejects by rounding.  The
+// twin gates per ray too, so kernel and twin stay bitwise equal.
 
 #pragma once
 
@@ -130,24 +133,6 @@ __device__ __forceinline__ bool tri_hit(const Row& q, T ox, T oy, T oz, T dx,
   return u >= T(0) && v >= T(0) && u + v <= T(1) && t > eps;
 }
 
-// The triangles of chunk c against the ray (rows `stride` floats apart):
-// a hit with t < tmin replaces the running winner.
-template <typename T>
-__device__ __forceinline__ void test_chunk(const float* __restrict__ tris,
-                                           int stride, int c, int tpc,
-                                           const RayInv<T>& r, T eps,
-                                           T& tmin, int& slot) {
-  const int base = c * tpc;
-  for (int j = 0; j < tpc; ++j) {
-    const float* row = tris + static_cast<long long>(base + j) * stride;
-    T t;
-    if (tri_hit(RowRef{row}, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, eps, t) && t < tmin) {
-      tmin = t;
-      slot = base + j;
-    }
-  }
-}
-
 // The box tables of a chunk grid and its level sizes.  n_supers == 0: one
 // level; n_supers2 == 0: at most two (n_chunks == n_supers * supers_per
 // and n_supers == n_supers2 * supers2_per where a level exists).
@@ -158,59 +143,12 @@ struct ChunkGrid {
   int n_chunks, n_supers, n_supers2, supers_per, supers2_per;
 };
 
-// Per-ray walk counts: chunks tested, supers hit, super-supers hit (the
-// Pallas kernels' per-tile worklist length k and phase-A trip counts).
-struct WalkCounts {
-  int k, ks, kss;
-
-  __device__ __forceinline__ void chunk(int) { ++k; }
-  __device__ __forceinline__ void super(int) { ++ks; }
-  __device__ __forceinline__ void super2(int) { ++kss; }
-};
-
-// A walk that records nothing.
+// A walk that records no counts.
 struct NoCounts {
   __device__ __forceinline__ void chunk(int) const {}
   __device__ __forceinline__ void super(int) const {}
   __device__ __forceinline__ void super2(int) const {}
 };
-
-// Calls chunk(c) for every chunk whose box the ray enters, in increasing
-// c; a chunk is reached only through a hit super (and super-super).
-// cnt.chunk / super / super2 hear of each box the ray enters.
-template <typename T, typename ChunkFn, typename Counts>
-__device__ __forceinline__ void walk_chunks(const ChunkGrid& g,
-                                            const RayInv<T>& r,
-                                            ChunkFn&& chunk, Counts&& cnt) {
-  auto chunks = [&](int c0, int c1) {
-    for (int c = c0; c < c1; ++c) {
-      if (box_hit<false>(g.cboxes + 6 * c, r, T(0))) {
-        cnt.chunk(c);
-        chunk(c);
-      }
-    }
-  };
-  auto supers = [&](int s0, int s1) {
-    for (int s = s0; s < s1; ++s) {
-      if (box_hit<false>(g.sboxes + 6 * s, r, T(0))) {
-        cnt.super(s);
-        chunks(s * g.supers_per, (s + 1) * g.supers_per);
-      }
-    }
-  };
-  if (g.n_supers == 0) {
-    chunks(0, g.n_chunks);
-  } else if (g.n_supers2 == 0) {
-    supers(0, g.n_supers);
-  } else {
-    for (int s2 = 0; s2 < g.n_supers2; ++s2) {
-      if (box_hit<false>(g.ssboxes + 6 * s2, r, T(0))) {
-        cnt.super2(s2);
-        supers(s2 * g.supers2_per, (s2 + 1) * g.supers2_per);
-      }
-    }
-  }
-}
 
 // Bytes of the grid's boxes, and whether they go to shared memory.
 inline long long box_bytes(const ChunkGrid& g) {

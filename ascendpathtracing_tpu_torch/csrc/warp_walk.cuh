@@ -1,12 +1,13 @@
-// The fused sphere+mesh path tracer's chunk-grid walk (mesh_pt.cu), done
-// by a warp for its 32 rays together.  Same parity rule as the kernels:
+// The chunk-grid walk of the fused sphere+mesh path tracer (mesh_pt.cu)
+// and of the traversal kernel (wbvh.cu), done by a warp for its 32 rays
+// together.  Same parity rule as the kernels:
 // -fmad=false, IEEE division; the box and triangle tests are
 // chunk_walk.cuh's box_hit and tri_hit, op for op (the boxes' min and
 // max as single instructions, HwNanMinMax).
 //
-// The per-thread walk (chunk_walk.cuh's walk_chunks) lets each lane loop
-// over its own chunk list, so a warp runs the union of its lanes' chunks
-// one after another: at the s4 cell ~7.5 chunks x 16 triangle tests per
+// A walk per thread (each lane looping over its own chunk list, as the
+// twin ops/wbvh_kernels.walk_plain walks each ray) makes a warp run the
+// union of its lanes' chunk lists one after another: at the s4 cell ~7.5 chunks x 16 triangle tests per
 // bounce where each lane needs ~0.24 x 16 (PERF.md: the kstats record of
 // that cell).  Here the warp pools its lanes' work in shared memory:
 //
@@ -30,15 +31,18 @@
 // The root only filters: a box nests in the root, and the slab test is
 // monotone in the box's bounds through rounding, so a ray that enters a
 // box enters the root; where the root's test meets a NaN the ray counts
-// as entering.  The box gate is the ray's sphere tmin, never a running
-// triangle minimum (pallas_mesh_pt.py:310-321), so the set of pairs
-// tested does not depend on the order they run in.  The minimum: an
-// atomicMin on the bit pattern of t (a valid t is finite and > eps > 0,
-// so its bits order as its value, in float and in double), then, among
-// the pairs at that t, an atomicMin on the slot.  That is the smallest t
-// below the sphere's and the lowest slot on a tie, whatever the order of
-// the pairs: the per-thread walk's strict t < tmin in increasing slot
-// order gives the same answer.
+// as entering.  Boxes are gated (kBounded) by the ray's sphere tmin in
+// the path tracer, never by a running triangle minimum
+// (pallas_mesh_pt.py:310-321), and not at all in the traversal kernel
+// (as in the twin's walk_plain), so the set of pairs tested does not
+// depend on the order they run in.  The minimum: an atomicMin on a key
+// of t that orders as its value (t_bits), then, among the pairs at that
+// key, an atomicMin on the slot.  That is the smallest t below the gate
+// and the lowest slot on a tie, whatever the order of the pairs: the
+// per-thread walk's strict t < tmin in increasing slot order gives the
+// same answer.  In the traversal kernel, whose eps may be negative, a
+// winner at t == 0 takes its t again from its row, which gives the sign
+// of its zero back.
 
 #pragma once
 
@@ -75,17 +79,31 @@ constexpr int ROOT_MAX_BOXES = 4096;
 // filled one).
 __device__ unsigned long long queue_overflows[2];
 
+// The key of t that atomicMin orders: in the path tracer (kAnyT false) a
+// valid t is finite and > eps > 0, so its bit pattern orders as its value;
+// in the traversal kernel (kAnyT, any eps) the bits with the sign bit
+// flipped, all bits for a negative t, and -0 taken as +0.
+template <bool kAnyT>
 __device__ __forceinline__ unsigned long long t_bits(float t) {
-  return __float_as_uint(t);
+  if constexpr (!kAnyT) return __float_as_uint(t);
+  const unsigned b = __float_as_uint(t + 0.0f);  // -0 + 0 == +0
+  return (b >> 31) ? ~b : (b | 0x80000000u);
 }
+template <bool kAnyT>
 __device__ __forceinline__ unsigned long long t_bits(double t) {
-  return static_cast<unsigned long long>(__double_as_longlong(t));
+  if constexpr (!kAnyT) return static_cast<unsigned long long>(__double_as_longlong(t));
+  const auto b = static_cast<unsigned long long>(__double_as_longlong(t + 0.0));
+  return (b >> 63) ? ~b : (b | 0x8000000000000000ull);
 }
-__device__ __forceinline__ void from_bits(unsigned long long b, float& t) {
-  t = __uint_as_float(static_cast<unsigned>(b));
+template <bool kAnyT>
+__device__ __forceinline__ void from_bits(unsigned long long k, float& t) {
+  const auto b = static_cast<unsigned>(k);
+  t = __uint_as_float(!kAnyT ? b : ((b >> 31) ? (b & 0x7fffffffu) : ~b));
 }
-__device__ __forceinline__ void from_bits(unsigned long long b, double& t) {
-  t = __longlong_as_double(static_cast<long long>(b));
+template <bool kAnyT>
+__device__ __forceinline__ void from_bits(unsigned long long k, double& t) {
+  t = __longlong_as_double(static_cast<long long>(
+      !kAnyT ? k : ((k >> 63) ? (k & 0x7fffffffffffffffull) : ~k)));
 }
 
 __device__ __forceinline__ int lane_id() { return threadIdx.x & (WARP - 1); }
@@ -131,8 +149,46 @@ __device__ __forceinline__ RowVals load_row16(const float* __restrict__ row) {
   return RowVals{{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, c.y, c.z, c.w, __ldg(row + 12)}};
 }
 
+// The rows of a triangle table, by slot: 24-float rows from a 16-byte
+// aligned table (load_row16), or rows of any stride read at each use
+// through the read-only cache (RowRef; the 13-float rows, or a table
+// that is not aligned).
+struct Rows24 {
+  const float* __restrict__ p;
+  __device__ __forceinline__ RowVals operator()(int slot) const {
+    return load_row16(p + static_cast<long long>(slot) * TRI_ATTR_F);
+  }
+};
+
+struct RowsStrided {
+  const float* __restrict__ p;
+  int stride;
+  __device__ __forceinline__ RowRef operator()(int slot) const {
+    return RowRef{p + static_cast<long long>(slot) * stride};
+  }
+};
+
+// Per-ray walk counts for the traversal kernel's stats: chunks tested,
+// supers hit, super-supers hit (the twin's counts), in the
+// warp's [3][WARP] shared counters; a lane counts for the ray of lane
+// `lane` with an integer shared-memory atomicAdd (a sum of ones has no
+// order).
+struct RayCounts {
+  int* c;
+  int lane;
+
+  __device__ __forceinline__ void chunk(int) const { atomicAdd(c + lane, 1); }
+  __device__ __forceinline__ void super(int) const { atomicAdd(c + WARP + lane, 1); }
+  __device__ __forceinline__ void super2(int) const { atomicAdd(c + 2 * WARP + lane, 1); }
+};
+
 // The stats marks of another lane's ray (for a box that lane's ray enters).
 __device__ __forceinline__ NoCounts shfl_marks(NoCounts, int) { return NoCounts(); }
+
+__device__ __forceinline__ RayCounts shfl_marks(RayCounts m, int src) {
+  m.lane = src;
+  return m;
+}
 
 template <typename Marks>
 __device__ __forceinline__ Marks shfl_marks(Marks m, int src) {
@@ -144,9 +200,9 @@ __device__ __forceinline__ Marks shfl_marks(Marks m, int src) {
 // One step's (ray, triangle) candidates into their rays' minima: t first,
 // then the slot among the pairs at the minimum t.  A step that lowers a
 // ray's t voids the slot kept for the larger t.
-template <typename T>
+template <bool kAnyT, typename T>
 __device__ __forceinline__ void min_pairs(WarpList& L, bool ok, int src, T t, int slot) {
-  const unsigned long long tb = ok ? t_bits(t) : NO_T;
+  const unsigned long long tb = ok ? t_bits<kAnyT>(t) : NO_T;
   const unsigned long long before = ok ? L.best_t[src] : NO_T;
   __syncwarp();
   if (ok) atomicMin(&L.best_t[src], tb);
@@ -193,24 +249,23 @@ __device__ __forceinline__ void init_root(const ChunkGrid& g, WarpList& L) {
   __syncwarp();
 }
 
-// box_hit<true>'s test of the root, true also where it meets a NaN.
-template <typename T>
+// box_hit<kBounded>'s test of the root, true also where it meets a NaN.
+template <bool kBounded, typename T>
 __device__ __forceinline__ bool enters_root(const float* b, const RayInv<T>& r, T gate) {
   T tnear, tfar;
   slab<HwNanMinMax>(b, r, tnear, tfar);
-  return !(tfar < HwNanMinMax::hi(tnear, T(0))) && !(tnear >= gate);
+  return !(tfar < HwNanMinMax::hi(tnear, T(0))) && !(kBounded && tnear >= gate);
 }
 
 // The walk over a grid of D box levels (1: chunks; 2: supers, chunks; 3:
 // super-supers, supers, chunks).  Level 0 lists the lanes in the root,
 // level i (1..D) the (lane, box) entries of box level i - 1 (from the
 // top); n[i] entries, c[i] of their n[i] * per(i) pairs done.
-template <int D, typename T, typename Marks>
+template <int D, bool kBounded, typename T, typename Rows, typename Marks>
 __device__ __forceinline__ void walk_levels(const ChunkGrid& g, WarpList& L,
-                                            const float* __restrict__ tris,
-                                            int tpc, const RayInv<T>& r,
-                                            T gate, T eps, bool live,
-                                            const Marks& marks) {
+                                            const Rows& rows, int tpc,
+                                            const RayInv<T>& r, T gate, T eps,
+                                            bool live, const Marks& marks) {
   const int lane = lane_id();
   // box level k (0 the top): its boxes, and its boxes under one entry of
   // level k (the root's: all of the top level's)
@@ -229,7 +284,7 @@ __device__ __forceinline__ void walk_levels(const ChunkGrid& g, WarpList& L,
   int n[D + 1], c[D + 1];
 #pragma unroll
   for (int i = 0; i <= D; ++i) n[i] = c[i] = 0;
-  push(L.roots, n[0], live && enters_root(L.root, r, gate), lane);
+  push(L.roots, n[0], live && enters_root<kBounded>(L.root, r, gate), lane);
   for (;;) {
 #pragma unroll
     for (int i = 1; i <= D; ++i) {  // a queue worked off starts again
@@ -263,7 +318,7 @@ __device__ __forceinline__ void walk_levels(const ChunkGrid& g, WarpList& L,
         b.iz = __shfl_sync(FULL_MASK, r.iz, src);
         const T gt = __shfl_sync(FULL_MASK, gate, src);
         const Marks m = shfl_marks(marks, src);
-        const bool hit = on && box_hit<true, HwNanMinMax>(boxes[k] + 6 * box, b, gt);
+        const bool hit = on && box_hit<kBounded, HwNanMinMax>(boxes[k] + 6 * box, b, gt);
         if (hit) {
           if (k == D - 1) {
             m.chunk(box);
@@ -301,21 +356,47 @@ __device__ __forceinline__ void walk_levels(const ChunkGrid& g, WarpList& L,
       const T dz = __shfl_sync(FULL_MASK, r.dz, src);
       const T gt = __shfl_sync(FULL_MASK, gate, src);
       T t = T(0);
-      const bool ok =
-          on && tri_hit(load_row16(tris + static_cast<long long>(slot) * TRI_ATTR_F), ox,
-                        oy, oz, dx, dy, dz, eps, t) &&
-          t < gt;
-      if (__any_sync(FULL_MASK, ok)) min_pairs(L, ok, src, t, slot);
+      const bool ok = on && tri_hit(rows(slot), ox, oy, oz, dx, dy, dz, eps, t) && t < gt;
+      if (__any_sync(FULL_MASK, ok)) min_pairs<!kBounded>(L, ok, src, t, slot);
     } while (c[D] < n[D] * tpc);
   }
 }
 
 // The warp's walk: every lane calls it together, `live` false on a lane
-// with no ray.  r is the lane's ray, `gate` its sphere tmin (the entry
-// bound of every box, and the t a triangle must beat), tris the [C*T,
-// 24] rows (16-byte aligned).  Returns the lane's winning slot, -1 where no triangle
-// beats the gate; tmin takes the winner's t.  marks hears of each box
-// the ray enters (super-supers, supers, chunks).  L.root is init_root's.
+// with no ray.  r is the lane's ray; `gate` the t a triangle must beat
+// and, with kBounded, the entry bound of every box; rows(slot) a row of
+// the [C*T, *] table.  Returns the lane's winning slot, -1 where no
+// triangle beats the gate; tmin takes the winner's t.  marks hears of
+// each box the ray enters (super-supers, supers, chunks).  L.root is
+// init_root's.
+template <bool kBounded, typename T, typename Rows, typename Marks>
+__device__ __forceinline__ int walk_grid_warp(const ChunkGrid& g, WarpList& L,
+                                              const Rows& rows, int tpc,
+                                              const RayInv<T>& r, T gate, T eps,
+                                              bool live, const Marks& marks, T& tmin) {
+  const int lane = lane_id();
+  L.best_t[lane] = NO_T;
+  L.best_slot[lane] = INT_MAX;
+  if (g.n_supers2) {
+    walk_levels<3, kBounded>(g, L, rows, tpc, r, gate, eps, live, marks);
+  } else if (g.n_supers) {
+    walk_levels<2, kBounded>(g, L, rows, tpc, r, gate, eps, live, marks);
+  } else {
+    walk_levels<1, kBounded>(g, L, rows, tpc, r, gate, eps, live, marks);
+  }
+  __syncwarp();
+  const unsigned long long b = L.best_t[lane];
+  if (b == NO_T) return -1;
+  const int slot = L.best_slot[lane];
+  from_bits<!kBounded>(b, tmin);
+  if constexpr (!kBounded) {  // the sign of a winning zero, from its row
+    if (tmin == T(0)) tri_hit(rows(slot), r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, eps, tmin);
+  }
+  return slot;
+}
+
+// The path tracer's walk: boxes gated by the ray's sphere tmin `gate`,
+// tris the [C*T, 24] rows (16-byte aligned).
 template <typename T, typename Marks>
 __device__ __forceinline__ int walk_chunks_warp(const ChunkGrid& g, WarpList& L,
                                                 const float* __restrict__ tris,
@@ -323,21 +404,7 @@ __device__ __forceinline__ int walk_chunks_warp(const ChunkGrid& g, WarpList& L,
                                                 const RayInv<T>& r, T gate,
                                                 T eps, bool live, const Marks& marks,
                                                 T& tmin) {
-  const int lane = lane_id();
-  L.best_t[lane] = NO_T;
-  L.best_slot[lane] = INT_MAX;
-  if (g.n_supers2) {
-    walk_levels<3>(g, L, tris, tpc, r, gate, eps, live, marks);
-  } else if (g.n_supers) {
-    walk_levels<2>(g, L, tris, tpc, r, gate, eps, live, marks);
-  } else {
-    walk_levels<1>(g, L, tris, tpc, r, gate, eps, live, marks);
-  }
-  __syncwarp();
-  const unsigned long long b = L.best_t[lane];
-  if (b == NO_T) return -1;
-  from_bits(b, tmin);
-  return L.best_slot[lane];
+  return walk_grid_warp<true>(g, L, Rows24{tris}, tpc, r, gate, eps, live, marks, tmin);
 }
 
 }  // namespace

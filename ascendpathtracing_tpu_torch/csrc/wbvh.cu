@@ -13,23 +13,37 @@
 // plain twin (ops/wbvh_kernels.intersect_chunks_plain) gives the same
 // tmin, slot, attributes and counts bit for bit.
 //
-// Design: one thread per ray walks the grid (chunk_walk.cuh) and keeps
-// the running (tmin, slot).  The box tables go to shared memory when they
-// fit (s4: 340 boxes x 24 B); triangle rows (s4: 491 KB) stay in global
-// memory and are read through the read-only cache.  The TPU kernel's
-// residency modes, ray tiles and 128-box flag blocks have no counterpart:
-// any N, any group size.  The 11 winner attributes are read from the
-// winning row once after the walk (the Pallas kernel carries them through
-// its loop; the values are the same copies).  Outputs: tmin [N] (1e20 on
-// a miss), slot [N] int32 (0 on a miss), optionally attrs [11, N] and
-// per-ray counts [3, N] int32 (chunks tested, supers hit, super-supers
-// hit) in place of the TPU's per-tile [3, n_tiles].
+// Design: a warp walks the grid for its 32 rays together
+// (warp_walk.cuh's walk_grid_warp): a root box per warp filters the rays,
+// (lane, box) queues in shared memory pool the warp's boxes level by
+// level, the warp tests 32 (ray, triangle) pairs a step, and each ray
+// keeps the lexicographic (t, slot) minimum.  The boxes are not gated
+// (the twin's slab test), so the pairs tested do not depend on their
+// order and the winners are the twin's per-ray walk's, bit for bit.  A
+// walk per thread runs, in each warp, the union of its 32 lanes' chunk
+// lists one after another; on incoherent rays (the bounce-loop renderer's bounces
+// 1-7, which are not sorted) that is most of a warp's time.  The box
+// tables go to shared memory when they fit (s4: 340 boxes x 24 B; up to
+// 40 KB, with the warps' queues past the 48 KB a launch gets without
+// asking, so the launch asks); triangle rows (s4: 491 KB) stay in global
+// memory: 24-float rows in three 16-byte loads and one float, other
+// strides (13-float rows) a float at a time, through the read-only cache.
+// The TPU kernel's residency modes, ray tiles and 128-box flag blocks have
+// no counterpart: any N, any group size.  The 11 winner attributes are
+// read from the winning row once after the walk (the Pallas kernel
+// carries them through its loop; the values are the same copies).
+// Outputs: tmin [N] (1e20 on a miss), slot [N] int32 (0 on a miss),
+// optionally attrs [11, N] and per-ray counts [3, N] int32 (chunks
+// tested, supers hit, super-supers hit; the walk's RayCounts, kept per
+// warp in shared memory) in place of the TPU's per-tile [3, n_tiles].
+// The times a warp filled a queue and worked it off before going on are
+// counted (apt_wbvh_queue_overflows); no entry is dropped.
 //
-// Bound on the H100: FP32/FP64 instruction throughput and divergence.
-// Per ray ~20 flops per box tested and ~30 per triangle; the walk length
-// varies per ray, so a warp runs as long as its longest walk.  HBM
-// traffic is the rays (24 B) and outputs (8-60 B) per ray; the rows are
-// re-read from L1/L2.
+// Bound on the H100: FP32/FP64 instruction throughput.  Per ray ~20
+// flops per box tested and ~30 per triangle: the root box, the top level
+// for the rays that enter the root, each hit box's children, each entered
+// chunk's triangles.  HBM traffic is the rays (24 B) and outputs (8-60 B)
+// per ray; the rows are re-read from L1/L2.
 
 #include <cuda_runtime.h>
 
@@ -37,6 +51,7 @@
 
 #include "chunk_walk.cuh"
 #include "sphere_hit.cuh"  // BLOCK, miss_t
+#include "warp_walk.cuh"
 
 namespace {
 
@@ -49,25 +64,41 @@ struct WbvhParams {
   bool shared_boxes;
 };
 
-template <typename T>
+template <typename T, typename Rows, bool kStats>
 __global__ void __launch_bounds__(BLOCK)
-    wbvh_kernel(const T* __restrict__ rays, const float* __restrict__ tris,
+    wbvh_kernel(const T* __restrict__ rays, const Rows rows, const float* __restrict__ tris,
                 T* __restrict__ tmin_out, int32_t* __restrict__ hit_out,
                 T* __restrict__ attrs_out, int32_t* __restrict__ stats_out,
                 const WbvhParams<T> p) {
   extern __shared__ float smem[];
-  const ChunkGrid g = boxes_to_shared(p.g, smem, p.shared_boxes);
+  __shared__ WarpList lists[BLOCK / WARP];
+  __shared__ int counts[kStats ? BLOCK / WARP : 1][3 * WARP];
+  const ChunkGrid g = boxes_to_shared(p.g, smem, p.shared_boxes);  // syncs
+  const int w = threadIdx.x / WARP, lane = lane_id();
+  WarpList& L = lists[w];
+  init_root(g, L);
   const long long i = static_cast<long long>(blockIdx.x) * BLOCK + threadIdx.x;
-  if (i >= p.n) return;
   const long long n = p.n;
-  const RayInv<T> r = make_ray(rays[i], rays[n + i], rays[2 * n + i],
-                               rays[3 * n + i], rays[4 * n + i], rays[5 * n + i]);
+  const bool live = i < n;
+  // the whole warp walks; a lane past N carries a ray that never enters
+  const RayInv<T> r = live ? make_ray(rays[i], rays[n + i], rays[2 * n + i], rays[3 * n + i],
+                                      rays[4 * n + i], rays[5 * n + i])
+                           : make_ray(T(0), T(0), T(0), T(1), T(1), T(1));
+  int* cnt = counts[kStats ? w : 0];
+  if (kStats) {
+    cnt[lane] = cnt[WARP + lane] = cnt[2 * WARP + lane] = 0;
+    __syncwarp();
+  }
   T tmin = miss_t<T>();
-  int slot = -1;
-  WalkCounts cnt = {0, 0, 0};
-  walk_chunks(
-      g, r, [&](int c) { test_chunk(tris, p.stride, c, p.tpc, r, p.eps, tmin, slot); },
-      cnt);
+  int slot;
+  if constexpr (kStats) {
+    slot = walk_grid_warp<false>(g, L, rows, p.tpc, r, miss_t<T>(), p.eps, live,
+                                 RayCounts{cnt, lane}, tmin);
+  } else {
+    slot = walk_grid_warp<false>(g, L, rows, p.tpc, r, miss_t<T>(), p.eps, live,
+                                 NoCounts(), tmin);
+  }
+  if (!live) return;
   tmin_out[i] = tmin;
   hit_out[i] = slot < 0 ? 0 : slot;
   if (attrs_out != nullptr) {
@@ -76,11 +107,37 @@ __global__ void __launch_bounds__(BLOCK)
       attrs_out[a * n + i] = slot < 0 ? T(0) : T(__ldg(row + TRI_F + a));
     }
   }
-  if (stats_out != nullptr) {
-    stats_out[i] = cnt.k;
-    stats_out[n + i] = cnt.ks;
-    stats_out[2 * n + i] = cnt.kss;
+  if (kStats) {  // the walk ends with __syncwarp: every count is in
+    stats_out[i] = cnt[lane];
+    stats_out[n + i] = cnt[WARP + lane];
+    stats_out[2 * n + i] = cnt[2 * WARP + lane];
   }
+}
+
+// Launches one instantiation with `smem` bytes of dynamic shared memory
+// (the boxes'), asking for them past the default 48 KB.
+template <typename T, typename Rows, bool kStats>
+cudaError_t launch_one(const Rows& rows, const WbvhParams<T>& p, size_t smem,
+                       cudaStream_t st, const T* rays, const float* tris, T* tmin,
+                       int32_t* hit, T* attrs, int32_t* stats) {
+  const cudaError_t e = cudaFuncSetAttribute(wbvh_kernel<T, Rows, kStats>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  const auto grid = static_cast<unsigned>((p.n + BLOCK - 1) / BLOCK);
+  wbvh_kernel<T, Rows, kStats><<<grid, BLOCK, smem, st>>>(rays, rows, tris, tmin, hit, attrs,
+                                                         stats, p);
+  return cudaSuccess;
+}
+
+template <typename T, typename Rows>
+cudaError_t launch_rows(const Rows& rows, const WbvhParams<T>& p, size_t smem,
+                        cudaStream_t st, const T* rays, const float* tris, T* tmin,
+                        int32_t* hit, T* attrs, int32_t* stats) {
+  return stats != nullptr
+             ? launch_one<T, Rows, true>(rows, p, smem, st, rays, tris, tmin, hit, attrs, stats)
+             : launch_one<T, Rows, false>(rows, p, smem, st, rays, tris, tmin, hit, attrs,
+                                          stats);
 }
 
 template <typename T>
@@ -102,8 +159,8 @@ int launch_wbvh(const void* rays, const void* cboxes, const void* sboxes,
   const int err = check_grid(p.g, tris_per_chunk);
   if (err != 0) return err;
   if (n < 1 || tris == nullptr || (stride != TRI_F && stride != TRI_ATTR_F) ||
-      (attrs != nullptr && stride != TRI_ATTR_F)) {
-    return cudaErrorInvalidValue;
+      (attrs != nullptr && stride != TRI_ATTR_F) || n_chunks >= (1 << 26)) {
+    return cudaErrorInvalidValue;  // a queue entry holds its box in 26 bits
   }
   p.n = n;
   p.eps = static_cast<T>(eps);
@@ -111,11 +168,18 @@ int launch_wbvh(const void* rays, const void* cboxes, const void* sboxes,
   p.stride = stride;
   p.shared_boxes = boxes_fit_shared(p.g);
   const size_t smem = p.shared_boxes ? static_cast<size_t>(box_bytes(p.g)) : 0;
-  const auto grid = static_cast<unsigned>((n + BLOCK - 1) / BLOCK);
-  wbvh_kernel<T><<<grid, BLOCK, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(rays), static_cast<const float*>(tris),
-      static_cast<T*>(tmin), static_cast<int32_t*>(hit), static_cast<T*>(attrs),
-      static_cast<int32_t*>(stats), p);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto tr = static_cast<const float*>(tris);
+  const auto ry = static_cast<const T*>(rays);
+  auto* tm = static_cast<T*>(tmin);
+  auto* ht = static_cast<int32_t*>(hit);
+  auto* at = static_cast<T*>(attrs);
+  auto* sc = static_cast<int32_t*>(stats);
+  const bool row16 = stride == TRI_ATTR_F && (reinterpret_cast<uintptr_t>(tris) & 15u) == 0u;
+  const cudaError_t e =
+      row16 ? launch_rows<T>(Rows24{tr}, p, smem, st, ry, tr, tm, ht, at, sc)
+            : launch_rows<T>(RowsStrided{tr, stride}, p, smem, st, ry, tr, tm, ht, at, sc);
+  if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
@@ -127,6 +191,18 @@ int launch_wbvh(const void* rays, const void* cboxes, const void* sboxes,
 extern "C" {
 
 int apt_wbvh_attr_count() { return N_ATTR; }
+
+// The worklist's capacity (entries per queue per warp).
+int apt_wbvh_queue_cap() { return QUEUE_CAP; }
+
+// The queue overflows since the last reset into out[2] (box queues above
+// the chunks, chunk queue; after the device is idle), then zeroes them.
+int apt_wbvh_queue_overflows(unsigned long long* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, queue_overflows, sizeof(queue_overflows));
+  if (e != cudaSuccess) return e;
+  const unsigned long long zero[2] = {0, 0};
+  return cudaMemcpyToSymbol(queue_overflows, zero, sizeof(zero));
+}
 const char* apt_wbvh_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

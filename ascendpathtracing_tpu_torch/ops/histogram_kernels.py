@@ -32,11 +32,21 @@ The accumulator lives in device memory, so the port has no counterpart of
 the TPU's 8 MB VMEM ceiling: no ``_PAGED_MAX_SLOTS`` and no scatter
 fallback beyond it.  The kernel's occupancy flags (one bit per slot
 block) are in shared memory, which bounds ``n_slots`` to 131,072 slot
-blocks (16.7M slots at ``slot_block`` 128).  The kernel's sums repeat
-bit for bit on the same inputs and card (no atomics: a sort of each
-2048-row tile by slot, fixed-order scans, per-CTA float64 accumulators in
-scratch the wrapper allocates, summed in CTA order); they equal the twins'
-``index_add_`` to rounding.
+blocks (16.7M slots at ``slot_block`` 128).
+
+How the kernel's sums repeat bit for bit on the same inputs and card: no
+floating-point atomic takes part, and the order of every addition is
+fixed by the rows' positions and by the number G of per-CTA float64
+accumulators (``apt_segsum_groups``, from the shapes and the card's SM
+count).  Each CTA reads its contiguous range of rows in order, folds
+runs of equal ids in registers and joins them across lanes with a fixed
+shuffle tree; a run of a hot id (below 16) goes to its lane pair's own
+sum of that id, a run of a cold id to a list that the warp owning the id
+applies in row order; the lane pairs' sums are added up in a fixed
+order at the end, and the CTAs' accumulators, scratch the wrapper
+allocates, are summed in CTA order.  :func:`segment_rows_ordered`
+repeats that order in plain torch: for the same G it equals the kernel
+bit for bit, and the twins' ``index_add_`` to rounding.
 """
 
 from __future__ import annotations
@@ -50,6 +60,10 @@ from ascendpathtracing_tpu_torch.ops.render_kernels import on_cpu
 
 MAX_ROWS = 8  # R <= 8, the TPU kernel's sublane block
 MAX_SLOT_BLOCKS = 4096 * 32  # csrc/segsum.cu MAX_FLAG_WORDS * 32
+# csrc/segsum.cu's layout (apt_segsum_layout): rows per thread, warps per
+# CTA, value rows per CTA at most, ids summed per lane pair (the hot ones)
+ITEMS, WARPS, RC_MAX, HOT = 8, 16, 2, 16
+TILE = 32 * WARPS * ITEMS
 
 #: Kernel launches, counted where the launch succeeded.
 LAUNCHES = {"segsum": 0}
@@ -71,14 +85,26 @@ def load_library() -> ctypes.CDLL:
         return lib
     lib.apt_segsum_error_string.argtypes = (_I,)
     lib.apt_segsum_error_string.restype = ctypes.c_char_p
-    lib.apt_segsum_groups.argtypes = (ctypes.c_longlong, _I, _I)
+    lib.apt_segsum_groups.argtypes = (ctypes.c_longlong, _I, _I, _I)
     lib.apt_segsum_groups.restype = _I
+    lib.apt_segsum_layout.argtypes = (ctypes.POINTER(_I),)
+    lib.apt_segsum_layout.restype = None
     for suffix in _DTYPES.values():
         fn = getattr(lib, f"apt_segsum_{suffix}")
         fn.argtypes = _SIGNATURE
         fn.restype = _I
+    layout = (_I * 4)()
+    lib.apt_segsum_layout(layout)
+    if tuple(layout) != (ITEMS, WARPS, RC_MAX, HOT):
+        raise RuntimeError(f"segsum layout {tuple(layout)} != {(ITEMS, WARPS, RC_MAX, HOT)}")
     lib._apt_declared = True
     return lib
+
+
+def groups(n: int, r: int, n_slots: int, sample_block: int = 2048) -> int:
+    """The kernel's number of per-CTA accumulators G for these shapes on
+    the current CUDA device (what :func:`segment_rows_ordered` takes)."""
+    return load_library().apt_segsum_groups(n, r, n_slots, sample_block)
 
 
 def _blocks(n: int, block: int) -> int:
@@ -145,6 +171,112 @@ def occupancy_plain(seg, *, n_slots, slot_block=128, sample_block=2048):
     return torch.bincount(keys // n_jb, minlength=n_sb).to(torch.int32)
 
 
+def segment_rows_ordered(seg, vals, *, n_slots, groups, sample_block=2048, out=None):
+    """Plain model of the kernel's order of additions (``csrc/segsum.cu``)
+    with ``groups`` per-CTA accumulators: adds the sums into ``out``
+    (float64 zeros [n_slots, R] when None) -> ``out``.  For the G of
+    :func:`groups` it equals the kernel bit for bit; it is slow (a Python
+    loop over tiles and list entries) and meant for tests.
+
+    CTA g takes the sample blocks [U g / G, U (g + 1) / G) of the U =
+    ceil(N / sample_block), in tiles of TILE rows; warp w of a tile holds
+    its rows [32 ITEMS w, 32 ITEMS (w + 1)), lane l ITEMS consecutive rows
+    of those.  Per value row: runs of equal kept ids (a run also starts at
+    each warp's first row and ends at its last) are folded per lane in row
+    order and joined across lanes by a Hillis-Steele segmented scan (5
+    steps of shfl_up); each run's total, at its last row, is hot (id <
+    HOT) or cold.  Hot: lanes 2i and 2i + 1 share a sum per id, from 0;
+    per tile and value row the even lane adds its hot totals in row order,
+    then the odd lane its own; at the CTA's end lane l of a warp sums the
+    pairs l, l + 32, ... of the CTA in order from 0, and the lanes are
+    joined in a butterfly (xor 16, 8, 4, 2, 1).  Cold: the warps' lists of
+    cold totals one after another, each added to the accumulator in that
+    order.  Then ``out += ((0 + part[0]) + part[1]) + ...``."""
+    n, r = seg.shape[0], vals.shape[0]
+    if out is None:
+        out = torch.zeros((n_slots, r), dtype=torch.float64, device=vals.device)
+    if n == 0:
+        return out
+    rows = 32 * ITEMS
+    hot = min(n_slots, HOT)
+    n_units = _blocks(n, sample_block)
+    keys_all = torch.where((seg >= 0) & (seg < n_slots), seg.long(), -1).cpu()
+    x_all = vals.detach().double().cpu()
+    lane = torch.arange(32)
+    total = torch.zeros((n_slots, r), dtype=torch.float64)
+
+    def add(a, b):
+        return [x + y for x, y in zip(a, b)]
+
+    for g in range(groups):
+        rbeg = n_units * g // groups * sample_block
+        rend = min(n_units * (g + 1) // groups * sample_block, n)
+        acc = {}  # id -> its running sums, as Python floats (IEEE doubles)
+        hot_t = torch.zeros((WARPS, 16, HOT, r), dtype=torch.float64)  # per lane pair
+        for t0 in range(rbeg, rend, TILE):
+            m = min(t0 + TILE, rend) - t0
+            key = torch.full((TILE,), -1, dtype=torch.long)
+            key[:m] = keys_all[t0:t0 + m]
+            x = torch.zeros((r, TILE), dtype=torch.float64)
+            x[:, :m] = x_all[:, t0:t0 + m]
+            kw = key.view(WARPS, rows)
+            head = torch.ones_like(kw, dtype=torch.bool)
+            head[:, 1:] = kw[:, 1:] != kw[:, :-1]
+            tail = torch.ones_like(head)
+            tail[:, :-1] = kw[:, :-1] != kw[:, 1:]
+            emit = tail & (kw >= 0)
+            hd = head.view(WARPS, 32, ITEMS)
+            xv = x.view(r, WARPS, 32, ITEMS)
+            v = torch.empty_like(xv)
+            run = xv[..., 0].clone()
+            v[..., 0] = run
+            for j in range(1, ITEMS):
+                run = torch.where(hd[..., j], xv[..., j], run + xv[..., j])
+                v[..., j] = run
+            s, h = run, hd.any(dim=-1)
+            for off in (1, 2, 4, 8, 16):
+                su = torch.zeros_like(s)
+                su[..., off:] = s[..., :-off]
+                hu = torch.zeros_like(h)
+                hu[:, off:] = h[:, :-off]
+                on = lane >= off
+                s = torch.where(on & ~h, su + s, s)
+                h = h | (on & hu)
+            carry = torch.zeros_like(s)
+            carry[..., 1:] = s[..., :-1]
+            cont = hd.cumsum(dim=-1) == 0  # no head at or before the row in its lane
+            tot = torch.where(cont, carry[..., None] + v, v)  # [r, WARPS, 32, ITEMS]
+            kt = kw.view(WARPS, 32, ITEMS)
+            et = emit.view(WARPS, 32, ITEMS)
+            for odd in (0, 1):  # each lane's hot entries, in order, even lanes first
+                for j in range(ITEMS):
+                    sel = (et[..., j] & (kt[..., j] < hot) & (lane % 2 == odd)).nonzero(
+                        as_tuple=True)
+                    ids = kt[..., j][sel]
+                    pr = sel[1] // 2
+                    hot_t[sel[0], pr, ids] = hot_t[sel[0], pr, ids] + tot[:, sel[0], sel[1], j].T
+            tot = tot.reshape(r, WARPS, rows)
+            cold = []
+            for u in range(WARPS):
+                idx = (emit[u] & (kw[u] >= hot)).nonzero()[:, 0]
+                cold += list(zip(kw[u, idx].tolist(), tot[:, u, idx].T.tolist()))
+            for k, vv in cold:
+                acc[k] = add(acc.get(k, [0.0] * r), vv)
+        pairs = hot_t.reshape(WARPS * 16, HOT, r)  # pair t: lanes 2t, 2t + 1
+        sums = torch.zeros((32, HOT, r), dtype=torch.float64)
+        for k in range(WARPS * 16 // 32):
+            sums = sums + pairs[32 * k:32 * (k + 1)]
+        for off in (16, 8, 4, 2, 1):
+            sums = sums + sums[lane ^ off]
+        for k in range(hot):
+            acc[k] = add(acc.get(k, [0.0] * r), sums[0, k].tolist())
+        part = torch.zeros((n_slots, r), dtype=torch.float64)
+        if acc:
+            part[list(acc)] = torch.tensor(list(acc.values()), dtype=torch.float64)
+        total = total + part
+    return out.add_(total.to(out.device))
+
+
 # ---------------------------------------------------------- wrappers ----
 def _launch(seg, vals, acc, kocc, *, n_slots, slot_block, sample_block):
     """Launches the kernels, adding into the float64 ``acc``; the per-CTA
@@ -152,13 +284,13 @@ def _launch(seg, vals, acc, kocc, *, n_slots, slot_block, sample_block):
     lib = load_library()
     n, r = seg.shape[0], vals.shape[0]
     with torch.cuda.device(acc.device):
-        groups = lib.apt_segsum_groups(n, r, n_slots)
-        part = torch.empty((groups * n_slots * r,), dtype=torch.float64, device=acc.device)
+        g = lib.apt_segsum_groups(n, r, n_slots, sample_block)
+        part = torch.empty((g * n_slots * r,), dtype=torch.float64, device=acc.device)
         stream = torch.cuda.current_stream(acc.device).cuda_stream
         err = getattr(lib, f"apt_segsum_{_DTYPES[vals.dtype]}")(
             seg.data_ptr(), vals.data_ptr(), n, r, n_slots, slot_block, sample_block,
             acc.data_ptr(), None if kocc is None else kocc.data_ptr(),
-            part.data_ptr() if groups else None, groups, stream,
+            part.data_ptr() if g else None, g, stream,
         )
     if err != 0:
         raise RuntimeError(

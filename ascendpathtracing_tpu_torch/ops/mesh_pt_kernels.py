@@ -320,13 +320,15 @@ def render_pt_mesh_plain(scene_planes, cboxes, sboxes, tris24, ssboxes=None, *,
 ROOT_MAX_BOXES = 4096
 
 
-def root_entries(grid: PlainGrid, o3, d3, gate):
+def root_entries(grid: PlainGrid, o3, d3, gate=None):
     """[M] bool: the rays whose test of the warp walk's root box passes
     (``warp_walk.cuh``'s init_root and enters_root): the box is the union
     of the top level's boxes (NaN bounds ignored), a NaN in the test
     counts as entering, and every ray enters where the top level has more
     than ROOT_MAX_BOXES boxes.  Only those rays test the top level's
-    boxes; every ray entering one of them enters the root."""
+    boxes; every ray entering one of them enters the root.  ``gate`` [M]
+    bounds the entry (the path tracer's sphere tmin); None, the traversal
+    kernel's unbounded test."""
     top = grid.ssboxes or grid.sboxes or grid.cboxes
     if len(top) > ROOT_MAX_BOXES:
         return torch.ones(o3[0].shape, dtype=torch.bool, device=o3[0].device)
@@ -342,12 +344,14 @@ def root_entries(grid: PlainGrid, o3, d3, gate):
     tnear = torch.maximum(torch.maximum(lo[0], lo[1]), lo[2])
     tfar = torch.minimum(torch.minimum(hi[0], hi[1]), hi[2])
     zero = torch.zeros((), dtype=tnear.dtype, device=tnear.device)
-    return ~(tfar < torch.maximum(tnear, zero)) & ~(tnear >= gate)
+    enters = ~(tfar < torch.maximum(tnear, zero))
+    return enters if gate is None else enters & ~(tnear >= gate)
 
 
 def _slab_all(boxes, ray, gate):
     """_slab_tmin of every box against every ray -> [M, B] bool, the
-    op order of ``wbvh_kernels._slab`` (NaN-propagating min/max)."""
+    op order of ``wbvh_kernels._slab`` (NaN-propagating min/max); with
+    ``gate`` None, _slab (no entry bound)."""
     b = torch.tensor(boxes, dtype=ray[0].dtype, device=ray[0].device).reshape(-1, 6).T
     o, inv = ray[:3], ray[3:]
     t1 = [(b[i][None] - o[i][:, None]) * inv[i][:, None] for i in range(3)]
@@ -356,11 +360,12 @@ def _slab_all(boxes, ray, gate):
     hi = [torch.maximum(a, c) for a, c in zip(t1, t2)]
     tnear = torch.maximum(torch.maximum(lo[0], lo[1]), lo[2])
     tfar = torch.minimum(torch.minimum(hi[0], hi[1]), hi[2])
-    return (tfar >= torch.maximum(tnear, torch.zeros((), dtype=tnear.dtype))) & (
-        tnear < gate[:, None])
+    hit = tfar >= torch.maximum(tnear, torch.zeros((), dtype=tnear.dtype))
+    return hit if gate is None else hit & (tnear < gate[:, None])
 
 
-def walk_pairs_plain(grid: PlainGrid, o3, d3, tmin, *, eps, gate, generator=None, step=32):
+def walk_pairs_plain(grid: PlainGrid, o3, d3, tmin, *, eps, gate, generator=None, step=32,
+                     counts=None):
     """The answer of the kernel's warp walk (``csrc/warp_walk.cuh``) as
     torch ops, for tests: every (ray, triangle) pair of every chunk whose
     box the ray enters (through its super-super's and super's boxes; every
@@ -370,20 +375,29 @@ def walk_pairs_plain(grid: PlainGrid, o3, d3, tmin, *, eps, gate, generator=None
     of (t, slot) as the kernel folds it: t first, then the lowest slot at
     that t, and a step that lowers a ray's t voids the slot kept for the
     larger one.  A triangle must beat ``tmin`` [M] strictly, which takes
-    the winner's t in place.  Returns slot [M] int64, -1 where none wins:
-    what :func:`walk_plain`'s strict running minimum in slot order gives."""
+    the winner's t in place.  ``gate`` None: the boxes are not gated (the
+    traversal kernel's walk, ``csrc/wbvh.cu``).  ``counts`` [3, M] int32
+    (chunks entered, supers hit, super-supers hit per ray, each box a ray
+    enters through its parents) are added to in place.  Returns slot [M]
+    int64, -1 where none wins: what :func:`walk_plain`'s strict running
+    minimum in slot order gives."""
     ox, oy, oz = o3
     dx, dy, dz = d3
     inv = [1.0 / torch.where(d == 0, 1e-30, d) for d in d3]
     ray = (ox, oy, oz, *inv)
     m, T = ox.shape[0], grid.tris_per_chunk
     enter = _slab_all(grid.cboxes, ray, gate)  # [M, C]
+    sup = sup2 = None
     if grid.sboxes:
         sup = _slab_all(grid.sboxes, ray, gate)
         if grid.ssboxes:
-            sup = sup & _slab_all(grid.ssboxes, ray, gate).repeat_interleave(
-                grid.supers2_per, dim=1)
+            sup2 = _slab_all(grid.ssboxes, ray, gate)
+            sup = sup & sup2.repeat_interleave(grid.supers2_per, dim=1)
         enter = enter & sup.repeat_interleave(grid.supers_per, dim=1)
+    if counts is not None:
+        for level, hit in enumerate((enter, sup, sup2)):
+            if hit is not None:
+                counts[level] += hit.sum(dim=1).to(counts.dtype)
     rc = enter.nonzero()  # (ray, chunk) pairs, ray-major
     ray_p = rc[:, 0].repeat_interleave(T)
     slot_p = (rc[:, 1:2] * T + torch.arange(T, device=ox.device)).reshape(-1)

@@ -10,11 +10,16 @@ Counterpart of ``ascendpathtracing_tpu/ops/pallas_wbvh.py``
   ``LAUNCHES["wbvh"]``, and raises if the launch fails.  There is no
   fallback.
 
-Both gate each ray by its own slab tests and visit chunks in increasing
-index (``csrc/chunk_walk.cuh`` says why that keeps the Pallas kernel's
-winners), and keep a running (tmin, slot) with a strict ``t < tmin``.
-The walk here (:func:`walk_plain`) is shared with the mesh path
-tracer's twin (``ops/mesh_pt_kernels``).
+Both gate each ray by its own slab tests (``csrc/chunk_walk.cuh`` says
+why that keeps the Pallas kernel's winners).  The twin visits chunks in
+increasing index and keeps a running (tmin, slot) with a strict ``t <
+tmin``; the kernel's warp walks its 32 rays' (ray, triangle) pairs
+together in another order (``csrc/warp_walk.cuh``) and keeps each ray's
+lexicographic (t, slot) minimum, which is the same winner, since the
+boxes are not gated and so the pairs tested do not depend on their order
+(``mesh_pt_kernels.walk_pairs_plain`` models it).  The walk here
+(:func:`walk_plain`) is shared with the mesh path tracer's twin
+(``ops/mesh_pt_kernels``).
 
 Tables are the chunk grid's (``ops/chunk_grid``): float32 boxes and
 13- or 24-float rows.  Rays [6, N] are float32 or float64; the rows are
@@ -60,10 +65,30 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, f"apt_wbvh_{suffix}")
         fn.argtypes = _SIGNATURE
         fn.restype = _I
+    lib.apt_wbvh_queue_cap.argtypes = ()
+    lib.apt_wbvh_queue_cap.restype = _I
+    lib.apt_wbvh_queue_overflows.argtypes = (ctypes.POINTER(ctypes.c_ulonglong),)
+    lib.apt_wbvh_queue_overflows.restype = _I
     if lib.apt_wbvh_attr_count() != N_ATTR:
         raise RuntimeError(f"library attr count {lib.apt_wbvh_attr_count()} != {N_ATTR}")
     lib._apt_declared = True
     return lib
+
+
+def queue_overflows() -> dict:
+    """The warp worklist's capacity (entries per queue per warp) and the
+    times a warp found its box queues above the chunks or its chunk queue
+    full and worked it off first, since the last call (after the device
+    is idle); the counts restart from zero."""
+    lib = load_library()
+    out = (ctypes.c_ulonglong * 2)()
+    err = lib.apt_wbvh_queue_overflows(out)
+    if err != 0:
+        raise RuntimeError(
+            f"apt_wbvh_queue_overflows: CUDA error {err} "
+            f"({lib.apt_wbvh_error_string(err).decode()})")
+    return {"capacity": lib.apt_wbvh_queue_cap(), "super_queue": out[0],
+            "chunk_queue": out[1]}
 
 
 def check_grid(cboxes, sboxes, ssboxes, tris, *, tris_per_chunk, supers_per,

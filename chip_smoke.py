@@ -39,10 +39,11 @@ phase; the first failed check raises and the script exits non-zero.
 With ``--parent DIR`` (the root of another checkout, e.g. the parent
 commit's port unpacked with ``git archive``) it also times, for each
 kernel whose sources differ between the two trees and which AB_SCRIPT
-can time, that kernel's frame in each tree: AB_SCRIPT runs from each
+can time, that kernel's frames in each tree: AB_SCRIPT runs from each
 tree's root with that tree's package, in turns (parent, new, new,
-parent); phase ``mesh_times`` reports them beside the queue overflows
-of one s4 frame.
+parent), on inputs this run saved to one file (the replay and gather
+streams of the segment-sum, the bounce-1 rays); the last phase,
+``ab_vs_parent``, reports them.
 Before the last line it prints the card's name and power limit
 (nvidia-smi) and one JSON object with a row per kernel (its ``launches``
 are counted in the run its ``run`` field names; ``bound_ms`` is the
@@ -78,28 +79,35 @@ SEG_TOL = 1e-5  # segment-sum: |kernel - twin| <= SEG_TOL * sum of |rows| per se
 SEG_ATOMIC_MS = 2.185  # the earlier, atomic segment-sum on the real replay stream (PERF.md)
 STATS_TILE = 2048  # with_stats: pixels per cell, the Pallas kernel's default tile
 # The A/B against another checkout (``--parent``): run from a tree's root
-# with the kernels to time as arguments, this code builds them from that
-# tree's sources, times each kernel's frame with that tree's package and
-# prints {kernel: median ms}.  The frames: render_pt.cu, the bench's PT
-# cell; mesh_pt.cu, the bench's s4 mesh frame; wbvh.cu and bvh.cu, the s4
-# mesh against 4,194,304 camera rays (phases 18 and 23).
+# with a file of saved inputs and the frames to time as arguments, this
+# code builds the kernels from that tree's sources, times each frame with
+# that tree's package and prints {frame: median ms}.  The frames:
+# render_pt.cu, the bench's PT cell; mesh_pt.cu, the bench's s4 mesh
+# frame; wbvh.cu, the s4 mesh against the 4,194,304 camera rays (phase 14)
+# and against the 4,194,304 rays that leave bounce 1 of the bounce-loop
+# render (phase 23, saved); bvh.cu, the camera rays; segsum.cu, chunk 0
+# of the s4 training step's replay stream (phase 20, saved) through
+# segment_rows_paged and the bounce-1 gather stream (phase 25, saved)
+# through segment_rows_matmul.  Both trees load the same saved bytes.
 AB_SCRIPT = r"""
 import json, statistics, sys
 import numpy as np, torch
 from ascendpathtracing_tpu_torch import bench, camera, convert, scenes
 from ascendpathtracing_tpu_torch.models import mesh as mm
 from ascendpathtracing_tpu_torch.ops import build, bvh_kernels as bk
+from ascendpathtracing_tpu_torch.ops import histogram_kernels as hk
 from ascendpathtracing_tpu_torch.ops import mesh_pt_kernels as mpt, wbvh_kernels as wk
 
 dev = torch.device("cuda")
+saved = torch.load(sys.argv[1], map_location=dev)
 
 def cam_rays():
     return convert.rays_planes_from_numpy(
         camera.generate_rays_numpy(1024, 1024, 1, seed=0).astype(np.float32), device=dev)
 
-def wbvh():
+def wbvh(rays):
     _, cb, sb, t24, _, grid = mpt.mesh_pt_tables(bench.mesh_scene(4), device=dev)
-    rays, kw = cam_rays(), mpt.pt_tables_kwargs(grid, dev)
+    kw = mpt.pt_tables_kwargs(grid, dev)
     return lambda: wk.intersect_chunks(rays, cb, sb, t24, attrs=True, **kw)
 
 def bvh():
@@ -108,21 +116,29 @@ def bvh():
     rays = cam_rays()
     return lambda: bk.intersect_bvh(rays, *d["pallas_bvh"], max_leaf=d["static"].max_leaf)
 
-steps = {
-    "render_pt": lambda: bench.make_pt_step("kernel", True, scenes.cornell8(), device=dev,
-                                            bounces=8),
-    "mesh_pt": lambda: bench.make_mesh_step("kernel", bench.mesh_scene(4), device=dev,
-                                            bounces=8)[0],
-    "wbvh": wbvh,
-    "bvh": bvh,
+def segsum(fn, name):
+    seg, vals, n_slots = saved[name]
+    return lambda: fn(seg, vals, n_slots=n_slots)
+
+frames = {  # kernel -> {frame: its step's maker}
+    "render_pt": {"render_pt": lambda: bench.make_pt_step("kernel", True, scenes.cornell8(),
+                                                          device=dev, bounces=8)},
+    "mesh_pt": {"mesh_pt": lambda: bench.make_mesh_step("kernel", bench.mesh_scene(4),
+                                                        device=dev, bounces=8)[0]},
+    "wbvh": {"wbvh": lambda: wbvh(cam_rays()),
+             "wbvh_bounce1": lambda: wbvh(saved["bounce1_rays"])},
+    "bvh": {"bvh": bvh},
+    "segsum": {"segsum_replay": lambda: segsum(hk.segment_rows_paged, "replay"),
+               "segsum_gather": lambda: segsum(hk.segment_rows_matmul, "gather")},
 }
-build.build_all(sys.argv[1:])
+build.build_all(sys.argv[2:])
 out = {}
-for name in sys.argv[1:]:
-    out[name] = statistics.median(bench.time_steps(steps[name](), iters=10, warmup=2)[0])
+for kernel in sys.argv[2:]:
+    for name, make in frames[kernel].items():
+        out[name] = statistics.median(bench.time_steps(make(), iters=10, warmup=2)[0])
 print(json.dumps(out))
 """
-AB_KERNELS = ("render_pt", "mesh_pt", "wbvh", "bvh")  # the frames AB_SCRIPT times
+AB_KERNELS = ("render_pt", "mesh_pt", "wbvh", "bvh", "segsum")  # those AB_SCRIPT times
 # The H100 SXM's published peaks (NVIDIA's data sheet, dense, 700 W): HBM
 # bytes/s and float32 outside the tensor cores.
 HBM_BPS, FP32_OPS = 3.35e12, 67e12
@@ -297,10 +313,11 @@ def run_in_tree(root: Path, code: str, args, timeout: int) -> str:
 
 def bound(nbytes, ops) -> dict:
     """The least time the card could take: the larger of the bytes over
-    HBM_BPS and the operations over FP32_OPS."""
+    HBM_BPS and the operations over FP32_OPS, each also given."""
     b_ms, o_ms = nbytes / HBM_BPS * 1e3, ops / FP32_OPS * 1e3
     return ({"bound_ms": b_ms, "bound_by": "bytes"} if b_ms >= o_ms
-            else {"bound_ms": o_ms, "bound_by": "operations"})
+            else {"bound_ms": o_ms, "bound_by": "operations"}) | {
+        "bound_bytes_ms": b_ms, "bound_ops_ms": o_ms}
 
 
 def walk_ops(counts, n_rays, grid, roots=None) -> int:
@@ -405,6 +422,7 @@ def main(argv=None) -> int:
     parent = None if args.parent is None else args.parent.resolve()
     ab_names, ab_untimed = ab_kernels(parent) if parent else ((), ())
     parent_build = None  # the other tree builds its kernels meanwhile
+    ab_saved = {}  # the A/B's inputs, saved as the phases make them
     if ab_names:
         parent_build = subprocess.Popen(
             [sys.executable, "-c", "import sys\nfrom ascendpathtracing_tpu_torch.ops import "
@@ -909,6 +927,11 @@ def main(argv=None) -> int:
           s5_3level_65536={"grid": [g3.n_chunks, g3.n_supers, g3.n_supers2], **brute3,
                            "chunks_tested_mean": float(st3[0].float().mean())})
     wbvh_walk = st4m.long().sum(dim=1).tolist()
+    cam_grid = wk.plain_grid(m_cb, m_sb, torch.tensor(m_grid.ssboxes, device=dev).reshape(-1, 6),
+                             m_t24, torch.float32, tris_per_chunk=m_grid.tris_per_chunk,
+                             supers_per=m_grid.supers_per, supers2_per=m_grid.supers2_per)
+    cam_roots = int(mpt.root_entries(cam_grid, tuple(rp_cam[0:3]), tuple(rp_cam[3:6])).sum())
+    del cam_grid
     del st4m, st3, rp_rand, tgk, hgk
     torch.cuda.empty_cache()
 
@@ -1102,19 +1125,6 @@ def main(argv=None) -> int:
     mpt.queue_overflows()  # from zero: one frame's overflows
     require(torch.equal(mesh_frame(), m_img), "mesh frame does not repeat bit for bit")
     overflows = mpt.queue_overflows()
-    # The A/B against --parent: AB_SCRIPT from each tree in turns; the
-    # means of each tree's two turns.
-    ab = {"not measured": "no --parent"} if parent is None else {
-        name: "sources differ; AB_SCRIPT has no frame for it" for name in ab_untimed}
-    if ab_names:
-        turns = {"parent": [], "new": []}
-        for who in ("parent", "new", "new", "parent"):
-            turns[who].append(json.loads(run_in_tree(
-                parent if who == "parent" else REPO, AB_SCRIPT, ab_names, 600)))
-        ab.update({name: {"parent_ms": statistics.mean(t[name] for t in turns["parent"]),
-                          "ms": statistics.mean(t[name] for t in turns["new"]),
-                          "turns": {who: [t[name] for t in ts] for who, ts in turns.items()}}
-                   for name in ab_names})
     # Where the frame's time goes: the same spheres alone through
     # render_pt.cu, and through mesh_pt.cu with the mesh out of every
     # ray's reach (behind the camera: each ray still tests the 20 super
@@ -1147,7 +1157,7 @@ def main(argv=None) -> int:
         mesh_pt_msamples_per_s=m_samples / (mesh_ms * 1e-3) / 1e6, mesh_twin_ms=mesh_plain_ms,
         mesh_twin_size=f"{FULL_W}x{FULL_W}x{MESH_TWIN_SPP4}", twin_runs=len(twin_times),
         queue_overflows_per_frame=overflows, breakdown=breakdown,
-        render_pt_ms=pt_ms, ab_vs_parent=ab)
+        render_pt_ms=pt_ms)
     # wbvh: 4M camera rays with attrs, the walk of phase 14's counts.
     n_cam = rp_cam.shape[1]
     mesh_rows = {}
@@ -1160,9 +1170,9 @@ def main(argv=None) -> int:
             "ms": ms_k, "plain_ms": ms_p, "library_ms": None,
         }
         rows.append(mesh_rows[name])
-    mesh_rows["wbvh"].update(bound(n_cam * (24 + 8 + 44), walk_ops(wbvh_walk, n_cam, m_grid)))
-    if isinstance(ab.get("mesh_pt"), dict):
-        mesh_rows["mesh_pt"]["parent_ms"] = ab["mesh_pt"]["parent_ms"]
+    mesh_rows["wbvh"].update(bound(n_cam * (24 + 8 + 44),
+                                   walk_ops(wbvh_walk, n_cam, m_grid, roots=cam_roots)),
+                             root_entries=cam_roots)
     del rp_cam
     torch.cuda.empty_cache()
 
@@ -1351,6 +1361,8 @@ def main(argv=None) -> int:
                                g_cell).reshape(6, -1)
     real = seg_check(seg_real, vals_real, n_seg)
     seg20["replay_chunk0"] = real
+    if ab_names:
+        ab_saved["replay"] = (seg_real.cpu(), vals_real.cpu(), n_seg)
     n_real = seg_real.shape[0]
     seg_ms = med_ms(lambda: segk.segment_rows_paged(seg_real, vals_real, n_slots=n_seg))
     seg_plain_ms = med_ms(lambda: segk.segment_rows_plain(seg_real, vals_real, n_slots=n_seg),
@@ -1732,6 +1744,21 @@ def main(argv=None) -> int:
     require(len(grabbed) == 2, f"bounce-loop render queried the mesh {len(grabbed)} times")
     rp_bounce1 = grabbed.pop()
     del grabbed
+    if ab_names:
+        ab_saved["bounce1_rays"] = rp_bounce1.cpu()
+    # wbvh on the bounce-1 rays: kernel vs twin bitwise (tmin, slot,
+    # attrs, counts) on all of them, and the walk its counts and the root
+    # box (unbounded, as the kernel tests it) give the bound.
+    eq_b1, (_, _, _, st_b1) = wbvh_pair(rp_bounce1, m_cb, m_sb, m_t24, None, attrs=True,
+                                        **m_kw)
+    require(eq_b1, "wbvh bounce-1 rays: kernel and twin differ")
+    b1_grid = wk.plain_grid(m_cb, m_sb, torch.tensor(m_grid.ssboxes, device=dev).reshape(-1, 6),
+                            m_t24, torch.float32, tris_per_chunk=m_grid.tris_per_chunk,
+                            supers_per=m_grid.supers_per, supers2_per=m_grid.supers2_per)
+    b1_roots = int(mpt.root_entries(b1_grid, tuple(rp_bounce1[0:3]),
+                                    tuple(rp_bounce1[3:6])).sum())
+    b1_walk = st_b1.long().sum(dim=1).tolist()
+    del st_b1
 
     def face_ok(r, n):
         """brute_ok, and the same face on >= 99.99% of the n rays."""
@@ -1748,7 +1775,10 @@ def main(argv=None) -> int:
         require(torch.equal(tk[:BVH_SLICE], tp) and torch.equal(hk[:BVH_SLICE], hp),
                 f"bvh {name}: kernel and twin differ on the first {BVH_SLICE} rays")
         bt, bf = (bt_cam, bf_cam) if name == "camera" else brute_first_hit(rp, v_s4, ms.faces)
+        wk.queue_overflows()
         tw, sw = wk.intersect_chunks(rp, m_cb, m_sb, m_t24, **m_kw)
+        torch.cuda.synchronize()
+        wbvh_overflows = wk.queue_overflows()
         if name == "bounce1":  # the slots the xla-mesh gathers read at bounce 1
             hseg = sw.to(torch.int32).clone()
         # vs_brute maps hk to faces through tri_order
@@ -1760,6 +1790,9 @@ def main(argv=None) -> int:
         bvh_sets[name] = {
             **res, "kernel_ms": med_ms(lambda: bk.intersect_bvh(rp, *b_tabs, max_leaf=max_leaf)),
             "wbvh_ms": med_ms(lambda: wk.intersect_chunks(rp, m_cb, m_sb, m_t24, **m_kw)),
+            "wbvh_attrs_ms": med_ms(lambda: wk.intersect_chunks(rp, m_cb, m_sb, m_t24,
+                                                                attrs=True, **m_kw)),
+            "wbvh_queue_overflows_per_launch": wbvh_overflows,
             "twin_ms_slice": twin_times[0],
             "walk_slice": {"nodes": int(walk_b[0].sum()), "triangles": int(walk_b[1].sum()),
                            "nodes_max": int(walk_b[0].max())}}
@@ -1838,6 +1871,8 @@ def main(argv=None) -> int:
     hslots = m_t24.shape[0]
     hvals = torch.randn((segk.MAX_ROWS, hseg.shape[0]), device=dev,
                         generator=torch.Generator(device=dev).manual_seed(0))
+    if ab_names:
+        ab_saved["gather"] = (hseg.cpu(), hvals.cpu(), hslots)
     require(torch.equal(matmul(hseg, hvals, n_slots=hslots), matmul(hseg, hvals, n_slots=hslots)),
             "segment_rows_matmul on the gather stream: two launches differ")
     href = segk.segment_rows_plain(hseg, hvals.double(), n_slots=hslots)
@@ -1957,8 +1992,44 @@ def main(argv=None) -> int:
         "plain_ms": bvh_sets["bounce1"]["twin_ms_slice"], "plain_rays": BVH_SLICE,
         **bound(n_b * (24 + 8) + 36 * (n_nodes + n_tris),
                 (walk_b1["nodes"] * BOX_OPS + walk_b1["triangles"] * TRI_OPS) * n_b / BVH_SLICE),
+        "bound_ops_from": f"the twin's node and triangle tests on the first {BVH_SLICE} "
+                          f"bounce-1 rays, x {n_b} / {BVH_SLICE}",
         "library_ms": None, "library": "none: no single PyTorch call traverses a BVH",
     })
+    # The chunk kernel's bounce-1 numbers beside its camera row: ms with
+    # attrs, the bound from the kernel's own counts over all the rays and
+    # the rays entering the root box.
+    mesh_rows["wbvh"].update(
+        ms_bounce1_rays=bvh_sets["bounce1"]["wbvh_attrs_ms"], bounce1_walk=b1_walk,
+        bounce1_root_entries=b1_roots,
+        **{f"bounce1_{k}": v for k, v in bound(
+            n_b * (24 + 8 + 44), walk_ops(b1_walk, n_b, m_grid, roots=b1_roots)).items()})
+
+    # The A/B against --parent: AB_SCRIPT from each tree in turns (parent,
+    # new, new, parent) on the inputs saved above; the means of each
+    # tree's two turns.
+    ab = {"not measured": "no --parent"} if parent is None else {
+        name: "sources differ; AB_SCRIPT has no frame for it" for name in ab_untimed}
+    if ab_names:
+        torch.cuda.empty_cache()  # the other processes need the card's memory
+        with tempfile.TemporaryDirectory() as tmp:
+            saved = str(Path(tmp) / "ab_inputs.pt")
+            torch.save(ab_saved, saved)
+            del ab_saved
+            turns = {"parent": [], "new": []}
+            for who in ("parent", "new", "new", "parent"):
+                turns[who].append(json.loads(run_in_tree(
+                    parent if who == "parent" else REPO, AB_SCRIPT, [saved, *ab_names], 900)))
+        ab.update({name: {"parent_ms": statistics.mean(t[name] for t in turns["parent"]),
+                          "ms": statistics.mean(t[name] for t in turns["new"]),
+                          "turns": {who: [t[name] for t in ts] for who, ts in turns.items()}}
+                   for name in turns["new"][0]})
+    for name, frame in (("mesh_pt", "mesh_pt"), ("wbvh", "wbvh"), ("segsum", "segsum_replay"),
+                        ("bvh", "bvh")):
+        if isinstance(ab.get(frame), dict):
+            next(r for r in rows if r["name"] == name)["parent_ms"] = ab[frame]["parent_ms"]
+    phase("ab_vs_parent", gpu=gpu, parent=None if parent is None else str(parent),
+          kernels=ab_names, frames=ab)
 
     print(gpu_name_and_power_limit(), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -219,6 +219,68 @@ def test_wbvh_kernel_matches_twin(cuda, dtype, sub, T, sp, sp2):
     assert all(torch.equal(a, b) for a, b in zip(k[2], p[2]))
 
 
+def _wbvh_case(cuda, sub, T, sp, sp2, width):
+    """The chunk grid of an icosphere and its rows of `width` floats (the
+    24-float rows one float into a larger buffer where width is -24: not
+    16-byte aligned)."""
+    v, f = meshes.icosphere(subdivisions=sub)
+    g = cg.build_chunk_grid(np.asarray(v, np.float32), f, tris_per_chunk=T, supers_per=sp,
+                            supers2_per=sp2)
+    rows24 = cg.attr_triangle_rows(g, np.ones((f.shape[0], 3)), np.zeros((f.shape[0], 3)),
+                                   np.arange(f.shape[0]) % 3)
+    if width == 13:
+        rows = torch.tensor(np.ascontiguousarray(rows24[:, :13]), device=cuda)
+    elif width == -24:
+        buf = torch.zeros(rows24.size + 1, dtype=torch.float32, device=cuda)
+        buf[1:] = torch.tensor(rows24.reshape(-1), device=cuda)
+        rows = buf[1:].view(rows24.shape)
+    else:
+        rows = torch.tensor(rows24, device=cuda)
+    cb, sb, _, _ = cg.chunk_grid_to_device(g, cuda)
+    return cb, sb, torch.tensor(g.ssboxes, device=cuda), rows
+
+
+def _wbvh_equal(k, p):
+    return (torch.equal(k[0], p[0]) and torch.equal(k[1], p[1]) and torch.equal(k[-1], p[-1])
+            and (len(k) == 3 or all(torch.equal(a, b) for a, b in zip(k[2], p[2]))))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("sub,T,sp,sp2", TRAVERSALS)
+@pytest.mark.parametrize("width", [24, 13, -24])
+def test_wbvh_kernel_matches_twin_on_incoherent_rays(cuda, dtype, sub, T, sp, sp2, width):
+    """Random-direction rays from random origins in and around the mesh
+    (every lane of a warp on its own chunk list): tmin, slot, attrs and
+    the per-ray counts bit for bit, with 24-float rows (aligned, and one
+    float off), and 13-float rows without attrs."""
+    cb, sb, ssb, rows = _wbvh_case(cuda, sub, T, sp, sp2, width)
+    rays = torch.tensor(_random_rays(8192, seed=sub + T, spread=0.8), dtype=dtype, device=cuda)
+    kw = dict(tris_per_chunk=T, supers_per=sp, supers2_per=sp2, attrs=width != 13, stats=True)
+    k = wk.intersect_chunks(rays, cb, sb, rows, ssb, **kw)
+    p = wk.intersect_chunks_plain(rays, cb, sb, rows, ssb, **kw)
+    assert int((k[1] > 0).sum()) > 1000 and int(k[-1][0].sum()) > 8192
+    assert _wbvh_equal(k, p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sp", [0, 2])
+def test_wbvh_kernel_fills_its_queues(cuda, sp):
+    """A chunk (and super) per face of icosphere s3 and rays through the
+    middle: each warp's 32 rays enter hundreds of boxes, so the queues
+    fill and are worked off first; the results stay the twin's bit for
+    bit."""
+    cb, sb, ssb, rows = _wbvh_case(cuda, 3, 1, sp, 0, 24)
+    rays = torch.tensor(_aimed_rays(4096, seed=sp), device=cuda)
+    kw = dict(tris_per_chunk=1, supers_per=sp, attrs=True, stats=True)
+    wk.queue_overflows()
+    k = wk.intersect_chunks(rays, cb, sb, rows, ssb, **kw)
+    torch.cuda.synchronize()
+    over = wk.queue_overflows()
+    assert over["chunk_queue"] > 0 and (sp == 0 or over["super_queue"] > 0)
+    assert _wbvh_equal(k, wk.intersect_chunks_plain(rays, cb, sb, rows, ssb, **kw))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_mesh_pt_kernel_matches_twin(cuda, dtype):
@@ -271,6 +333,80 @@ def test_segsum_kernel_repeats_bitwise(cuda, dtype, n, n_slots, r):
     mag = hk.segment_rows_plain(seg, vals.double().abs(), n_slots=n_slots)
     assert bool(((a.double() - ref).abs() <= 1e-5 * mag).all())
     assert bool(((m1.double() - ref).abs() <= 1e-5 * mag).all())
+
+
+def _seg_stream(case, n, n_slots, seed):
+    """The ids of a card test of the segment-sum: one id over all rows, all
+    rows dropped, runs of lengths that straddle lane (4 rows), warp (128),
+    tile (1024) and CTA bounds with dropped runs among them, or runs of 1-3
+    rows (the gather stream's shape)."""
+    rng = np.random.RandomState(seed)
+    if case == "one_id":
+        return np.full(n, n_slots - 1, np.int32)
+    if case == "dropped":
+        return rng.choice([-1, -7, n_slots, n_slots + 100], n).astype(np.int32)
+    lengths = [1, 3, 4, 5, 31, 127, 128, 129, 1023, 1025, 4999] if case == "runs" else [1, 2, 3]
+    ids, total = [], 0
+    while total < n:
+        k = int(rng.choice(lengths))
+        ids.append(np.full(k, rng.randint(-2, n_slots + 2), np.int32))
+        total += k
+    return np.concatenate(ids)[:n]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,n,n_slots,r,dtype,sample_block", [
+    ("one_id", 70001, 1, 8, torch.float32, 2048),
+    ("dropped", 5000, 7, 3, torch.float32, 2048),
+    ("runs", 100003, 9 + 5120, 6, torch.float32, 2048),
+    ("runs", 65537, 700, 8, torch.float64, 512),
+    ("short", 30011, 5120, 1, torch.float32, 96),
+    ("runs", 20000, 1_100_000, 2, torch.float32, 32),  # kocc in a pass of its own
+])
+def test_segsum_kernel_equals_its_ordered_model(cuda, case, n, n_slots, r, dtype,
+                                                sample_block):
+    """The kernel's float64 sums equal segment_rows_ordered (its order of
+    additions, with the card's G) bit for bit, through both wrappers and on
+    a second launch; kocc equals the twin's; each segment is within 1e-5 x
+    sum |rows| of the float64 twin."""
+    seg = torch.tensor(_seg_stream(case, n, n_slots, seed=n), device=cuda)
+    vals = torch.tensor(np.random.RandomState(r).randn(r, n), dtype=dtype, device=cuda)
+    kw = dict(n_slots=n_slots, sample_block=sample_block)
+    acc = torch.zeros((n_slots, r), dtype=torch.float64, device=cuda)
+    hk.reset_launches()
+    _, kocc = hk.segment_rows_paged(seg, vals, out=acc, **kw)
+    assert hk.LAUNCHES == {"segsum": 1}
+    model = hk.segment_rows_ordered(seg, vals, groups=hk.groups(n, r, n_slots, sample_block),
+                                    **kw)
+    assert torch.equal(acc, model)
+    assert torch.equal(kocc, hk.occupancy_plain(seg, n_slots=n_slots,
+                                                sample_block=sample_block))
+    again = torch.zeros_like(acc)
+    _, kocc2 = hk.segment_rows_paged(seg, vals, out=again, **kw)
+    assert torch.equal(again, acc) and torch.equal(kocc2, kocc)
+    flat = hk.segment_rows_matmul(seg, vals, out=torch.zeros_like(acc), **kw)
+    assert torch.equal(flat, acc)
+    ref = hk.segment_rows_plain(seg, vals.double(), n_slots=n_slots)
+    mag = hk.segment_rows_plain(seg, vals.double().abs(), n_slots=n_slots)
+    assert bool(((acc - ref).abs() <= 1e-5 * mag).all())
+    if case == "dropped":
+        assert not bool(acc.any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sample_block", [32, 96, 1024, 4096])
+def test_segsum_kocc_at_other_sample_blocks(cuda, sample_block):
+    """kocc of the fused pass at sample blocks below, at and above the
+    kernel's 1024-row tile, over ids that reach past n_slots into the
+    last slot block."""
+    n, n_slots = 50021, 3000
+    seg = torch.tensor(_seg_stream("runs", n, n_slots, seed=sample_block), device=cuda)
+    vals = torch.ones((2, n), device=cuda)
+    for slot_block in (128, 512):
+        _, kocc = hk.segment_rows_paged(seg, vals, n_slots=n_slots, slot_block=slot_block,
+                                        sample_block=sample_block)
+        assert torch.equal(kocc, hk.occupancy_plain(seg, n_slots=n_slots, slot_block=slot_block,
+                                                    sample_block=sample_block))
 
 
 # ------------------------------------------------------- BVH kernel ----

@@ -190,3 +190,73 @@ def test_root_is_unbounded_past_root_max_boxes():
     for n, enters in ((mpt.ROOT_MAX_BOXES, False), (mpt.ROOT_MAX_BOXES + 1, True)):
         grid = wk.PlainGrid([box] * n, [], [], torch.zeros((n, 24)), 1, 0, 0)
         assert torch.equal(mpt.root_entries(grid, o3, d3, gate), torch.full((4,), enters))
+
+
+# The traversal kernel (csrc/wbvh.cu) walks the same pairs with boxes not
+# gated, from the twin's initial tmin (MISS_T), and counts per ray the
+# boxes each ray enters.
+def _both_unbounded(grid, o3, d3, **kw):
+    """(slot, tmin, counts) of walk_plain and of walk_pairs_plain with the
+    boxes not gated, from MISS_T."""
+    m = o3[0].shape[0]
+    out = []
+    for walk, extra in ((wk.walk_plain, {}), (mpt.walk_pairs_plain, dict(gate=None, **kw))):
+        tmin = torch.full((m,), cg.MISS_T, dtype=o3[0].dtype)
+        counts = torch.zeros((3, m), dtype=torch.int32)
+        slot = walk(grid, o3, d3, tmin, eps=1e-4, counts=counts, **extra)
+        out.append((slot, tmin, counts))
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("sub,T,sp,sp2", TRAVERSALS)
+def test_unbounded_pair_walk_matches_walk_plain_with_counts(dtype, sub, T, sp, sp2):
+    """Random-direction rays: the same winners, t and per-ray counts
+    (chunks tested, supers hit, super-supers hit) in ray order and under
+    random pair orders."""
+    v, f = meshes.icosphere(subdivisions=sub)
+    _, grid = _plain_grid(v, f, dtype, T, sp, sp2)
+    r = torch.tensor(_sphere_rays(1024, seed=sub + T + sp + sp2), dtype=dtype)
+    o3, d3 = tuple(r[0:3]), tuple(r[3:6])
+    (s_seq, t_seq, c_seq), (s_par, t_par, c_par) = _both_unbounded(grid, o3, d3)
+    assert int((s_seq >= 0).sum()) > 100 and int(c_seq[0].sum()) > 1000
+    assert bool((c_seq[1] > 0).any()) == bool(sp) and bool((c_seq[2] > 0).any()) == bool(sp2)
+    assert torch.equal(s_par, s_seq) and torch.equal(t_par, t_seq)
+    assert torch.equal(c_par, c_seq)
+    gen = torch.Generator().manual_seed(sub + T)
+    _, (s_rnd, t_rnd, c_rnd) = _both_unbounded(grid, o3, d3, generator=gen, step=32)
+    assert torch.equal(s_rnd, s_seq) and torch.equal(t_rnd, t_seq) and torch.equal(c_rnd, c_seq)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_unbounded_pair_walk_takes_the_lowest_slot_of_a_tie_in_any_order(dtype):
+    """The tie mesh (every face three times, in other chunks and supers):
+    with the boxes not gated the lowest slot of each tie wins whatever
+    the order and step, and the counts equal the per-ray walk's."""
+    v, f = _tie_mesh()
+    _, grid = _plain_grid(v, f, dtype, 1, 2)
+    r = torch.tensor(_tie_rays(512, seed=5), dtype=dtype)
+    o3, d3 = tuple(r[0:3]), tuple(r[3:6])
+    (s_seq, t_seq, c_seq), _ = _both_unbounded(grid, o3, d3)
+    assert float((s_seq >= 0).float().mean()) > 0.5
+    gen = torch.Generator().manual_seed(3)
+    for step in (32, 5):
+        _, (s_par, t_par, c_par) = _both_unbounded(grid, o3, d3, generator=gen, step=step)
+        assert torch.equal(s_par, s_seq) and torch.equal(t_par, t_seq)
+        assert torch.equal(c_par, c_seq)
+
+
+@pytest.mark.parametrize("sub,T,sp,sp2", TRAVERSALS)
+def test_unbounded_root_entries_cover_the_top_level(sub, T, sp, sp2):
+    """With no gate the root still holds every ray that enters a top-level
+    box, turns away the rays that miss the mesh's bounds, and takes every
+    ray the gated root takes."""
+    v, f = meshes.icosphere(subdivisions=sub)
+    _, grid = _plain_grid(v, f, torch.float32, T, sp, sp2)
+    o3, d3, tmin = _gated(_sphere_rays(1024, seed=sub + T + 7), torch.float32, seed=sp)
+    root = mpt.root_entries(grid, o3, d3)
+    inv = [1.0 / torch.where(d == 0, 1e-30, d) for d in d3]
+    top = grid.ssboxes or grid.sboxes or grid.cboxes
+    in_top = mpt._slab_all(top, (*o3, *inv), None).any(dim=1)
+    assert bool((root | ~in_top).all()) and int((~root).sum()) > 100
+    assert bool((root | ~mpt.root_entries(grid, o3, d3, tmin)).all())

@@ -147,3 +147,45 @@ def test_wrapper_rejects_bad_inputs(change, exc):
     kw.update(change)
     with pytest.raises(exc):
         hk.segment_rows_paged(kw.pop("seg"), kw.pop("vals"), **kw)
+
+
+def _runs(n, s, r, run=37, seed=0):
+    """Runs of `run` equal ids (straddling lane, warp and tile bounds), a
+    tenth of the runs dropped (-1 or s + 3)."""
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, s, size=-(-n // run))
+    ids[rng.rand(ids.shape[0]) < 0.05] = -1
+    ids[rng.rand(ids.shape[0]) < 0.05] = s + 3
+    return np.repeat(ids, run)[:n].astype(np.int32), rng.randn(r, n)
+
+
+@pytest.mark.parametrize("case,n,s,r,groups,sample_block", [
+    ("random", 10000, 700, 6, 3, 2048),
+    ("runs", 20011, 50, 8, 7, 512),
+    ("runs", 4097, 9, 1, 1, 96),
+    ("one_id", 5000, 3, 2, 2, 2048),
+    ("dropped", 3000, 5, 3, 2, 32),
+])
+def test_ordered_model_matches_twin(case, n, s, r, groups, sample_block):
+    """segment_rows_ordered (the kernel's order of additions) against the
+    twin's index_add_ in float64: within 1e-12 of sum |vals| per segment;
+    ``test_torch_cuda.py`` holds the kernel to it bit for bit."""
+    if case == "random":
+        seg, vals = _random(n, s, r)
+    elif case == "runs":
+        seg, vals = _runs(n, s, r, seed=n)
+    else:
+        seg = np.full(n, 1 if case == "one_id" else -2, np.int32)
+        vals = np.random.RandomState(n).randn(r, n)
+    seg_t, vals_t = torch.tensor(seg), torch.tensor(vals)
+    ref = hk.segment_rows_plain(seg_t, vals_t.double(), n_slots=s)
+    mag = hk.segment_rows_plain(seg_t, vals_t.double().abs(), n_slots=s)
+    got = hk.segment_rows_ordered(seg_t, vals_t, n_slots=s, groups=groups,
+                                  sample_block=sample_block)
+    assert got.shape == (s, r) and got.dtype == torch.float64
+    assert bool(((got - ref).abs() <= 1e-12 * mag).all())
+    if case == "dropped":
+        assert not bool(got.any())
+    again = hk.segment_rows_ordered(seg_t, vals_t, n_slots=s, groups=groups,
+                                    sample_block=sample_block, out=got.clone())
+    assert torch.equal(again, got + got)
