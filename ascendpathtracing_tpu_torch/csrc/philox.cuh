@@ -48,8 +48,33 @@ struct SampleUniforms {
       w = philox4x32_10(make_uint4(pixel, layer, b, 0u), seed, 0u);
       block = b;
     }
-    const int i = q & 3;
-    const uint32_t bits = i == 0 ? w.x : (i == 1 ? w.y : (i == 2 ? w.z : w.w));
+    return word(w, q & 3);
+  }
+
+  // Uniforms q, q + 1 and q + 2, where q - 1 was the last one drawn: they
+  // lie in its block and at most one more, so one Philox call at most,
+  // made at one place (the bounce's draws do not each inline a call that
+  // diverging lanes would take one after another).
+  __device__ __forceinline__ void three(int q, T& a, T& b, T& c) {
+    if (buf != nullptr) {
+      a = buf[q * stride];
+      b = buf[(q + 1) * stride];
+      c = buf[(q + 2) * stride];
+      return;
+    }
+    const uint4 held = w;
+    const uint32_t last = static_cast<uint32_t>(q + 2) >> 2;
+    if (last != block) {
+      w = philox4x32_10(make_uint4(pixel, layer, last, 0u), seed, 0u);
+      block = last;
+    }
+    a = word(static_cast<uint32_t>(q) >> 2 == last ? w : held, q & 3);
+    b = word(static_cast<uint32_t>(q + 1) >> 2 == last ? w : held, (q + 1) & 3);
+    c = word(w, (q + 2) & 3);
+  }
+
+  static __device__ __forceinline__ T word(const uint4& v, int i) {
+    const uint32_t bits = i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
     return T(bits >> 8) * T(1.0 / 16777216.0);
   }
 };

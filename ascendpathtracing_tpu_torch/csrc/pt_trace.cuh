@@ -8,7 +8,7 @@
 // bounce) and its surface() returns what the shading needs from it.
 // Same parity rule as the kernels: -fmad=false, never --use_fast_math;
 // IEEE sqrt and division; 1/sqrt(x) wherever the Pallas kernels have
-// rsqrt; full-precision sinf/cosf; the Pallas kernels' op order term for
+// rsqrt; full-precision sincosf; the Pallas kernels' op order term for
 // term (pallas_kernels.py:293-525, pallas_mesh_pt.py:195-556).
 
 #pragma once
@@ -38,20 +38,27 @@ struct PtParams {
   uint32_t seed;
 };
 
-__device__ __forceinline__ float cosv(float x) { return cosf(x); }
-__device__ __forceinline__ double cosv(double x) { return cos(x); }
-__device__ __forceinline__ float sinv(float x) { return sinf(x); }
-__device__ __forceinline__ double sinv(double x) { return sin(x); }
+// sin and cos of one angle at once (one range reduction); the card tests
+// hold the values bitwise to the twins' torch.sin and torch.cos.
+__device__ __forceinline__ void sincosv(float x, float& s, float& c) { sincosf(x, &s, &c); }
+__device__ __forceinline__ void sincosv(double x, double& s, double& c) { sincos(x, &s, &c); }
 
-template <typename T>
-__device__ __forceinline__ T maxv(T a, T b) {
-  return a > b ? a : b;
+// max and min that give NaN where either side is NaN, as the twins'
+// torch.maximum, clamp and clamp_min (and the Pallas kernels' jnp.maximum
+// and clip) do: a NaN throughput then fails Russian roulette's u < pmax
+// and ends the path there.  One min.NaN / max.NaN instruction for float.
+__device__ __forceinline__ float maxv(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
-
-template <typename T>
-__device__ __forceinline__ T minv(T a, T b) {
-  return a < b ? a : b;
+__device__ __forceinline__ float minv(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
+__device__ __forceinline__ double maxv(double a, double b) { return (a > b || a != a) ? a : b; }
+__device__ __forceinline__ double minv(double a, double b) { return (a < b || a != a) ? a : b; }
 
 template <typename T>
 __device__ __forceinline__ T absv(T a) {
@@ -254,13 +261,12 @@ __device__ __forceinline__ bool bounce_path(const Scene& scene,
   path.lg = path.lg + path.tg * sf.eg;
   path.lb = path.lb + path.tb * sf.eb;
 
-  const int q = 2 + 3 * k;  // this bounce's uniforms: q, q + 1, q + 2
+  T u0, u1, u2;  // this bounce's uniforms, 2 + 3k, 3 + 3k and 4 + 3k
+  u.three(2 + 3 * k, u0, u1, u2);
   T ndx, ndy, ndz;
   T scl = T(1);
   if (sf.diff) {
     // Cosine hemisphere sample, not renormalized (pallas :406-426).
-    const T u0 = u(q);
-    const T u1 = u(q + 1);
     const T phi = T(2.0 * 3.14159265358979) * u0;
     const T r2sq = root(u1);
     const bool flip = absv(nlx) > T(0.1);
@@ -277,8 +283,10 @@ __device__ __forceinline__ bool bounce_path(const Scene& scene,
     const T vy = nlz * ux - nlx * uz;
     const T vz = nlx * uy - nly * ux;
     const T cw = root(maxv(T(1) - u1, T(0)));
-    const T cphi = cosv(phi) * r2sq;
-    const T sphi = sinv(phi) * r2sq;
+    T sinp, cosp;
+    sincosv(phi, sinp, cosp);
+    const T cphi = cosp * r2sq;
+    const T sphi = sinp * r2sq;
     ndx = ux * cphi + vx * sphi + nlx * cw;
     ndy = uy * cphi + vy * sphi + nly * cw;
     ndz = uz * cphi + vz * sphi + nlz * cw;
@@ -291,7 +299,6 @@ __device__ __forceinline__ bool bounce_path(const Scene& scene,
     if (sf.refr) {
       // Dielectric, IOR 1.5, Schlick Fresnel (pallas :432-457).
       constexpr double kR0 = (0.5 * 0.5) / (2.5 * 2.5);
-      const T u0 = u(q);
       const T nnt = into ? T(1.0 / 1.5) : T(1.5);
       const T ddn = dx * nlx + dy * nly + dz * nlz;
       const T cos2t = T(1) - nnt * nnt * (T(1) - ddn * ddn);
@@ -327,7 +334,7 @@ __device__ __forceinline__ bool bounce_path(const Scene& scene,
   if (k >= p.rr_depth) {  // Russian roulette (pallas :469-476)
     const T pmax =
         minv(maxv(maxv(maxv(path.tr, path.tg), path.tb), T(0.1)), T(0.95));
-    if (!(u(q + 2) < pmax)) {
+    if (!(u2 < pmax)) {
       goes_on = false;
     } else {
       const T pinv = T(1) / pmax;
@@ -365,29 +372,36 @@ __device__ __forceinline__ void begin_sample(const PtParams<T>& p, long long pix
   sink.begin(pix, a, p.n_pix);
 }
 
-// One thread's pixel: the spp4 sample layers in order, each path run to
-// its end, each adding L / spp4 to registers written once to out [3,
-// W*H] (pixel p is column p / H, row p % H, as the Pallas kernels'): no
-// atomics, and an image that repeats bit for bit.  `sink` takes the
-// replay residuals.  The scene's hit(ray, eps, tmin, winner, layer, k)
-// is the thread's own.
-template <typename T, typename Scene, typename Sink = NoResiduals>
+// One thread's pixel (render_pt.cu): the spp4 sample layers in order,
+// each path run to its end, each adding L / spp4 to registers written once
+// to out [3, W*H] (pixel p is column p / H, row p % H, as the Pallas
+// kernels'): no atomics, and an image that repeats bit for bit.  The
+// scene's hit(ray, eps, tmin, winner, layer, k) is the thread's own.
+//
+// The zero-throughput exit: where `finite` (every emission and albedo of
+// the scene is finite), a path whose throughput is exactly zero in all
+// three channels ends there.  Each later bounce would add tr x e = +-0 to
+// its radiance and keep tr x a x s = +-0 (s, the glass and RR weights, is
+// finite wherever its uniform lies in [0, 1)), and L + +-0 == L bit for
+// bit (L is never -0: it starts at +0, and a sum that cancels rounds to
+// +0), so the image does not change.  A NaN or inf value turns it off.
+template <typename T, typename Scene>
 __device__ __forceinline__ void render_pixel(const Scene& scene,
                                              const PtParams<T>& p,
-                                             long long pix, T* out,
-                                             Sink sink = Sink()) {
+                                             long long pix, T* out, bool finite) {
+  NoResiduals sink;
   SampleUniforms<T> u;
   u.stride = p.n_pix;
   u.pixel = static_cast<uint32_t>(pix);
   u.seed = p.seed;
-  const T pi = T(pix / p.height);
-  const T pj = T(pix % p.height);
+  // The pixel's column and row are worked out again for each sample: two
+  // registers fewer through the loop.
+  const uint32_t h = static_cast<uint32_t>(p.height);  // u.pixel is pix
   T ar = T(0), ag = T(0), ab = T(0);
   for (int a = 0; a < p.spp4; ++a) {
     begin_sample(p, pix, a, u, sink);
-    Path<T> path = camera_path(p, a, pi, pj, u, sink);
-    int k = 0;
-    for (; k < p.bounces; ++k) {
+    Path<T> path = camera_path(p, a, T(u.pixel / h), T(u.pixel % h), u, sink);
+    for (int k = 0; k < p.bounces; ++k) {
       T tmin;
       Winner w;
       // a miss ends the path
@@ -395,12 +409,11 @@ __device__ __forceinline__ void render_pixel(const Scene& scene,
                      p.eps, tmin, w, a, k)) {
         break;
       }
-      if (!bounce_path(scene, p, path, k, tmin, w, u, sink)) {
-        ++k;  // the bounce on which RR ends the path is live
+      if (!bounce_path(scene, p, path, k, tmin, w, u, sink) ||
+          (finite && path.tr == T(0) && path.tg == T(0) && path.tb == T(0))) {
         break;
       }
     }
-    sink.fill_dead(k, p.bounces);  // after a miss or RR's end
     ar = ar + path.lr * p.inv_spp;
     ag = ag + path.lg * p.inv_spp;
     ab = ab + path.lb * p.inv_spp;

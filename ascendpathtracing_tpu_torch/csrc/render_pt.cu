@@ -10,7 +10,7 @@
 //
 // PARITY RULE, as in render_ref.cu: -fmad=false and never
 // --use_fast_math; IEEE sqrt and division; 1/sqrt(x) wherever the Pallas
-// kernel has rsqrt; full-precision sinf/cosf.  The expressions keep the
+// kernel has rsqrt; full-precision sincosf.  The expressions keep the
 // Pallas kernel's op order term for term, so the plain twin
 // (ops/pt_kernels.render_pt_plain: the same ops and the same random
 // stream in torch) gives the same image.
@@ -28,18 +28,33 @@
 // order and adds L / spp4 to registers that are written once: the Pallas
 // kernel's accumulation order, no atomics, and an image that repeats bit
 // for bit.  The [10, S] scene and the materials sit in shared memory.  A
-// path leaves the bounce loop at a miss or when Russian roulette ends it
-// (from there on the Pallas kernel's lanes carry only masked values), and
-// each material computes only its own BSDF.  Any W*H: the last block is
-// guarded (Pallas needs W*H to be a multiple of its tile).  The sample
-// itself (camera, bounce loop, pixel loop) is pt_trace.cuh, shared with
-// the sphere+mesh kernel (mesh_pt.cu), so a mesh that no ray reaches
-// gives this kernel's image bit for bit.
+// path leaves the bounce loop at a miss, when Russian roulette ends it
+// (from there on the Pallas kernel's lanes carry only masked values), or
+// when its throughput is exactly zero (pt_trace.cuh's render_pixel: the
+// black front wall and the light of cornell8 and smallpt9 have albedo
+// (0, 0, 0), and the later bounces of such a path would add exactly +0;
+// the exit is taken only where the block found every emission and albedo
+// of the scene finite).  Each material computes only its own BSDF.  Any
+// W*H: the last block is guarded (Pallas needs W*H to be a multiple of
+// its tile).  The sample itself (camera, bounce, pixel loop) is
+// pt_trace.cuh, shared with the sphere+mesh kernel (mesh_pt.cu), so a
+// mesh that no ray reaches gives this kernel's image bit for bit.
 //
-// Bound on the H100: FP32 throughput, about 14*S + 150 flops per sample-bounce
-// against 12 B of HBM per pixel.  Divergence between the three materials
-// and the RR exits, and registers against occupancy, decide how much of
-// the peak it reaches; see `nvcc --resource-usage` in the build log.
+// Path regeneration (pt_trace.cuh's render_pixel_regen, the mesh
+// kernel's loop: a lane begins its pixel's next layer as its path ends)
+// was measured here and not kept: the steps a warp takes fall from the
+// longest path of each layer to about the largest of its lanes' sums,
+// but every step then pays for the lanes that make a camera ray and for
+// Philox calls at other bounces than their neighbours', and the frame
+// took longer than this loop (PERF.md, section 6).
+//
+// Bound on the H100: FP32 throughput, about 20*S + 60 operations per live
+// sample-bounce and 40 per camera ray against 12 B of HBM per pixel; with
+// -fmad=false no multiply-add fuses, so the card issues at most half the
+// 67 TFLOP/s the bound assumes.  Divergence between the three materials
+// and the exits, and registers against occupancy (MinBlocks below; see
+// `nvcc --resource-usage` in the build log), decide how much of it it
+// reaches.
 
 #include <cuda_runtime.h>
 
@@ -76,24 +91,40 @@ struct SphereScene {
 // means over the spp4 sample layers; pixel p is column i = p / H, row
 // j = p % H, as the Pallas kernel's.
 // ---------------------------------------------------------------------------
+// __launch_bounds__(BLOCK, MinBlocks): ptxas fits the registers to
+// MinBlocks resident blocks of 256 threads per SM (65,536 registers: 4
+// blocks up to 64 a thread); the double instantiation serves the parity
+// tests.
 template <typename T>
-__global__ void __launch_bounds__(BLOCK)
+struct MinBlocks {
+  static constexpr int value = 1;
+};
+template <>
+struct MinBlocks<float> {
+  static constexpr int value = 4;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(BLOCK, MinBlocks<T>::value)
     render_pt_kernel(const T* __restrict__ scene,
                      const int32_t* __restrict__ materials,
                      T* __restrict__ out, const PtParams<T> p, int s_count) {
   __shared__ T sc[PLANES][MAX_S];
   __shared__ int mat[MAX_S];
-  if (static_cast<int>(threadIdx.x) < s_count) {
-    mat[threadIdx.x] = materials[threadIdx.x];
-  }
+  const int tid = static_cast<int>(threadIdx.x);
+  if (tid < s_count) mat[tid] = materials[tid];
   load_scene(sc, scene, s_count);  // also syncs for mat
-  const long long pix = static_cast<long long>(blockIdx.x) * BLOCK + threadIdx.x;
+  // The zero-throughput exit needs every emission and albedo (planes 4-9)
+  // finite.
+  const bool finite =
+      __syncthreads_and(tid >= 6 * s_count || isfinite(sc[4 + tid / s_count][tid % s_count]));
+  const long long pix = static_cast<long long>(blockIdx.x) * BLOCK + tid;
   if (pix >= p.n_pix) return;
   SphereScene<T> world;
   world.sph.sc = sc;
   world.sph.mat = mat;
   world.sph.count = s_count;
-  render_pixel(world, p, pix, out);
+  render_pixel(world, p, pix, out, finite);
 }
 
 template <typename T>

@@ -359,6 +359,44 @@ def render_pt_plain(scene_planes, materials, *, width, height, spp4, bounces=8,
     )
 
 
+def path_record_plain(scene_planes, materials, *, width, height, spp4, bounces=8,
+                      rr_depth=5, eps=1e-4, seed=0, uniforms=None):
+    """:func:`render_pt_plain`'s image with a record of its paths ->
+    (image, queried, live, zero), each record [spp4, bounces, W*H] bool:
+    ``queried`` where the path is still going at bounce k (its ray is
+    traced), ``live`` where that ray hits a sphere (the bounce is taken),
+    ``zero`` where the path is going with a throughput that is zero in all
+    three channels, so that it adds exactly +0 to its radiance from there
+    on: ``render_pt.cu``'s kernel ends it before that query.  Throughput
+    counts as zero once each channel has met a zero albedo on a taken
+    bounce (the glass and RR weights are finite), so ``zero`` is a lower
+    bound of what the kernel's exit skips."""
+    planes_pad, mat_pad = pad_scene(scene_planes, materials)
+    shape = (spp4, bounces, width * height)
+    device = scene_planes.device
+    queried, live, zero = (torch.zeros(shape, dtype=torch.bool, device=device)
+                           for _ in range(3))
+    zeroed = {}
+
+    def hit_fn(o3, d3, alive, layer, k):
+        tmin, win = sphere_hits(planes_pad, *o3, *d3, eps)
+        srf = surface(planes_pad, mat_pad, win, tmin, o3, d3)
+        if k == 0:
+            zeroed["rgb"] = torch.zeros((3,) + alive.shape, dtype=torch.bool, device=device)
+        hit = alive & (tmin < MISS_T)
+        queried[layer, k], live[layer, k] = alive, hit
+        zero[layer, k] = alive & zeroed["rgb"].all(dim=0)
+        zeroed["rgb"] |= hit & (torch.stack(srf[3]) == 0)
+        return tmin, srf, win
+
+    image = render_layers(
+        hit_fn, dtype=scene_planes.dtype, device=device, width=width, height=height,
+        spp4=spp4, bounces=bounces, rr_depth=rr_depth, eps=eps, seed=seed,
+        uniforms=uniforms, cam=camera_constants(width, height),
+    )
+    return image, queried, live, zero
+
+
 # ---------------------------------------------------------- wrapper ----
 def render_pt(scene_planes, materials, *, width, height, spp4, bounces=8,
               rr_depth=5, eps=1e-4, seed=0, uniforms=None):

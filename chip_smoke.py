@@ -9,7 +9,9 @@ NumPy oracle) on the card, drives the main path once through the user
 entry points (the differentiable render at 4,194,304 rays x 8 bounces of
 cornell8, its forward, and the CLI, selftest and bench), then the fused
 path tracer (cornell8, 1024 x 1024 pixels x 64 samples, 8 bounces, RR
-from 5) through the bench's step, then the mesh path: the chunk-grid
+from 5) through the bench's step, with the twin's record of its paths
+(bounces per path, per warp and layer, and at zero throughput; phase
+``pt_path_stats``), then the mesh path: the chunk-grid
 traversal (4,194,304 camera rays against a 5,120-triangle icosphere, and a
 3-level grid) through the first-hit query and selftest check 5, and the
 fused sphere+mesh path tracer (1024 x 1024 x 64 samples of that
@@ -42,7 +44,8 @@ kernel whose sources differ between the two trees and which AB_SCRIPT
 can time, that kernel's frames in each tree: AB_SCRIPT runs from each
 tree's root with that tree's package, in turns (parent, new, new,
 parent), on inputs this run saved to one file (the replay and gather
-streams of the segment-sum, the bounce-1 rays); the last phase,
+streams of the segment-sum, the bounce-1 rays of the chunk and BVH
+kernels); the last phase,
 ``ab_vs_parent``, reports them.
 Before the last line it prints the card's name and power limit
 (nvidia-smi) and one JSON object with a row per kernel (its ``launches``
@@ -82,10 +85,11 @@ STATS_TILE = 2048  # with_stats: pixels per cell, the Pallas kernel's default ti
 # with a file of saved inputs and the frames to time as arguments, this
 # code builds the kernels from that tree's sources, times each frame with
 # that tree's package and prints {frame: median ms}.  The frames:
-# render_pt.cu, the bench's PT cell; mesh_pt.cu, the bench's s4 mesh
-# frame; wbvh.cu, the s4 mesh against the 4,194,304 camera rays (phase 14)
-# and against the 4,194,304 rays that leave bounce 1 of the bounce-loop
-# render (phase 23, saved); bvh.cu, the camera rays; segsum.cu, chunk 0
+# render_pt.cu, the bench's PT cell (cornell8) and the same frame of
+# smallpt9 (the s4 mesh cell's spheres alone); mesh_pt.cu, the bench's s4
+# mesh frame; wbvh.cu and bvh.cu, the s4 mesh against the 4,194,304
+# camera rays (phase 14) and against the 4,194,304 rays that leave bounce
+# 1 of the bounce-loop render (phase 23, saved); segsum.cu, chunk 0
 # of the s4 training step's replay stream (phase 20, saved) through
 # segment_rows_paged and the bounce-1 gather stream (phase 25, saved)
 # through segment_rows_matmul.  Both trees load the same saved bytes.
@@ -110,10 +114,9 @@ def wbvh(rays):
     kw = mpt.pt_tables_kwargs(grid, dev)
     return lambda: wk.intersect_chunks(rays, cb, sb, t24, attrs=True, **kw)
 
-def bvh():
+def bvh(rays):
     d = mm.mesh_scene_to_device(bench.mesh_scene(4), device=dev, pallas_bvh_kernel=True,
                                 pallas_kernel="lockstep")
-    rays = cam_rays()
     return lambda: bk.intersect_bvh(rays, *d["pallas_bvh"], max_leaf=d["static"].max_leaf)
 
 def segsum(fn, name):
@@ -122,12 +125,15 @@ def segsum(fn, name):
 
 frames = {  # kernel -> {frame: its step's maker}
     "render_pt": {"render_pt": lambda: bench.make_pt_step("kernel", True, scenes.cornell8(),
-                                                          device=dev, bounces=8)},
+                                                          device=dev, bounces=8),
+                  "render_pt_smallpt9": lambda: bench.make_pt_step(
+                      "kernel", True, scenes.smallpt9(), device=dev, bounces=8)},
     "mesh_pt": {"mesh_pt": lambda: bench.make_mesh_step("kernel", bench.mesh_scene(4),
                                                         device=dev, bounces=8)[0]},
     "wbvh": {"wbvh": lambda: wbvh(cam_rays()),
              "wbvh_bounce1": lambda: wbvh(saved["bounce1_rays"])},
-    "bvh": {"bvh": bvh},
+    "bvh": {"bvh": lambda: bvh(cam_rays()),
+            "bvh_bounce1": lambda: bvh(saved["bounce1_rays"])},
     "segsum": {"segsum_replay": lambda: segsum(hk.segment_rows_paged, "replay"),
                "segsum_gather": lambda: segsum(hk.segment_rows_matmul, "gather")},
 }
@@ -457,8 +463,18 @@ def main(argv=None) -> int:
     mesh_blocks = mpt.blocks_per_sm(24 * (320 + 20))
     require(sorted(mesh_regs) == sorted(mesh_blocks) and min(mesh_blocks.values()) >= 1,
             f"fused mesh kernel: registers {mesh_regs}, blocks per SM {mesh_blocks}")
+    # The path tracer's and the BVH walk's registers (their MinBlocks and
+    # occupancy).
+    pt_regs = {("f32" if "render_pt_kernelIf" in k else "f64"): n for k, n in
+               registers_by_kernel(build.library_path("render_pt").with_suffix(".log")
+                                   .read_text()).items() if "render_pt_kernel" in k}
+    bvh_regs = [n for k, n in registers_by_kernel(build.library_path("bvh").with_suffix(".log")
+                                                  .read_text()).items() if "bvh_kernel" in k]
+    require(sorted(pt_regs) == ["f32", "f64"] and len(bvh_regs) == 1,
+            f"registers: render_pt {pt_regs}, bvh {bvh_regs}")
     phase("build", seconds=build_s, gpu=gpu, torch=torch.__version__,
-          cuda=torch.version.cuda, ptxas=regs, mesh_pt_registers=mesh_regs,
+          cuda=torch.version.cuda, ptxas=regs, render_pt_registers=pt_regs,
+          bvh_registers=bvh_regs[0], mesh_pt_registers=mesh_regs,
           mesh_pt_blocks_per_sm=mesh_blocks,
           mesh_pt_queue_capacity=mpt.queue_overflows()["capacity"],
           parent=None if parent is None else str(parent), ab_kernels=ab_names,
@@ -760,6 +776,7 @@ def main(argv=None) -> int:
     require(energy.pop("ok"), f"selftest check 4 on the card: {energy}")
     phase("pt_full_1024x1024_spp64", mean=float(img.mean()), min=float(img.min()),
           max_abs_err_vs_twin=pt_err, share_within_1e5_vs_twin=share0,
+          bitwise_vs_twin=bool(torch.equal(img, plain0)),
           twin_seed1_mean=float(plain1.mean()), z_vs_twin_seed1=z,
           selftest_check4=energy)
     del plain0, plain1, diff
@@ -822,6 +839,36 @@ def main(argv=None) -> int:
                 pt_live * (SPHERE_OPS * s8 + PT_SHADE_OPS) + samples * CAM_OPS),
         "library_ms": None,
     })
+
+    # 13b. Where the path tracer's steps go, from the twin's record of its
+    # paths at cornell8, 1024 x 1024 x 4 samples (its image is the
+    # kernel's bit for bit): bounces taken and rays traced (queries) per
+    # path; a thread per pixel costs its warp the longest path of each
+    # layer, path regeneration about the largest of the lanes' sums over
+    # the layers, and the zero-throughput exit drops the queries made with
+    # a throughput of zero (after the black front wall or the light).
+    rec_kw = dict(width=FULL_W, height=FULL_W, spp4=4, bounces=BOUNCES, rr_depth=PT_RR)
+    img_rec, queried, live, zero = ptk.path_record_plain(planes, mats, **rec_kw)
+    require(torch.equal(img_rec, ptk.render_pt(planes, mats, **rec_kw)),
+            "pt 1024x1024 x 4 spp: kernel and twin differ")
+    per_path = {"bounces": live.sum(dim=1), "queries": queried.sum(dim=1),
+                "queries_after_exit": (queried & ~zero).sum(dim=1)}  # [layers, pixels]
+
+    def warp_max(x):  # the longest of each warp's 32 lanes
+        return x.reshape(*x.shape[:-1], -1, 32).max(dim=-1).values.float()
+
+    path_stats = {f"mean_{k}_per_path": float(v.float().mean()) for k, v in per_path.items()}
+    path_stats.update({
+        f"per_thread_steps_per_layer_{k}": float(warp_max(per_path[k]).mean())
+        for k in ("bounces", "queries")})
+    path_stats.update({
+        f"regen_steps_per_layer_{k}": float(warp_max(per_path[k].sum(dim=0)).mean()) / 4
+        for k in ("queries", "queries_after_exit")})
+    path_stats["zero_throughput_share_of_bounces"] = float((live & zero).sum() / live.sum())
+    path_stats["zero_throughput_share_of_queries"] = float(zero.sum() / queried.sum())
+    phase("pt_path_stats", scene="cornell8", size=f"{FULL_W}x{FULL_W}x4",
+          kernel_equals_twin=True, **path_stats)
+    del img_rec, queried, live, zero, per_path
 
     del planes, mats, rays4m
     torch.cuda.empty_cache()
@@ -2024,8 +2071,8 @@ def main(argv=None) -> int:
                           "ms": statistics.mean(t[name] for t in turns["new"]),
                           "turns": {who: [t[name] for t in ts] for who, ts in turns.items()}}
                    for name in turns["new"][0]})
-    for name, frame in (("mesh_pt", "mesh_pt"), ("wbvh", "wbvh"), ("segsum", "segsum_replay"),
-                        ("bvh", "bvh")):
+    for name, frame in (("pt", "render_pt"), ("mesh_pt", "mesh_pt"), ("wbvh", "wbvh"),
+                        ("segsum", "segsum_replay"), ("bvh", "bvh_bounce1")):
         if isinstance(ab.get(frame), dict):
             next(r for r in rows if r["name"] == name)["parent_ms"] = ab[frame]["parent_ms"]
     phase("ab_vs_parent", gpu=gpu, parent=None if parent is None else str(parent),

@@ -196,6 +196,58 @@ def test_pt_kernel_matches_twin_f32_and_counts(cuda):
     assert float(((k - p).abs() <= 1e-5 * p.abs()).float().mean()) >= 0.999
 
 
+def _bits_equal(a, b):
+    """Equal bit for bit, NaNs equal wherever both are NaN (a NaN's
+    payload is left to the arithmetic)."""
+    return a.dtype == b.dtype and bool(
+        ((a == b) & (torch.signbit(a) == torch.signbit(b)) | (a.isnan() & b.isnan())).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["cornell8", "smallpt9"])
+@pytest.mark.parametrize("size", [(33, 17), (32, 24)])
+@pytest.mark.parametrize("spp4", [4, 8])
+@pytest.mark.parametrize("bounces", [0, 1, 8])
+@pytest.mark.parametrize("rr_depth", [0, 5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("stream", ["philox", "buffer"])
+def test_pt_kernel_equals_twin_bitwise(cuda, name, size, spp4, bounces, rr_depth, dtype,
+                                       stream):
+    """The zero-throughput exit (a path ends at the black front wall or
+    the light) and the bounce's uniforms drawn at one place leave the
+    image the twin's bit for bit: 33 x 17 pixels (no multiple of a warp)
+    and 32 x 24, paths that end at every bounce, Philox and a uniforms
+    buffer."""
+    planes, mats = _pt_scene(name, dtype, cuda)
+    w, h = size
+    u = None
+    if stream == "buffer":
+        rng = np.random.RandomState(w + spp4 + bounces)
+        u = torch.tensor(rng.uniform(0.0, 1.0, (spp4, ptk.n_uniforms(bounces), w * h)),
+                         dtype=dtype, device=cuda)
+    kw = dict(width=w, height=h, spp4=spp4, bounces=bounces, rr_depth=rr_depth, uniforms=u)
+    k = ptk.render_pt(planes, mats, **kw)
+    assert torch.equal(k, ptk.render_pt_plain(planes, mats, **kw))
+    assert bool(torch.isfinite(k).all()) and (float(k.max()) > 0.0) == (bounces > 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("plane,sphere,value", [(7, 2, float("nan")), (4, 0, float("inf"))])
+def test_pt_zero_exit_off_where_the_scene_is_not_finite(cuda, dtype, plane, sphere, value):
+    """A NaN albedo (the back wall's red) or an inf emission (the left
+    wall's red) makes 0 x value a NaN on the paths whose throughput is
+    already zero, so the exit must stay off: the kernel traces them as the
+    twin does, NaNs and all."""
+    planes, mats = _pt_scene("cornell8", dtype, cuda)
+    planes[plane, sphere] = value
+    kw = dict(width=32, height=24, spp4=8, bounces=8, rr_depth=5)
+    k = ptk.render_pt(planes, mats, **kw)
+    p = ptk.render_pt_plain(planes, mats, **kw)
+    assert bool(k.isnan().any())
+    assert _bits_equal(k, p)
+
+
 # ----------------------------------------- chunk grid and fused mesh ----
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -425,6 +477,50 @@ def test_bvh_kernel_matches_twin(cuda, max_leaf):
     assert bk.LAUNCHES == {"bvh": 1}
     p = bk.intersect_bvh_plain(rays, *tables, max_leaf=max_leaf)
     assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+
+
+def _bvh_rays(v, f, n, seed):
+    """[6, n] float32 rays, shuffled: rays in random directions that start
+    on the mesh (inside its triangles and at its vertices, where t = +-0),
+    rays aimed into it, random rays, and NaN rays."""
+    rng = np.random.RandomState(seed)
+    m = max(n, 64)
+    tri_v = np.asarray(v, np.float64)[f[rng.randint(0, f.shape[0], m)]]
+    w = rng.dirichlet(np.ones(3), m)
+    w[m // 2:] = np.eye(3)[rng.randint(0, 3, m - m // 2)]
+    o = np.einsum("nk,nkc->cn", w, tri_v)
+    d = rng.randn(3, m)
+    on_mesh = np.concatenate([o, d / np.linalg.norm(d, axis=0)], 0).astype(np.float32)
+    pool = np.concatenate([on_mesh, _aimed_rays(m, seed), _random_rays(m, seed, spread=1.5)], 1)
+    pool[rng.randint(0, 6, m // 16), rng.randint(0, pool.shape[1], m // 16)] = np.nan
+    return np.ascontiguousarray(pool[:, rng.permutation(pool.shape[1])[:n]])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh", ["ico3", "dup2"])
+@pytest.mark.parametrize("max_leaf", [4, 64, 128])
+@pytest.mark.parametrize("eps", [1e-4, 0.0, -1e-3])
+@pytest.mark.parametrize("n", [1, 33, 4097])
+def test_bvh_kernel_pooled_leaves_equal_twin(cuda, mesh, max_leaf, eps, n):
+    """The warp's pooled leaf tests give the twin's tmin and hit bit for
+    bit: incoherent rays from the mesh's own surface, leaves of up to 128
+    triangles (several rounds of 32 for one ray), every face twice (exact
+    ties go to the lower leaf-order index), eps <= 0 (t <= 0 and -0 win),
+    NaN rays, and N that is no multiple of a warp."""
+    v, f = meshes.icosphere(subdivisions=3 if mesh == "ico3" else 2)
+    if mesh == "dup2":
+        f = np.concatenate([f, f], 0)
+    bvh = bvh_mod.build_bvh_numpy(v, f, max_leaf=max_leaf)
+    planes = tuple(tuple(c[bvh.tri_order] for c in t)
+                   for t in tri.triangle_planes(v, f, dtype=np.float32))
+    tables = bk.pack_bvh(bvh, planes, cuda)
+    rays = torch.tensor(_bvh_rays(v, f, n, seed=n + max_leaf), device=cuda)
+    k = bk.intersect_bvh(rays, *tables, max_leaf=max_leaf, eps=eps)
+    p = bk.intersect_bvh_plain(rays, *tables, max_leaf=max_leaf, eps=eps)
+    assert torch.equal(k[0].view(torch.int32), p[0].view(torch.int32))
+    assert torch.equal(k[1], p[1])
+    if n > 1000:
+        assert int((k[0] < bk.MISS_T).sum()) > n // 4
 
 
 # -------------------------------------- camera and stats outputs ----

@@ -110,6 +110,51 @@ def test_twin_float64_ragged_image():
     assert torch.isfinite(img).all() and float(img.min()) >= 0
 
 
+def _twin_cutting_zero_throughput(planes, mats, **kw):
+    """The twin with render_pt.cu's zero-throughput exit modelled around
+    it (no option of the twin): a hit function that tracks each channel's
+    zero albedos over a path's taken bounces and returns a miss for a path
+    whose three channels have all met one -> (image, paths cut)."""
+    planes_pad, mat_pad = ptk.pad_scene(planes, mats)
+    eps, state = kw["eps"], {"cut": 0}
+
+    def hit_fn(o3, d3, alive, layer, k):
+        tmin, win = ptk.sphere_hits(planes_pad, *o3, *d3, eps)
+        if k == 0:
+            state["zero"] = torch.zeros((3,) + alive.shape, dtype=torch.bool)
+        dead = alive & state["zero"].all(dim=0)
+        state["cut"] += int(dead.sum())
+        tmin = torch.where(dead, torch.full_like(tmin, ptk.MISS_T), tmin)
+        srf = ptk.surface(planes_pad, mat_pad, win, tmin, o3, d3)
+        state["zero"] |= alive & ~dead & (tmin < ptk.MISS_T) & (torch.stack(srf[3]) == 0)
+        return tmin, srf, win
+
+    img = ptk.render_layers(hit_fn, dtype=planes.dtype, device=planes.device,
+                            uniforms=None, cam=ptk.camera_constants(kw["width"], kw["height"]),
+                            **{k: v for k, v in kw.items() if k != "uniforms"})
+    return img, state["cut"]
+
+
+@pytest.mark.parametrize("name", ["cornell8", "smallpt9"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_zero_throughput_bounces_add_plus_zero(name, dtype):
+    """A path whose throughput is exactly zero in all three channels (it
+    met the black front wall or the light, albedo (0, 0, 0)) adds +0 at
+    every later bounce of the twin: ending such paths, as render_pt.cu's
+    kernel does, leaves the twin's image bit for bit; and the twin's path
+    record marks the queries of the same paths from there on."""
+    _, planes, mats = _scene(name, dtype)
+    kw = dict(width=16, height=16, spp4=8, bounces=8, rr_depth=5, eps=1e-4, seed=3)
+    want = ptk.render_pt_plain(planes, mats, **kw)
+    got, cut = _twin_cutting_zero_throughput(planes, mats, **kw)
+    assert cut > 100
+    assert torch.equal(got, want)
+    img, queried, live, zero = ptk.path_record_plain(planes, mats, **kw)
+    assert torch.equal(img, want)
+    assert int(zero.any(dim=1).sum()) == cut and bool((zero <= queried).all())
+    assert bool((live <= queried).all()) and int(live.sum()) > int((live & zero).sum()) > 0
+
+
 def test_camera_constants_follow_camera_basis():
     pos, d0, cx, cy = camera.Camera().basis(64, 32)
     got = ptk.camera_constants(64, 32)
