@@ -20,25 +20,43 @@
 // scene [10, S] (r2 x y z ex ey ez cr cg cb), colors [3, N],
 // idx [bounces, N] int32 with S encoding a miss, scene gradient [10, S].
 //
-// Design: one thread per ray, the whole bounce loop in registers, the
-// 10 x S scene table in shared memory.  S is a runtime argument up to
-// MAX_S; light index, bounces and eps are arguments.  The backward
-// kernels reduce across blocks in two deterministic passes: each block
-// writes its partial sums to [n_blocks, NV] scratch, and
-// reduce_partials_kernel sums them in a fixed order, so two runs give
+// Design: one thread per ray, the whole bounce loop in registers.  The
+// forward and the recompute backward are issue bound (about 40 SASS
+// instructions per ray-sphere test under the parity rule), so their
+// design removes instructions:
+// - S is a template argument: the launchers dispatch S = 1..MAX_S to
+//   instantiations whose sphere loops are fully unrolled with no guard,
+//   and the recompute backward keeps 3 * S product-rule accumulators, not
+//   3 * MAX_S.
+// - The closest-hit loop reads r2, x, y, z from a constant bank
+//   (hit_bank_*): with S and the sphere index known at compile time they
+//   are constant operands of the FADDs and FMULs, with no load and no
+//   address arithmetic.  The launcher copies them there from the scene on
+//   the launch's stream (a device-to-device copy: kernel parameters would
+//   give the same operands but need the scene on the host, a copy back and
+//   a wait per launch).  The winner's centre and albedo, read at a
+//   per-lane index, come from the block's [10, S] table in shared memory.
+// - No sqrt of an invalid discriminant: valid ? root(valid ? det : 1) : 0
+//   equals root(valid ? det : 0) bit for bit, but never hands sqrt the
+//   exact 0 that IEEE sqrtf sends to its called slow path (nvcc makes it a
+//   branch that invalid lanes skip).
+// The replay backward keeps a runtime S (up to MAX_S) and the shared
+// table.  The backward kernels reduce across blocks in two deterministic
+// passes: each block writes its partial sums to [n_blocks, NV] scratch,
+// and reduce_partials_kernel sums them in a fixed order, so two runs give
 // bitwise-equal gradients.  No float atomics.  The kernels allocate
 // nothing; the Python wrappers pass outputs and scratch.
 //
-// Registers: the backward kernels keep 3 * MAX_S product-rule
-// accumulators per thread (the per-sphere loops are unrolled to MAX_S so
-// they stay in registers); see `nvcc --resource-usage` in the build log
+// Registers: see `nvcc --resource-usage` in the build log
 // (build/ascendpathtracing_tpu_torch/*.log) for the count and spills.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <mutex>
+#include <type_traits>
 
-// MAX_S, PLANES, BLOCK, load_scene and closest_hit.
+// MAX_S, PLANES, BLOCK, root, miss_t, load_scene (the replay's table).
 #include "sphere_hit.cuh"
 
 namespace {
@@ -46,6 +64,66 @@ namespace {
 constexpr int WARPS = BLOCK / 32;
 constexpr int NV = 3 + 3 * MAX_S;     // partial sums per block: 3 emission
                                       // + 3 x MAX_S albedo (c * MAX_S + s)
+constexpr int HIT_PLANES = 4;         // r2 x y z: the closest-hit loop's
+
+// The closest-hit loop's scene scalars, [HIT_PLANES][S] (plane * S + s),
+// for the launch that follows their copy (with_hit_bank).
+__constant__ float hit_bank_f32[HIT_PLANES * MAX_S];
+__constant__ double hit_bank_f64[HIT_PLANES * MAX_S];
+
+template <typename T>
+__device__ __forceinline__ T bank(int i) {
+  if constexpr (std::is_same_v<T, float>) {
+    return hit_bank_f32[i];
+  } else {
+    return hit_bank_f64[i];
+  }
+}
+
+// Copies the [10, S] scene into the block's shared table sc[plane][s].
+template <int S, typename T>
+__device__ __forceinline__ void load_scene_fixed(T (*sc)[S],
+                                                 const T* __restrict__ scene) {
+  for (int i = threadIdx.x; i < PLANES * S; i += BLOCK) {
+    sc[i / S][i % S] = scene[i];
+  }
+  __syncthreads();
+}
+
+// Nearest of the S spheres of the constant bank along the ray, in
+// closest_hit's op order (sphere_hit.cuh): a running minimum with strict <
+// so the lowest index wins a tie.  As the oracle's and the twin's argmin,
+// the minimum starts at sphere 0's t, so tmin is the least t even past the
+// miss distance (in double, a ray 1e20 away after a miss can meet a sphere
+// further still; the bounce takes that t).  Returns the winner, or -1 on a
+// miss, when tmin >= the miss distance.
+template <int S, typename T>
+__device__ __forceinline__ int closest_hit_bank(T ox, T oy, T oz, T dx, T dy,
+                                                T dz, T eps, T& tmin) {
+  const T miss = miss_t<T>();
+  int win = 0;
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const T r2 = bank<T>(s);
+    const T ocx = bank<T>(S + s) - ox;
+    const T ocy = bank<T>(2 * S + s) - oy;
+    const T ocz = bank<T>(3 * S + s) - oz;
+    const T b = ocx * dx + ocy * dy + ocz * dz;
+    const T c = ocx * ocx + ocy * ocy + ocz * ocz - r2;
+    const T det = b * b - c;
+    const bool valid = det >= T(0);
+    // == root(valid ? det : 0) bit for bit, without sqrt(0)'s slow path.
+    const T sq = valid ? root(valid ? det : T(1)) : T(0);
+    const T t0 = b - sq;
+    const T t1 = b + sq;
+    const T t = (valid && t0 > eps) ? t0 : ((valid && t1 > eps) ? t1 : miss);
+    if (s == 0 || t < tmin) {
+      tmin = t;
+      win = s;
+    }
+  }
+  return tmin < miss ? win : -1;
+}
 
 // hit = o + d*t; n = normalize(hit - center); d' = d - 2 (d.n) n; o' = hit.
 // On a miss hit ~ 1e20, n2 overflows to inf in float and inv comes out 0,
@@ -77,18 +155,18 @@ __device__ __forceinline__ void specular_bounce(T& ox, T& oy, T& oz, T& dx,
 
 // One bounce of the product rule: dt[c][s] = d tput_c / d albedo[s]_c.
 // dt' = dt * m + (alive && s == gid) * tput, then tput' = tput * m, with
-// m = albedo[gid] while alive and 1 once the ray has ended.
-template <typename T>
-__device__ __forceinline__ void product_rule_step(T (&dt)[3][MAX_S],
-                                                  T (&tput)[3],
-                                                  T (*sc)[MAX_S],
-                                                  int s_count, int gid,
-                                                  bool alive) {
+// m = albedo[gid] while alive and 1 once the ray has ended.  W is the
+// table's width: MAX_S with a runtime s_count (the replay), or S with
+// s_count == S, where the guard folds away (the recompute).
+template <int W, typename T>
+__device__ __forceinline__ void product_rule_step(T (&dt)[3][W], T (&tput)[3],
+                                                  T (*sc)[W], int s_count,
+                                                  int gid, bool alive) {
   const T mr = alive ? sc[7][gid] : T(1);
   const T mg = alive ? sc[8][gid] : T(1);
   const T mb = alive ? sc[9][gid] : T(1);
 #pragma unroll
-  for (int s = 0; s < MAX_S; ++s) {
+  for (int s = 0; s < W; ++s) {
     if (s < s_count) {
       const T pick = (alive && s == gid) ? T(1) : T(0);
       dt[0][s] = dt[0][s] * mr + pick * tput[0];
@@ -113,10 +191,13 @@ __device__ __forceinline__ T warp_sum(T v) {
 // Sums each thread's contributions over the block and writes the block's
 // NV partials.  Contributions: g_c * tput_c (emission of the light) and
 // g_c * emission_c * dt[c][s] (albedo).  Threads past N pass in_range =
-// false and contribute zeros; every thread of the block must call this.
-template <typename T>
+// false and contribute zeros (not 0 * emission, NaN for an infinite
+// emission); every thread of the block must call this.
+// W and s_count as in product_rule_step; the partials' layout is NV wide
+// whatever W, and only the s_count spheres' columns are written.
+template <int W, typename T>
 __device__ __forceinline__ void write_block_partials(
-    const T (&dt)[3][MAX_S], const T (&tput)[3], T (*sc)[MAX_S],
+    const T (&dt)[3][W], const T (&tput)[3], T (*sc)[W],
     const T* __restrict__ g, int64_t n, int64_t r, bool in_range, int s_count,
     int light, T* __restrict__ partial) {
   __shared__ T red[WARPS][NV];
@@ -131,9 +212,9 @@ __device__ __forceinline__ void write_block_partials(
   for (int c = 0; c < 3; ++c) {
     const T e = warp_sum(gc[c] * tput[c]);
     if (lane == 0) red[warp][c] = e;
-    const T ge = gc[c] * sc[4 + c][light];
+    const T ge = in_range ? gc[c] * sc[4 + c][light] : T(0);
 #pragma unroll
-    for (int s = 0; s < MAX_S; ++s) {
+    for (int s = 0; s < W; ++s) {
       if (s < s_count) {
         const T a = warp_sum(ge * dt[c][s]);
         if (lane == 0) red[warp][3 + c * MAX_S + s] = a;
@@ -154,17 +235,17 @@ __device__ __forceinline__ void write_block_partials(
 // Forward.  Replaces _render_ref_kernel (kWithIdx = false) and
 // _render_ref_fwd_idx_kernel (kWithIdx = true) of
 // ascendpathtracing_tpu/ops/pallas_kernels.py.  Bound on the H100: FP32
-// ALU, about S*14+30 flops per ray-bounce against 36 B of HBM per ray
+// issue, about S*14+30 flops per ray-bounce against 36 B of HBM per ray
 // (read 6 planes, write 3), plus 4 B per ray-bounce for idx.
 // ---------------------------------------------------------------------------
-template <typename T, bool kWithIdx>
+template <typename T, bool kWithIdx, int S>
 __global__ void __launch_bounds__(BLOCK)
     render_ref_fwd_kernel(const T* __restrict__ rays,
                           const T* __restrict__ scene, T* __restrict__ out,
-                          int32_t* __restrict__ idx, int64_t n, int s_count,
-                          int light, int bounces, T eps) {
-  __shared__ T sc[PLANES][MAX_S];
-  load_scene(sc, scene, s_count);
+                          int32_t* __restrict__ idx, int64_t n, int light,
+                          int bounces, T eps) {
+  __shared__ T sc[PLANES][S];
+  load_scene_fixed<S>(sc, scene);
   const int64_t r = static_cast<int64_t>(blockIdx.x) * BLOCK + threadIdx.x;
   if (r >= n) return;
 
@@ -172,13 +253,12 @@ __global__ void __launch_bounds__(BLOCK)
   T dx = rays[3 * n + r], dy = rays[4 * n + r], dz = rays[5 * n + r];
   T tr = T(1), tg = T(1), tb = T(1);
   bool alive = true;
-  const int last = s_count - 1;
   for (int k = 0; k < bounces; ++k) {
     T tmin;
-    const int win = closest_hit(sc, s_count, ox, oy, oz, dx, dy, dz, eps, tmin);
-    if (kWithIdx) idx[static_cast<int64_t>(k) * n + r] = win < 0 ? s_count : win;
+    const int win = closest_hit_bank<S>(ox, oy, oz, dx, dy, dz, eps, tmin);
+    if (kWithIdx) idx[static_cast<int64_t>(k) * n + r] = win < 0 ? S : win;
     // A miss takes the last sphere's shading but is never a light hit.
-    const int gid = win < 0 ? last : win;
+    const int gid = win < 0 ? S - 1 : win;
     specular_bounce(ox, oy, oz, dx, dy, dz, tmin, sc[1][gid], sc[2][gid],
                     sc[3][gid]);
     alive = alive && win != light;
@@ -233,42 +313,45 @@ __global__ void __launch_bounds__(BLOCK)
 // Recompute backward (replay = False).  Replaces _render_ref_bwd_kernel of
 // ascendpathtracing_tpu/ops/pallas_kernels.py: reruns the forward's device
 // code while carrying the product-rule accumulators, and needs no residual.
-// Bound on the H100: FP32 ALU, the forward's flops plus the 6*S+6 of the
+// Bound on the H100: FP32 issue, the forward's flops plus the 6*S+6 of the
 // product rule per ray-bounce; HBM is 36 B per ray.
 // ---------------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(BLOCK)
+// __launch_bounds__(BLOCK, RecomputeMinBlocks): ptxas fits the registers to
+// that many resident 256-thread blocks per SM (65,536 registers).
+template <typename T, int S>
+struct RecomputeMinBlocks {
+  static constexpr int value = 1;
+};
+
+template <typename T, int S>
+__global__ void __launch_bounds__(BLOCK, (RecomputeMinBlocks<T, S>::value))
     render_ref_bwd_recompute_kernel(const T* __restrict__ rays,
                                     const T* __restrict__ scene,
                                     const T* __restrict__ g,
                                     T* __restrict__ partial, int64_t n,
-                                    int s_count, int light, int bounces,
-                                    T eps) {
-  __shared__ T sc[PLANES][MAX_S];
-  load_scene(sc, scene, s_count);
+                                    int light, int bounces, T eps) {
+  __shared__ T sc[PLANES][S];
+  load_scene_fixed<S>(sc, scene);
   const int64_t r = static_cast<int64_t>(blockIdx.x) * BLOCK + threadIdx.x;
   const bool in_range = r < n;
 
   T tput[3] = {T(1), T(1), T(1)};
-  T dt[3][MAX_S] = {};
+  T dt[3][S] = {};
   if (in_range) {
     T ox = rays[r], oy = rays[n + r], oz = rays[2 * n + r];
     T dx = rays[3 * n + r], dy = rays[4 * n + r], dz = rays[5 * n + r];
-    const int last = s_count - 1;
     bool alive = true;
     for (int k = 0; k < bounces; ++k) {
       T tmin;
-      const int win =
-          closest_hit(sc, s_count, ox, oy, oz, dx, dy, dz, eps, tmin);
-      const int gid = win < 0 ? last : win;
+      const int win = closest_hit_bank<S>(ox, oy, oz, dx, dy, dz, eps, tmin);
+      const int gid = win < 0 ? S - 1 : win;
       specular_bounce(ox, oy, oz, dx, dy, dz, tmin, sc[1][gid], sc[2][gid],
                       sc[3][gid]);
       alive = alive && win != light;
-      product_rule_step(dt, tput, sc, s_count, gid, alive);
+      product_rule_step(dt, tput, sc, S, gid, alive);
     }
   }
-  write_block_partials(dt, tput, sc, g, n, r, in_range, s_count, light,
-                       partial);
+  write_block_partials(dt, tput, sc, g, n, r, in_range, S, light, partial);
 }
 
 // Second pass of both backwards: one block per element of grad[10, S].
@@ -314,6 +397,60 @@ unsigned grid_for(long long n) {
   return static_cast<unsigned>((n + BLOCK - 1) / BLOCK);
 }
 
+// Calls f(std::integral_constant<int, S>{}) for S == s_count (1..MAX_S,
+// checked by bad_args).
+template <int S = 1, typename F>
+void with_sphere_count(int s_count, F&& f) {
+  if constexpr (S == MAX_S) {
+    f(std::integral_constant<int, S>{});
+  } else if (s_count == S) {
+    f(std::integral_constant<int, S>{});
+  } else {
+    with_sphere_count<S + 1>(s_count, f);
+  }
+}
+
+// The constant bank is one per device.  Before its copy, a launch's stream
+// waits for the last kernel that read the bank, on whatever stream (an
+// event recorded after each such kernel), so launches on concurrent
+// streams never read each other's scene.  The mutex orders host threads
+// (ctypes releases the GIL).
+constexpr int MAX_DEVICES = 64;
+std::mutex bank_mutex;
+cudaEvent_t bank_read[MAX_DEVICES] = {};
+
+// Copies the scene's r2, x, y, z planes ([4, S], the first 4 * S values
+// of [10, S]) into the bank on `st`, runs `launch` (which launches one
+// kernel that reads the bank on `st`) and records that the bank was read.
+template <typename T, typename F>
+int with_hit_bank(const T* scene, int s_count, cudaStream_t st, F&& launch) {
+  const std::lock_guard<std::mutex> lock(bank_mutex);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  cudaEvent_t& read = bank_read[dev];
+  if (read == nullptr) {
+    err = cudaEventCreateWithFlags(&read, cudaEventDisableTiming);
+    if (err != cudaSuccess) return err;
+  }
+  err = cudaStreamWaitEvent(st, read, 0);
+  if (err != cudaSuccess) return err;
+  const size_t bytes = sizeof(T) * HIT_PLANES * s_count;
+  if constexpr (std::is_same_v<T, float>) {
+    err = cudaMemcpyToSymbolAsync(hit_bank_f32, scene, bytes, 0,
+                                  cudaMemcpyDeviceToDevice, st);
+  } else {
+    err = cudaMemcpyToSymbolAsync(hit_bank_f64, scene, bytes, 0,
+                                  cudaMemcpyDeviceToDevice, st);
+  }
+  if (err != cudaSuccess) return err;
+  launch();
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return cudaEventRecord(read, st);
+}
+
 template <typename T>
 int launch_fwd(const void* rays, const void* scene, void* out, void* idx,
                long long n, int s_count, int light, int bounces, double eps,
@@ -324,15 +461,20 @@ int launch_fwd(const void* rays, const void* scene, void* out, void* idx,
   const auto* rp = static_cast<const T*>(rays);
   const auto* sp = static_cast<const T*>(scene);
   auto* op = static_cast<T*>(out);
-  if (idx != nullptr) {
-    render_ref_fwd_kernel<T, true><<<grid_for(n), BLOCK, 0, st>>>(
-        rp, sp, op, static_cast<int32_t*>(idx), n, s_count, light, bounces,
-        static_cast<T>(eps));
-  } else {
-    render_ref_fwd_kernel<T, false><<<grid_for(n), BLOCK, 0, st>>>(
-        rp, sp, op, nullptr, n, s_count, light, bounces, static_cast<T>(eps));
-  }
-  return cudaGetLastError();
+  auto* ip = static_cast<int32_t*>(idx);
+  const T e = static_cast<T>(eps);
+  return with_hit_bank(sp, s_count, st, [&] {
+    with_sphere_count(s_count, [&](auto size) {
+      constexpr int S = decltype(size)::value;
+      if (ip != nullptr) {
+        render_ref_fwd_kernel<T, true, S><<<grid_for(n), BLOCK, 0, st>>>(
+            rp, sp, op, ip, n, light, bounces, e);
+      } else {
+        render_ref_fwd_kernel<T, false, S><<<grid_for(n), BLOCK, 0, st>>>(
+            rp, sp, op, nullptr, n, light, bounces, e);
+      }
+    });
+  });
 }
 
 template <typename T>
@@ -368,11 +510,18 @@ int launch_bwd_recompute(const void* rays, const void* scene, const void* g,
   if (bad_args(n, s_count, light, bounces)) return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   if (n > 0) {
-    render_ref_bwd_recompute_kernel<T><<<grid_for(n), BLOCK, 0, st>>>(
-        static_cast<const T*>(rays), static_cast<const T*>(scene),
-        static_cast<const T*>(g), static_cast<T*>(partial), n, s_count, light,
-        bounces, static_cast<T>(eps));
-    const cudaError_t err = cudaGetLastError();
+    const auto* rp = static_cast<const T*>(rays);
+    const auto* sp = static_cast<const T*>(scene);
+    const auto* gp = static_cast<const T*>(g);
+    auto* pp = static_cast<T*>(partial);
+    const T e = static_cast<T>(eps);
+    const int err = with_hit_bank(sp, s_count, st, [&] {
+      with_sphere_count(s_count, [&](auto size) {
+        constexpr int S = decltype(size)::value;
+        render_ref_bwd_recompute_kernel<T, S><<<grid_for(n), BLOCK, 0, st>>>(
+            rp, sp, gp, pp, n, light, bounces, e);
+      });
+    });
     if (err != cudaSuccess) return err;
   }
   return launch_reduce<T>(partial, n, s_count, light, grad, st);

@@ -12,10 +12,13 @@ inputs, then:
 
 | wrapper | CUDA kernel | replaces (pallas_kernels.py) |
 |---|---|---|
-| ``render_reference_planes`` | ``render_ref_fwd_kernel<T, false>`` | ``_render_ref_kernel`` |
-| ``render_reference_planes_with_idx`` | ``render_ref_fwd_kernel<T, true>`` | ``_render_ref_fwd_idx_kernel`` |
+| ``render_reference_planes`` | ``render_ref_fwd_kernel<T, false, S>`` | ``_render_ref_kernel`` |
+| ``render_reference_planes_with_idx`` | ``render_ref_fwd_kernel<T, true, S>`` | ``_render_ref_fwd_idx_kernel`` |
 | ``render_ref_bwd_replay`` | ``render_ref_bwd_replay_kernel`` | ``_render_ref_bwd_replay_kernel`` |
-| ``render_ref_bwd`` | ``render_ref_bwd_recompute_kernel`` | ``_render_ref_bwd_kernel`` |
+| ``render_ref_bwd`` | ``render_ref_bwd_recompute_kernel<T, S>`` | ``_render_ref_bwd_kernel`` |
+
+(S, the scene's sphere count, is a template argument: the library holds
+one kernel for each S = 1..``MAX_S``.)
 
 Reference-mode colors are emission(light) times an ordered product of the
 winners' albedos, and the winners are discrete, so the exact gradient is:

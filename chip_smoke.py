@@ -46,7 +46,12 @@ tree's root with that tree's package, in turns (parent, new, new,
 parent), on inputs this run saved to one file (the replay and gather
 streams of the segment-sum, the bounce-1 rays of the chunk and BVH
 kernels); the last phase,
-``ab_vs_parent``, reports them.
+``ab_vs_parent``, reports them, and requires the reference kernels'
+outputs (colors, idx, gradients) bitwise equal to the parent's.  The
+build phase records the reference kernels' registers and, from
+``cuobjdump -sass``, the instructions of one bounce of each one's loop,
+the issue floor they set and the first sqrt's slow-path check (with
+``--parent``, the parent's too).
 Before the last line it prints the card's name and power limit
 (nvidia-smi) and one JSON object with a row per kernel (its ``launches``
 are counted in the run its ``run`` field names; ``bound_ms`` is the
@@ -59,6 +64,7 @@ Without a CUDA device it prints no result and exits 1.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import io
 import json
 import os
@@ -92,18 +98,68 @@ STATS_TILE = 2048  # with_stats: pixels per cell, the Pallas kernel's default ti
 # 1 of the bounce-loop render (phase 23, saved); segsum.cu, chunk 0
 # of the s4 training step's replay stream (phase 20, saved) through
 # segment_rows_paged and the bounce-1 gather stream (phase 25, saved)
-# through segment_rows_matmul.  Both trees load the same saved bytes.
+# through segment_rows_matmul; render_ref.cu, the reference kernels at the
+# main path's 4,194,304 cornell8 rays x 8 bounces in float32 (fwd, fwd_idx,
+# the two backwards on phase 5's cotangent, and the bench's fwd+bwd step),
+# each with a digest of its outputs (colors, idx, the [10, S] gradient), the
+# same digests at phase 3's 256 x 256 rays in float64, and fwd_idx's share
+# of rays whose trail differs from the plain twin's (phase 4).  Both trees
+# load the same saved bytes.  It prints {"ms": {frame: median ms},
+# "digests": {name: hex}, "facts": {name: value}}.
 AB_SCRIPT = r"""
-import json, statistics, sys
+import hashlib, json, statistics, sys
 import numpy as np, torch
 from ascendpathtracing_tpu_torch import bench, camera, convert, scenes
 from ascendpathtracing_tpu_torch.models import mesh as mm
 from ascendpathtracing_tpu_torch.ops import build, bvh_kernels as bk
 from ascendpathtracing_tpu_torch.ops import histogram_kernels as hk
 from ascendpathtracing_tpu_torch.ops import mesh_pt_kernels as mpt, wbvh_kernels as wk
+from ascendpathtracing_tpu_torch.ops import render_kernels as rk
 
 dev = torch.device("cuda")
 saved = torch.load(sys.argv[1], map_location=dev)
+digests, facts = {}, {}
+
+def digest(name, *ts):
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    digests[name] = h.hexdigest()
+
+def ref_inputs(w, np_dt):
+    sc = scenes.cornell8()
+    t = torch.float64 if np_dt == np.float64 else torch.float32
+    r = camera.generate_rays_numpy(w, w, 1, seed=0).astype(np_dt)
+    rp = convert.rays_planes_from_numpy(r, device=dev, dtype=t)
+    g = torch.arange(3 * rp.shape[1], device=dev, dtype=t).reshape(3, -1)
+    return rp, convert.scene_planes_from_numpy(sc.soa10(np_dt), device=dev, dtype=t), g, sc
+
+def ref(frame):
+    kw = dict(light_index=scenes.cornell8().light_index, bounces=8)
+    for w, np_dt, tag in ((256, np.float64, "_f64_256"), (1024, np.float32, "")):
+        rp, sp, g, sc = ref_inputs(w, np_dt)
+        c, idx = rk.render_reference_planes_with_idx(rp, sp, **kw)
+        if frame == "ref_fwd":
+            digest(frame + tag, rk.render_reference_planes(rp, sp, **kw))
+        elif frame == "ref_fwd_idx":
+            digest(frame + tag, c, idx)
+            if not tag:
+                _, idx_p = rk.render_reference_planes_with_idx_plain(rp, sp, **kw)
+                facts["trail_differs_share"] = 1.0 - float((idx == idx_p).all(dim=0).float().mean())
+        elif frame == "ref_bwd_replay":
+            digest(frame + tag, rk.render_ref_bwd_replay(idx, sp, g, **kw))
+        elif frame == "ref_bwd_recompute":
+            digest(frame + tag, rk.render_ref_bwd(rp, sp, g, **kw))
+    return {"ref_fwd": lambda: rk.render_reference_planes(rp, sp, **kw),
+            "ref_fwd_idx": lambda: rk.render_reference_planes_with_idx(rp, sp, **kw),
+            "ref_bwd_replay": lambda: rk.render_ref_bwd_replay(idx, sp, g, **kw),
+            "ref_bwd_recompute": lambda: rk.render_ref_bwd(rp, sp, g, **kw)}[frame]
+
+def ref_step():
+    rp, _, _, sc = ref_inputs(1024, np.float32)
+    step = bench.make_step("kernel", False, rp, sc, bounces=8)
+    digest("ref_step", step()[1][0])
+    return step
 
 def cam_rays():
     return convert.rays_planes_from_numpy(
@@ -136,15 +192,19 @@ frames = {  # kernel -> {frame: its step's maker}
             "bvh_bounce1": lambda: bvh(saved["bounce1_rays"])},
     "segsum": {"segsum_replay": lambda: segsum(hk.segment_rows_paged, "replay"),
                "segsum_gather": lambda: segsum(hk.segment_rows_matmul, "gather")},
+    "render_ref": {**{f: (lambda f=f: ref(f)) for f in
+                      ("ref_fwd", "ref_fwd_idx", "ref_bwd_replay", "ref_bwd_recompute")},
+                   "ref_step": ref_step},
 }
 build.build_all(sys.argv[2:])
 out = {}
 for kernel in sys.argv[2:]:
     for name, make in frames[kernel].items():
         out[name] = statistics.median(bench.time_steps(make(), iters=10, warmup=2)[0])
-print(json.dumps(out))
+        torch.cuda.empty_cache()
+print(json.dumps({"ms": out, "digests": digests, "facts": facts}))
 """
-AB_KERNELS = ("render_pt", "mesh_pt", "wbvh", "bvh", "segsum")  # those AB_SCRIPT times
+AB_KERNELS = ("render_pt", "mesh_pt", "wbvh", "bvh", "segsum", "render_ref")  # AB_SCRIPT's
 # The H100 SXM's published peaks (NVIDIA's data sheet, dense, 700 W): HBM
 # bytes/s and float32 outside the tensor cores.
 HBM_BPS, FP32_OPS = 3.35e12, 67e12
@@ -282,6 +342,218 @@ def mesh_kernel_registers(log: str) -> dict:
         key = f"{'f32' if 'render_pt_mesh_kernelIf' in name else 'f64'}_{sink}"
         out[key + ("_stats" if "CellStats" in name else "")] = n
     return out
+
+
+SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+([^;]*?)\s*;")
+SASS_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
+SASS_BRA = re.compile(r"\bBRA(?:\.\w+)*\s+(?:`\()?(0x[0-9a-f]+|\.L_x_\d+)")
+# The reference kernels of render_ref.cu whose SASS the build phase
+# counts: (name in the report, mangled-name stem, a mangled template
+# argument the instantiation must carry, or None).  Float32, and the
+# redesigned kernels at cornell8's S = 8 (``Li8E``; the parent's kernels
+# take S at run time and carry none).
+REF_SASS = (("fwd", "render_ref_fwd_kernelIfLb0E", "Li8E"),
+            ("fwd_idx", "render_ref_fwd_kernelIfLb1E", "Li8E"),
+            ("bwd_recompute", "render_ref_bwd_recompute_kernelIf", "Li8E"),
+            ("bwd_replay", "render_ref_bwd_replay_kernelIf", None))
+
+
+def sass_functions(text: str) -> dict:
+    """``cuobjdump -sass`` output -> {mangled function: (instructions as
+    [(address, text)], {label: address of the instruction after it})}."""
+    out, cur, pending = {}, None, []
+    for ln in text.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            cur, pending = ([], {}), []
+            out[m.group(1)] = cur
+            continue
+        if cur is None:
+            continue
+        m = SASS_LABEL.match(ln)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = SASS_INSN.search(ln)
+        if m:
+            pc = int(m.group(1), 16)
+            for label in pending:
+                cur[1][label] = pc
+            pending = []
+            cur[0].append((pc, m.group(2).strip()))
+    return out
+
+
+def sass_opcode(text: str) -> str:
+    return re.sub(r"^@!?U?P\w+\s+", "", text).split()[0]
+
+
+def sass_target(text: str, labels: dict):
+    """The address a branch goes to, or None."""
+    m = SASS_BRA.search(text)
+    if not m:
+        return None
+    return int(m.group(1), 16) if m.group(1).startswith("0x") else labels.get(m.group(1))
+
+
+def sass_slow_stubs(texts) -> set:
+    """Indices of the instructions that call a slow path (sqrt's,
+    division's) and return from it: from the conditional branch that
+    guards the call (not included) to the unconditional branch after it
+    (included).  A fast-path trip does not issue them."""
+    out = set()
+    for i, t in enumerate(texts):
+        if not sass_opcode(t).startswith("CALL"):
+            continue
+        j = i
+        while j > 0 and not (texts[j - 1].startswith("@") and sass_opcode(texts[j - 1]) == "BRA"):
+            j -= 1
+        k = i
+        while k + 1 < len(texts) and not (sass_opcode(texts[k]) == "BRA"
+                                          and not texts[k].startswith("@")):
+            k += 1
+        out.update(range(j, k + 1))
+    return out
+
+
+def sass_bounce_loop(insns, labels, spheres: int) -> dict:
+    """The bounce loop of a reference kernel's SASS: the outermost loop (a
+    backward branch) holding a ``MUFU.RSQ`` (each sqrt and 1/sqrt has
+    one).  ``per_bounce`` counts the instructions of one trip at
+    ``spheres`` spheres: the loop's own, plus each loop nested in it times
+    its trips, a nested loop with k ``MUFU.RSQ`` (k spheres unrolled)
+    running as many trips of the ``spheres`` as it can (largest k first).
+    The calls of the slow paths of sqrt and division and the
+    instructions around them (``sass_slow_stubs``) are not counted, nor
+    the called code, which lies outside the loop."""
+    loops = sorted({(to, pc) for pc, t in insns
+                    if (to := sass_target(t, labels)) is not None and to <= pc})
+    stubs = sass_slow_stubs([t for _, t in insns])
+    ops = [(pc, sass_opcode(t)) for i, (pc, t) in enumerate(insns) if i not in stubs]
+
+    def body(lo, hi):
+        return [o for pc, o in ops if lo <= pc <= hi]
+
+    def rsq(lo, hi):
+        return sum(o.startswith("MUFU.RSQ") for o in body(lo, hi))
+
+    def outermost(lps):
+        return [lp for lp in lps
+                if not any(o != lp and o[0] <= lp[0] and lp[1] <= o[1] for o in lps)]
+
+    def ldg(lo, hi):
+        return sum(o.startswith("LDG") for o in body(lo, hi))
+
+    outer = outermost([lp for lp in loops if rsq(*lp)])
+    if not outer:
+        # No intersection (the replay): the largest loop that loads (a
+        # winner per bounce, unrolled); per bounce = its instructions over
+        # its loads.
+        with_ldg = [lp for lp in loops if ldg(*lp)]
+        if not with_ldg:
+            return {"loops": len(loops), "per_bounce": None}
+        big = max(with_ldg, key=lambda lp: len(body(*lp)))
+        loop = body(*big)
+        return {"per_bounce": round(len(loop) / ldg(*big)), "loop_instructions": len(loop),
+                "bounces_per_trip": ldg(*big),
+                "LDL": sum(o.startswith("LDL") for o in loop),
+                "STL": sum(o.startswith("STL") for o in loop)}
+    lo, hi = outer[0]
+    children = outermost([lp for lp in loops if lp != (lo, hi) and lo <= lp[0] and lp[1] <= hi])
+    own = [o for pc, o in ops if lo <= pc <= hi and not any(c[0] <= pc <= c[1] for c in children)]
+    count, left, trips = len(own), spheres, []
+    for c in sorted(children, key=lambda c: -rsq(*c)):
+        k = rsq(*c)
+        n = left // k if k else 1
+        left -= n * k
+        count += n * len(body(*c))
+        trips.append({"instructions": len(body(*c)), "spheres_per_trip": k, "trips": n})
+    if trips:
+        # A runtime sphere loop unrolled k times leaves the last S mod k
+        # spheres to tests outside it, in the bounce loop's own code: one
+        # MUFU.RSQ each (the bounce's 1/sqrt is the one followed by a
+        # MUFU.RCP).  Those past the ``left`` spheres do not run; take
+        # them out at the unrolled loop's instructions per sphere.
+        tests = sum(o.startswith("MUFU.RSQ") and "MUFU.RCP" not in own[i:i + 24]
+                    for i, o in enumerate(own))
+        per_sphere = trips[0]["instructions"] / trips[0]["spheres_per_trip"]
+        count -= round((tests - left) * per_sphere)
+        trips.append({"remainder_tests": tests, "run": left, "instructions_per_sphere": per_sphere})
+    loop = body(lo, hi)
+
+    def n_op(prefix):
+        return sum(o.startswith(prefix) for o in loop)
+
+    return {"per_bounce": count, "loop_instructions": len(loop), "nested_loops": trips,
+            "LDS": n_op("LDS"), "LDC": n_op("LDC") + n_op("ULDC"), "LDL": n_op("LDL"),
+            "STL": n_op("STL"), "MUFU.RSQ": n_op("MUFU.RSQ"),
+            "slow_path_calls": sum(sass_opcode(t).startswith("CALL") for pc, t in insns
+                                   if lo <= pc <= hi)}
+
+
+def sqrt_slow_path(insns) -> dict:
+    """Which inputs the first float sqrt's range check sends to its slow
+    path: the ``IADD3 Rt, Rx, -K`` and ``ISETP.GT.U32 P, PT, Rt, L`` that
+    guard it (slow when the bits of x minus K exceed L, unsigned; the
+    compiler may write the subtraction as a ``VIADD`` of 2^32 - K), judged
+    at 0, 1 and a negative number; the guarding lines themselves."""
+    texts = [t for _, t in insns]
+    for i, t in enumerate(texts):
+        if sass_opcode(t) != "MUFU.RSQ":
+            continue
+        near = texts[max(0, i - 8):i + 8]
+        # t = x - K as "IADD3 Rt, Rx, -K, RZ" or "VIADD Rt, Rx, 2^32 - K"
+        add = next((m for s in near if (m := re.search(
+            r"(?:IADD3|VIADD) (R\d+), (R\d+), (-?)(0x[0-9a-f]+)", s))), None)
+        cmp_ = next((m for s in near if add and (m := re.search(
+            rf"ISETP\.GT\.U32\.AND P\d, PT, {add.group(1)}, (0x[0-9a-f]+)", s))), None)
+        if add and cmp_:
+            k = int(add.group(4), 16) * (-1 if add.group(3) else 1)
+            lim = int(cmp_.group(1), 16)
+            slow = {name: ((bits + k) & 0xFFFFFFFF) > lim for name, bits in
+                    (("0", 0x0), ("1", 0x3F800000), ("-1", 0xBF800000))}
+            return {"slow_path_at": slow, "lines": near}
+        return {"slow_path_at": "range check not found", "lines": near}
+    return {"slow_path_at": "no MUFU.RSQ"}
+
+
+def ref_sass_report(lib: Path, n_rays: int, bounces: int, spheres: int, clock_mhz: float) -> dict:
+    """Per reference kernel of ``lib`` (REF_SASS): the bounce loop's SASS
+    counts and the issue floor, the least time 132 SMs x 4 schedulers at
+    ``clock_mhz`` take to issue one instruction per warp per cycle for
+    ``n_rays`` rays x ``bounces`` bounces; the first float sqrt's slow-path
+    check.  {"cuobjdump": "not found"} without the tool."""
+    from ascendpathtracing_tpu_torch.ops import build
+
+    tool = Path(build.find_nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        return {"cuobjdump": "not found"}
+    funcs = sass_functions(subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                                          text=True, check=True, timeout=300).stdout)
+    out = {}
+    for name, stem, arg in REF_SASS:
+        fn = next((f for f in funcs if stem in f and (arg is None or arg in f
+                                                     or "Li" not in f.split(stem)[1][:4])), None)
+        if fn is None:
+            out[name] = {"function": None}
+            continue
+        insns, labels = funcs[fn]
+        loop = sass_bounce_loop(insns, labels, spheres)
+        loop["sass_sha256"] = hashlib.sha256("\n".join(t for _, t in insns).encode()).hexdigest()
+        if loop["per_bounce"] is not None:
+            warp_insns = -(-n_rays // 32) * bounces * loop["per_bounce"]
+            loop["issue_floor_ms"] = warp_insns / (132 * 4 * clock_mhz * 1e6) * 1e3
+        out[name] = {"function": fn, **loop}
+    fwd = out["fwd"]["function"]
+    out["sqrt"] = sqrt_slow_path(funcs[fwd][0]) if fwd else {}
+    return out
+
+
+def max_sm_clock_mhz() -> float:
+    """The card's highest SM clock (nvidia-smi clocks.max.sm), in MHz."""
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
 
 
 def kernel_sources(root: Path, name: str) -> dict:
@@ -472,8 +744,36 @@ def main(argv=None) -> int:
                                                   .read_text()).items() if "bvh_kernel" in k]
     require(sorted(pt_regs) == ["f32", "f64"] and len(bvh_regs) == 1,
             f"registers: render_pt {pt_regs}, bvh {bvh_regs}")
+    # The reference kernels: registers of each instantiation the kernels
+    # line times (float32, cornell8's S = 8), no spills in any of
+    # render_ref.cu's functions (float64 too), and the bounce loop's SASS:
+    # instructions per bounce, the issue floor at the main path's size, no
+    # local memory (LDL/STL) in the loop; with --parent the parent's too.
+    ref_log = build.library_path("render_ref").with_suffix(".log").read_text()
+    ref_regs = {name: n for name, stem, arg in REF_SASS
+                for k, n in registers_by_kernel(ref_log).items()
+                if stem in k and (arg is None or arg in k)}
+    ref_spills = {k: v for k, v in spills_by_kernel(ref_log).items() if v != (0, 0)}
+    require(sorted(ref_regs) == sorted(r[0] for r in REF_SASS) and not ref_spills,
+            f"render_ref.cu: registers {ref_regs}, spills {ref_spills}")
+    clock = max_sm_clock_mhz()
+    ref_sass = {"new": ref_sass_report(build.library_path("render_ref"), FULL_W ** 2 * 4,
+                                       BOUNCES, scene.n_spheres, clock)}
+    if "render_ref" in ab_names:
+        ref_sass["parent"] = ref_sass_report(
+            next((parent / "build" / "ascendpathtracing_tpu_torch").glob("librender_ref-*.so")),
+            FULL_W ** 2 * 4, BOUNCES, scene.n_spheres, clock)
+        ref_sass["same_sass_as_parent"] = {
+            name: ref_sass["new"][name].get("sass_sha256") == ref_sass["parent"][name].get(
+                "sass_sha256") for name, _, _ in REF_SASS}
+    for name, _, _ in REF_SASS[:3]:
+        loop = ref_sass["new"].get(name, {})
+        require("cuobjdump" in ref_sass["new"] or (loop.get("per_bounce") and loop["LDL"] == 0
+                                                   and loop["STL"] == 0),
+                f"render_ref.cu {name}: bounce loop {loop}")
     phase("build", seconds=build_s, gpu=gpu, torch=torch.__version__,
           cuda=torch.version.cuda, ptxas=regs, render_pt_registers=pt_regs,
+          render_ref_registers=ref_regs, render_ref_sass=ref_sass, max_sm_clock_mhz=clock,
           bvh_registers=bvh_regs[0], mesh_pt_registers=mesh_regs,
           mesh_pt_blocks_per_sm=mesh_blocks,
           mesh_pt_queue_capacity=mpt.queue_overflows()["capacity"],
@@ -683,6 +983,9 @@ def main(argv=None) -> int:
             "launches": launches[RUN_OF[name]][name],
             "max_abs_err": max_err[name], "ms": med_ms(ker),
             "plain_ms": med_ms(plain), **bounds[name], "library_ms": None,
+            "registers": ref_regs[name],
+            "sass_per_bounce": ref_sass["new"].get(name, {}).get("per_bounce"),
+            "issue_floor_ms": ref_sass["new"].get(name, {}).get("issue_floor_ms"),
         })
         torch.cuda.empty_cache()
     phase("kernel_times_4M_8bounce", gpu=gpu,
@@ -2063,16 +2366,33 @@ def main(argv=None) -> int:
             saved = str(Path(tmp) / "ab_inputs.pt")
             torch.save(ab_saved, saved)
             del ab_saved
-            turns = {"parent": [], "new": []}
+            runs = {"parent": [], "new": []}
             for who in ("parent", "new", "new", "parent"):
-                turns[who].append(json.loads(run_in_tree(
+                runs[who].append(json.loads(run_in_tree(
                     parent if who == "parent" else REPO, AB_SCRIPT, [saved, *ab_names], 900)))
+        turns = {who: [r["ms"] for r in rs] for who, rs in runs.items()}
         ab.update({name: {"parent_ms": statistics.mean(t[name] for t in turns["parent"]),
                           "ms": statistics.mean(t[name] for t in turns["new"]),
                           "turns": {who: [t[name] for t in ts] for who, ts in turns.items()}}
                    for name in turns["new"][0]})
+        # Each tree's outputs repeat bit for bit in its two turns, and the
+        # reference kernels' outputs (colors, idx, gradients) equal the
+        # parent's bit for bit: the redesign keeps every operation.
+        digests = {who: rs[0]["digests"] for who, rs in runs.items()}
+        require(all(rs[0]["digests"] == rs[1]["digests"] for rs in runs.values()),
+                "A/B: a tree's outputs differ between its two turns")
+        differ = sorted(k for k in digests["new"] if digests["parent"].get(k) != digests["new"][k])
+        require(not differ, f"A/B: outputs differ from the parent's: {differ}")
+        ab["digests_equal_parent"] = sorted(digests["new"])
+        flips = {who: rs[0]["facts"].get("trail_differs_share") for who, rs in runs.items()}
+        if flips["new"] is not None:
+            require(flips["parent"] is None or flips["new"] <= flips["parent"],
+                    f"A/B: the share of rays whose trail differs from the twin's rose: {flips}")
+            ab["trail_differs_share"] = flips
     for name, frame in (("pt", "render_pt"), ("mesh_pt", "mesh_pt"), ("wbvh", "wbvh"),
-                        ("segsum", "segsum_replay"), ("bvh", "bvh_bounce1")):
+                        ("segsum", "segsum_replay"), ("bvh", "bvh_bounce1"),
+                        ("fwd", "ref_fwd"), ("fwd_idx", "ref_fwd_idx"),
+                        ("bwd_replay", "ref_bwd_replay"), ("bwd_recompute", "ref_bwd_recompute")):
         if isinstance(ab.get(frame), dict):
             next(r for r in rows if r["name"] == name)["parent_ms"] = ab[frame]["parent_ms"]
     phase("ab_vs_parent", gpu=gpu, parent=None if parent is None else str(parent),

@@ -96,6 +96,65 @@ def _reference_inputs(w, np_dt, device):
                                             dtype=t_dt))
 
 
+def _reference_scene(s, light, seed=0):
+    """[10, S] float64 planes of S spheres with cornell8's light at column
+    ``light`` and, in order, cornell8's six walls and mirror ball, then
+    balls of radius 3-10 inside the room (albedo 0.2-0.95, no emission):
+    S = 8 with the light at 7 is cornell8."""
+    base = scenes.cornell8().soa10(np.float64)
+    cols = [base[:, i] for i in range(base.shape[1]) if i != LIGHT]
+    rng = np.random.RandomState(seed + 100 * s + light)
+    while len(cols) < s - 1:
+        col = np.zeros(10)
+        col[0] = rng.uniform(3.0, 10.0) ** 2
+        col[1:4] = rng.uniform((15.0, 8.0, 20.0), (85.0, 70.0, 120.0))
+        col[7:10] = rng.uniform(0.2, 0.95, 3)
+        cols.append(col)
+    cols = cols[: s - 1]
+    cols.insert(light, base[:, LIGHT])
+    return np.stack(cols, axis=1)
+
+
+def _reference_case(s, light, n, dtype, device, seed=0):
+    """n of the 64 x 64 x 4 camera rays (all of them, or a seeded choice)
+    and :func:`_reference_scene` as the port's tensors in ``dtype``."""
+    rays = camera.generate_rays_numpy(64, 64, 1, seed=seed)
+    if n < rays.shape[0]:
+        rays = rays[np.sort(np.random.RandomState(n).choice(rays.shape[0], n, replace=False))]
+    np_dt = np.float32 if dtype == torch.float32 else np.float64
+    return (convert.rays_planes_from_numpy(rays.astype(np_dt), device=device, dtype=dtype),
+            convert.scene_planes_from_numpy(_reference_scene(s, light).astype(np_dt),
+                                            device=device, dtype=dtype))
+
+
+def _check_reference_kernels(rp, sp, light, bounces, eps=1e-4):
+    """Both forward kernels bitwise equal to the twin (colors, NaN equal
+    to NaN, and idx) and to each other; both backward kernels within
+    chip_smoke phase 5's rtol of their twins on a positive cotangent, and
+    equal bit for bit to their own second run.  Returns (colors, idx)."""
+    kw = dict(light_index=light, bounces=bounces, eps=eps)
+    exact = dict(rtol=0, atol=0, equal_nan=True)
+    c, idx = rk.render_reference_planes_with_idx(rp, sp, **kw)
+    cp, idxp = rk.render_reference_planes_with_idx_plain(rp, sp, **kw)
+    assert torch.equal(idx, idxp)
+    torch.testing.assert_close(c, cp, **exact)
+    torch.testing.assert_close(rk.render_reference_planes(rp, sp, **kw), c, **exact)
+    n = rp.shape[1]
+    g = torch.tensor(np.random.RandomState(n).uniform(0.5, 1.5, (3, n)), dtype=sp.dtype,
+                     device=sp.device)
+    rtol = 1e-5 if sp.dtype == torch.float32 else 1e-12
+    kw_b = dict(light_index=light, bounces=bounces)
+    pairs = ((lambda: rk.render_ref_bwd_replay(idx, sp, g, **kw_b),
+              rk.render_ref_bwd_replay_plain(idx, sp, g, **kw_b)),
+             (lambda: rk.render_ref_bwd(rp, sp, g, eps=eps, **kw_b),
+              rk.render_ref_bwd_plain(rp, sp, g, eps=eps, **kw_b)))
+    for kernel, plain in pairs:
+        got = kernel()
+        torch.testing.assert_close(got, plain, rtol=rtol, atol=0, equal_nan=True)
+        torch.testing.assert_close(kernel(), got, **exact)
+    return c, idx
+
+
 def _clustered(n, s, r):
     """Clustered ids (the replay stream's shape), 1% -1 and 1% s + 7."""
     rng = np.random.RandomState(n + s)
@@ -165,6 +224,85 @@ def test_render_wrapper_counts_launches(cuda):
     model = rk.RenderReference(sp, light_index=LIGHT, bounces=8)
     model(rp).sum().backward()
     assert rk.LAUNCHES == {"fwd": 0, "fwd_idx": 1, "bwd_replay": 1, "bwd_recompute": 0}
+
+
+# (S, light): every S the launchers dispatch to a kernel of its own is
+# represented at its edges, the light first and last; S = 8 with the light
+# at 7 is cornell8.
+REF_SCENES = [(1, 0), (2, 0), (2, 1), (8, 0), (8, 7), (9, 0), (9, 8), (16, 0), (16, 15)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,light", REF_SCENES)
+@pytest.mark.parametrize("bounces", [0, 1, 8])
+@pytest.mark.parametrize("n", [1, 31, 257, 64 * 64 * 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_reference_kernels_equal_twins_at_each_sphere_count(cuda, s, light, bounces, n, dtype):
+    rp, sp = _reference_case(s, light, n, dtype, cuda)
+    _check_reference_kernels(rp, sp, light, bounces)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_reference_kernels_give_a_tie_to_the_lowest_index(cuda, dtype):
+    rp, sp = _reference_case(9, 8, 64 * 64 * 4, dtype, cuda)
+    sp[:, 7] = sp[:, 6]  # the mirror ball twice: every ray that hits it ties
+    _, idx = _check_reference_kernels(rp, sp, 8, 8)
+    assert bool((idx == 6).any()) and not bool((idx == 7).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("light", [0, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_reference_kernels_on_rays_that_miss_every_sphere(cuda, light, dtype):
+    """Three balls behind the camera: every camera ray misses them (idx ==
+    S), takes the last sphere's shading and never ends on the light.  In
+    float64 a missed ray goes on from 1e20 away, where some later meet a
+    ball further than the miss distance: a miss, whose bounce takes that
+    distance, as the twin's argmin."""
+    rp, sp = _reference_case(3, light, 257, dtype, cuda)
+    sp[0, :] = 25.0
+    sp[1:4, :] = torch.tensor([[20.0, 50.0, 80.0], [40.0] * 3, [900.0] * 3], dtype=dtype)
+    c, idx = _check_reference_kernels(rp, sp, light, 8)
+    assert bool((idx[0] == 3).all()) and bool(torch.isfinite(c).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("eps", [0.0, -1e-3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_reference_kernels_with_eps_at_or_below_zero(cuda, eps, dtype):
+    rp, sp = _reference_case(8, 7, 64 * 64 * 4, dtype, cuda)
+    _check_reference_kernels(rp, sp, 7, 8, eps=eps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plane,sphere,value", [(7, 6, float("nan")), (8, 2, float("nan")),
+                                                (4, 7, float("inf")), (5, 7, float("-inf"))])
+@pytest.mark.parametrize("n", [257, 64 * 64 * 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_reference_kernels_on_a_nan_albedo_or_an_infinite_emission(cuda, plane, sphere, value,
+                                                                   n, dtype):
+    rp, sp = _reference_case(8, 7, n, dtype, cuda)
+    sp[plane, sphere] = value
+    _check_reference_kernels(rp, sp, 7, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 31, 257])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_reference_backwards_ignore_the_last_block_s_idle_threads(cuda, n, dtype):
+    """One sphere, the light, far off every camera ray, with an albedo
+    and an infinite emission: every ray misses it, stays alive and takes
+    its albedo, so each ray's albedo term is finite times inf.  The
+    twin's albedo gradient is inf; threads past N must add nothing to it
+    (inf times their zero accumulators would be NaN)."""
+    rp, sp = _reference_case(1, 0, n, dtype, cuda)
+    sp[:, 0] = torch.tensor([25.0, 5000.0, 40.0, 900.0, float("inf"), 1.0, 1.0, 0.5, 0.5, 0.5],
+                            dtype=dtype)
+    c, idx = _check_reference_kernels(rp, sp, 0, 1)
+    assert bool((idx == 1).all())
+    grad = rk.render_ref_bwd_replay(idx, sp, torch.ones_like(c), light_index=0, bounces=1)
+    assert bool(torch.isinf(grad[7, 0])) and bool(torch.isfinite(grad[8:10, 0]).all())
 
 
 @pytest.mark.cuda

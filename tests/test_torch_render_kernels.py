@@ -15,6 +15,8 @@ from ascendpathtracing_tpu.ops import pallas_kernels as pk
 from ascendpathtracing_tpu_torch import convert
 from ascendpathtracing_tpu_torch.ops import build
 from ascendpathtracing_tpu_torch.ops import render_kernels as rk
+from ascendpathtracing_tpu_torch.ops.intersect import sqrt_rn
+from tests.test_torch_cuda import _reference_scene
 from tests.test_torch_slice import one_cpu_thread  # noqa: F401  (autouse)
 
 LIGHT = 7
@@ -118,6 +120,105 @@ def test_plain_backwards_match_pallas_backwards(bounces):
     assert rep[0:4].abs().max() == 0.0 and rec[0:4].abs().max() == 0.0
     off_light = np.delete(np.arange(8), LIGHT)
     assert rep[4:7, off_light].abs().max() == 0.0
+
+
+# (S, light): the CUDA launchers dispatch each S to a kernel of its own,
+# so the twins are held to the Pallas kernels at S other than cornell8's,
+# the light first and last.
+SPHERE_COUNTS = [(1, 0), (9, 0), (9, 8), (16, 0), (16, 15)]
+
+
+def _scene_case(s, light, w=16):
+    """Camera rays (4 w^2, float64) and :func:`_reference_scene`'s planes,
+    as numpy and as the port's float64 tensors."""
+    rays = camera.generate_rays_numpy(w, w, 1, seed=s)
+    planes = _reference_scene(s, light)
+    return (rays, planes, convert.rays_planes_from_numpy(rays, dtype=torch.float64),
+            convert.scene_planes_from_numpy(planes, dtype=torch.float64))
+
+
+@pytest.mark.parametrize("s,light", SPHERE_COUNTS)
+def test_plain_forwards_match_pallas_at_each_sphere_count(s, light):
+    rays, planes, rp, sp = _scene_case(s, light)
+    kw = dict(light_index=light, bounces=3)
+    colors, idx = rk.render_reference_planes_with_idx(rp, sp, **kw)
+    jc, jidx = pk.render_reference_pallas_planes_with_idx(
+        jnp.asarray(rays.T.copy()), jnp.asarray(planes), tile=TILE, interpret=True, **kw
+    )
+    # A ray that misses starts its next bounce 1e20 away, where XLA's CPU
+    # arithmetic and the port's IEEE ops round its direction apart, and
+    # where the Pallas kernel keeps the miss distance for a hit further
+    # still that the twin, as the oracle's argmin, bounces from (only the
+    # open one-sphere scene has misses; its light's albedo is 0, so the
+    # colors do not depend on them): trails agree up to a first miss.
+    miss = idx.numpy() == s
+    after_miss = np.cumsum(miss, axis=0) - miss > 0
+    assert after_miss.any() == (s == 1)
+    np.testing.assert_array_equal(np.where(after_miss, -1, idx.numpy()),
+                                  np.where(after_miss, -1, np.asarray(jidx)))
+    np.testing.assert_allclose(colors.numpy(), np.asarray(jc), rtol=1e-12, atol=1e-12)
+    jf = pk.render_reference_pallas_planes(
+        jnp.asarray(rays.T.copy()), jnp.asarray(planes), tile=TILE, interpret=True, **kw
+    )
+    np.testing.assert_allclose(rk.render_reference_planes(rp, sp, **kw).numpy(), np.asarray(jf),
+                               rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("s,light", SPHERE_COUNTS)
+def test_plain_backwards_match_pallas_at_each_sphere_count(s, light):
+    """The float64 twins against the Pallas backwards, which take float32
+    only: the replay on the twin's trails, the recompute with the
+    cotangent zeroed on rays whose float32 Pallas trail differs (3
+    bounces: float32 and float64 trails part ways with depth)."""
+    rays, planes, rp, sp = _scene_case(s, light)
+    kw = dict(light_index=light, bounces=3)
+    _, idx = rk.render_reference_planes_with_idx(rp, sp, **kw)
+    r32, p32 = jnp.asarray(rays.T.astype(np.float32)), jnp.asarray(planes.astype(np.float32))
+    _, jidx = pk.render_reference_pallas_planes_with_idx(r32, p32, tile=TILE, interpret=True,
+                                                         **kw)
+    agree = (np.asarray(jidx) == idx.numpy()).all(axis=0)
+    assert agree.mean() >= 0.6, f"only {agree.mean():.1%} of trails agree"
+    g = np.random.RandomState(s).uniform(0.5, 1.5, (3, rays.shape[0])) * agree
+    g_j = jnp.asarray(g.astype(np.float32))
+    j_rep = np.asarray(pk._render_ref_bwd_replay(jnp.asarray(idx.numpy()), p32, g_j, tile=TILE,
+                                                 interpret=True, **kw))
+    j_rec = np.asarray(pk._render_ref_bwd(r32, p32, g_j, eps=1e-4, tile=TILE, interpret=True,
+                                          **kw))
+    rep = rk.render_ref_bwd_replay(idx, sp, torch.tensor(g), **kw)
+    rec = rk.render_ref_bwd(rp, sp, torch.tensor(g), **kw)
+    np.testing.assert_allclose(rep.numpy(), j_rep, rtol=1e-5)
+    np.testing.assert_allclose(rec.numpy(), j_rec, rtol=1e-5)
+    assert rep[7:10].abs().max() > 0 or s == 1
+
+
+def _discriminants(kind, dtype):
+    """Discriminants of one kind: random of either sign, +-0, subnormals,
+    +-inf or NaNs."""
+    rng = np.random.RandomState(0)
+    tiny = np.finfo(dtype).tiny
+    return {
+        "random": rng.randn(4096) * 10.0 ** rng.randint(-30, 30, 4096),
+        "zero": np.array([0.0, 0.0]),
+        "negative_zero": np.array([-0.0, -0.0]),
+        "subnormal": np.array([tiny / 2, tiny / 1024, -tiny / 2, -tiny / 1024]),
+        "inf": np.array([np.inf, -np.inf]),
+        "nan": np.array([np.nan, -np.nan]),
+    }[kind].astype(dtype)
+
+
+@pytest.mark.parametrize("kind", ["random", "zero", "negative_zero", "subnormal", "inf", "nan"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_sqrt_of_one_on_invalid_lanes_equals_sqrt_of_zero(kind, dtype):
+    """render_ref.cu's closest-hit takes valid ? sqrt(valid ? det : 1) : 0
+    where the Pallas kernel takes sqrt(valid ? det : 0), valid = det >= 0:
+    the same bits for every discriminant."""
+    det = torch.from_numpy(_discriminants(kind, dtype))
+    valid = det >= 0
+    new = torch.where(valid, sqrt_rn(torch.where(valid, det, 1.0)), 0.0)
+    old = sqrt_rn(torch.where(valid, det, 0.0))
+    bits = torch.int32 if dtype == np.float32 else torch.int64
+    assert new.dtype == old.dtype == det.dtype
+    assert torch.equal(new.view(bits), old.view(bits))
 
 
 @pytest.mark.parametrize("replay", [False, True])
