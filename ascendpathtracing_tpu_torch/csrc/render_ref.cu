@@ -26,7 +26,7 @@
 // design removes instructions:
 // - S is a template argument: the launchers dispatch S = 1..MAX_S to
 //   instantiations whose sphere loops are fully unrolled with no guard,
-//   and the recompute backward keeps 3 * S product-rule accumulators, not
+//   and both backwards keep 3 * S product-rule accumulators, not
 //   3 * MAX_S.
 // - The closest-hit loop reads r2, x, y, z from a constant bank
 //   (hit_bank_*): with S and the sphere index known at compile time they
@@ -40,12 +40,15 @@
 //   equals root(valid ? det : 0) bit for bit, but never hands sqrt the
 //   exact 0 that IEEE sqrtf sends to its called slow path (nvcc makes it a
 //   branch that invalid lanes skip).
-// The replay backward keeps a runtime S (up to MAX_S) and the shared
-// table.  The backward kernels reduce across blocks in two deterministic
-// passes: each block writes its partial sums to [n_blocks, NV] scratch,
-// and reduce_partials_kernel sums them in a fixed order, so two runs give
-// bitwise-equal gradients.  No float atomics.  The kernels allocate
-// nothing; the Python wrappers pass outputs and scratch.
+// The replay backward has no intersection: it rebuilds the albedo product
+// chain from the stored winners, so its bounce is the product rule alone
+// and its design removes that rule's instructions too (see the kernel).
+// The backward kernels reduce across blocks in two deterministic passes:
+// each block writes its 3 + 3S partial sums to column blockIdx.x of a
+// [3 + 3S, n_blocks] scratch, and reduce_partials_kernel sums each row in
+// a fixed order, so two runs give bitwise-equal gradients.  No float
+// atomics.  The kernels allocate nothing; the Python wrappers pass
+// outputs and scratch.
 //
 // Registers: see `nvcc --resource-usage` in the build log
 // (build/ascendpathtracing_tpu_torch/*.log) for the count and spills.
@@ -56,14 +59,12 @@
 #include <mutex>
 #include <type_traits>
 
-// MAX_S, PLANES, BLOCK, root, miss_t, load_scene (the replay's table).
+// MAX_S, PLANES, BLOCK, root, miss_t.
 #include "sphere_hit.cuh"
 
 namespace {
 
 constexpr int WARPS = BLOCK / 32;
-constexpr int NV = 3 + 3 * MAX_S;     // partial sums per block: 3 emission
-                                      // + 3 x MAX_S albedo (c * MAX_S + s)
 constexpr int HIT_PLANES = 4;         // r2 x y z: the closest-hit loop's
 
 // The closest-hit loop's scene scalars, [HIT_PLANES][S] (plane * S + s),
@@ -154,80 +155,109 @@ __device__ __forceinline__ void specular_bounce(T& ox, T& oy, T& oz, T& dx,
 }
 
 // One bounce of the product rule: dt[c][s] = d tput_c / d albedo[s]_c.
-// dt' = dt * m + (alive && s == gid) * tput, then tput' = tput * m, with
-// m = albedo[gid] while alive and 1 once the ray has ended.  W is the
-// table's width: MAX_S with a runtime s_count (the replay), or S with
-// s_count == S, where the guard folds away (the recompute).
-template <int W, typename T>
-__device__ __forceinline__ void product_rule_step(T (&dt)[3][W], T (&tput)[3],
-                                                  T (*sc)[W], int s_count,
-                                                  int gid, bool alive) {
-  const T mr = alive ? sc[7][gid] : T(1);
-  const T mg = alive ? sc[8][gid] : T(1);
-  const T mb = alive ? sc[9][gid] : T(1);
+// dt' = dt * m + pick_s * tput, then tput' = tput * m, with m =
+// albedo[gid] while alive and 1 once the ray has ended, and pick_s = 1
+// where alive && s == gid, else 0.  pick_s * tput_c is one of two products
+// taken once per bounce and channel and selected per entry: 0 * tput_c (a
+// zero of tput's sign; NaN for an infinite or NaN tput) and 1 * tput_c.
+// nvcc folds 1 * x to x, which differs from the product at most in a
+// NaN's payload; tput is 1 or the output of a multiply, whose NaN is
+// already the canonical one, so every entry keeps its bits.
+template <int S, typename T>
+__device__ __forceinline__ void product_rule_step(T (&dt)[3][S], T (&tput)[3],
+                                                  T (*sc)[S], int gid,
+                                                  bool alive) {
+  T m[3], zero[3], one[3];
 #pragma unroll
-  for (int s = 0; s < W; ++s) {
-    if (s < s_count) {
-      const T pick = (alive && s == gid) ? T(1) : T(0);
-      dt[0][s] = dt[0][s] * mr + pick * tput[0];
-      dt[1][s] = dt[1][s] * mg + pick * tput[1];
-      dt[2][s] = dt[2][s] * mb + pick * tput[2];
+  for (int c = 0; c < 3; ++c) {
+    m[c] = alive ? sc[7 + c][gid] : T(1);
+    zero[c] = T(0) * tput[c];
+    one[c] = T(1) * tput[c];
+  }
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const bool pick = alive && s == gid;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      dt[c][s] = dt[c][s] * m[c] + (pick ? one[c] : zero[c]);
     }
   }
-  tput[0] = tput[0] * mr;
-  tput[1] = tput[1] * mg;
-  tput[2] = tput[2] * mb;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) tput[c] = tput[c] * m[c];
 }
 
-template <typename T>
-__device__ __forceinline__ T warp_sum(T v) {
+// The warp's sums of P values per lane (P a multiple of 32), scattered:
+// afterwards lane L holds in v[0, P/32) the sums of values (P/32) * L + i.
+// Each step halves the values a lane keeps (the upper half where bit O of
+// the lane is set): lanes L and L ^ O swap the halves the other keeps and
+// add (O = 16, 8, .., 1),
+// about P shuffles in all where P warp sums take 5P.  Each value's sum is
+// the tree of a __shfl_down_sync warp sum (offsets 16, 8, .., 1: lanes
+// that differ in bit 4 first, then bit 3, ...), and float addition
+// commutes, so it has that warp sum's bits.
+template <int O, int H, typename T, int P>
+__device__ __forceinline__ void warp_reduce_scatter(T (&v)[P], int lane) {
+  if constexpr (O > 0) {
+    const bool up = (lane & O) != 0;
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    v += __shfl_down_sync(0xffffffffu, v, off);
+    for (int i = 0; i < H; ++i) {
+      const T send = up ? v[i] : v[i + H];
+      const T keep = up ? v[i + H] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+    }
+    warp_reduce_scatter<O / 2, H / 2>(v, lane);
   }
-  return v;
+}
+
+// The ray's cotangent g[:, r], zeros for a thread past N.
+template <typename T>
+__device__ __forceinline__ void load_cotangent(T (&gc)[3],
+                                               const T* __restrict__ g,
+                                               int64_t n, int64_t r,
+                                               bool in_range) {
+#pragma unroll
+  for (int c = 0; c < 3; ++c) gc[c] = in_range ? g[c * n + r] : T(0);
 }
 
 // Sums each thread's contributions over the block and writes the block's
-// NV partials.  Contributions: g_c * tput_c (emission of the light) and
-// g_c * emission_c * dt[c][s] (albedo).  Threads past N pass in_range =
-// false and contribute zeros (not 0 * emission, NaN for an infinite
-// emission); every thread of the block must call this.
-// W and s_count as in product_rule_step; the partials' layout is NV wide
-// whatever W, and only the s_count spheres' columns are written.
-template <int W, typename T>
+// 3 + 3S partials to column blockIdx.x of the [3 + 3S, gridDim.x]
+// scratch: row c, g_c * tput_c (emission of the light); row 3 + c*S + s,
+// g_c * emission_c * dt[c][s] (albedo), gc the ray's cotangent.  Threads
+// past N pass in_range = false and gc = 0 and contribute zeros (not 0 *
+// emission, NaN for an infinite emission); every thread of the block must
+// call this.  The warps' sums (warp_reduce_scatter) meet in shared
+// memory, and each row's are added in warp order.
+template <int S, typename T>
 __device__ __forceinline__ void write_block_partials(
-    const T (&dt)[3][W], const T (&tput)[3], T (*sc)[W],
-    const T* __restrict__ g, int64_t n, int64_t r, bool in_range, int s_count,
-    int light, T* __restrict__ partial) {
-  __shared__ T red[WARPS][NV];
+    const T (&dt)[3][S], const T (&tput)[3], T (*sc)[S], const T (&gc)[3],
+    bool in_range, int light, T* __restrict__ partial) {
+  constexpr int V = 3 + 3 * S;
+  constexpr int P = 32 * ((V + 31) / 32);  // padded to whole lanes
+  __shared__ T red[WARPS][V];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  T gc[3];
+  T v[P];
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    gc[c] = in_range ? g[c * n + r] : T(0);
-  }
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    const T e = warp_sum(gc[c] * tput[c]);
-    if (lane == 0) red[warp][c] = e;
+    v[c] = gc[c] * tput[c];
     const T ge = in_range ? gc[c] * sc[4 + c][light] : T(0);
 #pragma unroll
-    for (int s = 0; s < W; ++s) {
-      if (s < s_count) {
-        const T a = warp_sum(ge * dt[c][s]);
-        if (lane == 0) red[warp][3 + c * MAX_S + s] = a;
-      }
-    }
+    for (int s = 0; s < S; ++s) v[3 + c * S + s] = ge * dt[c][s];
+  }
+#pragma unroll
+  for (int i = V; i < P; ++i) v[i] = T(0);
+  warp_reduce_scatter<16, P / 2>(v, lane);
+  const int first = (P / 32) * lane;
+#pragma unroll
+  for (int i = 0; i < P / 32; ++i) {
+    if (first + i < V) red[warp][first + i] = v[i];
   }
   __syncthreads();
-  for (int j = threadIdx.x; j < NV; j += BLOCK) {
-    if (j >= 3 && (j - 3) % MAX_S >= s_count) continue;  // sphere >= S
+  for (int j = threadIdx.x; j < V; j += BLOCK) {
     T acc = red[0][j];
 #pragma unroll
     for (int w = 1; w < WARPS; ++w) acc += red[w][j];
-    partial[static_cast<int64_t>(blockIdx.x) * NV + j] = acc;
+    partial[static_cast<int64_t>(j) * gridDim.x + blockIdx.x] = acc;
   }
 }
 
@@ -278,35 +308,76 @@ __global__ void __launch_bounds__(BLOCK)
 // ascendpathtracing_tpu/ops/pallas_kernels.py: no intersection, the albedo
 // product chain is rebuilt from the stored winners.  Bound on the H100:
 // HBM, 4*B bytes of idx plus 12 B of cotangent per ray, against about
-// 6*S+6 flops per ray-bounce, then the block reduction of NV sums.
+// 6*S+6 flops per ray-bounce, then the block reduction of 3 + 3S sums.
+// Under the parity rule no multiply-add fuses, so the bounce is issue
+// bound well above the byte bound; the design removes instructions:
+// - S is a template argument (launch_bwd_replay dispatches S = 1..MAX_S):
+//   3 x S accumulators in registers with no guard, not 3 x MAX_S.
+// - One 0 * tput and one 1 * tput per bounce and channel, selected per
+//   accumulator (product_rule_step), not a multiply per accumulator.
+// - A ray's winners are loaded kUnroll bounces at a time ahead of their
+//   product-rule steps, so their loads overlap, and its cotangent before
+//   the bounces, which hide its latency.
+// - The epilogue scatters the warp's sums (warp_reduce_scatter), about
+//   3 + 3S shuffles a lane where 3 + 3S warp sums take five times that.
+// Dead rays run on: a ray that ended still multiplies by 1 and adds
+// 0 * tput, whose -0 and NaN (0 * inf) the twin's gradient keeps.
 // ---------------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(BLOCK)
+constexpr int kUnroll = 8;  // the main path's bounces
+
+// One replayed bounce of winner id: id == S is a miss, which takes the
+// last sphere's albedo and is never a light hit.
+template <int S, typename T>
+__device__ __forceinline__ void replay_step(T (&dt)[3][S], T (&tput)[3],
+                                            T (*sc)[S], int light, int id,
+                                            bool& alive) {
+  alive = alive && id != light;
+  product_rule_step(dt, tput, sc, (id >= 0 && id < S) ? id : S - 1, alive);
+}
+
+// __launch_bounds__(BLOCK, 1): left to its own register target, ptxas
+// spilled in some instantiations (float S = 7; double S = 5, 7, 11, 12);
+// asked for one resident block per SM only, it spills in none, and the
+// float S = 8 kernel takes 64 registers (4 blocks of 256 per SM, as at the
+// 52 to 58 it took unasked).  Asking for 5 blocks (48 registers) spilled
+// in the bounce loop and was slower.
+template <typename T, int S>
+__global__ void __launch_bounds__(BLOCK, 1)
     render_ref_bwd_replay_kernel(const T* __restrict__ scene,
                                  const int32_t* __restrict__ idx,
                                  const T* __restrict__ g,
                                  T* __restrict__ partial, int64_t n,
-                                 int s_count, int light, int bounces) {
-  __shared__ T sc[PLANES][MAX_S];
-  load_scene(sc, scene, s_count);
+                                 int light, int bounces) {
+  __shared__ T sc[PLANES][S];
+  load_scene_fixed<S>(sc, scene);
   const int64_t r = static_cast<int64_t>(blockIdx.x) * BLOCK + threadIdx.x;
   const bool in_range = r < n;
 
   T tput[3] = {T(1), T(1), T(1)};
-  T dt[3][MAX_S] = {};
+  T dt[3][S] = {};
+  T gc[3];
+  load_cotangent(gc, g, n, r, in_range);  // in flight during the bounces
   if (in_range) {
-    const int last = s_count - 1;
     bool alive = true;
-    for (int k = 0; k < bounces; ++k) {
-      const int id = idx[static_cast<int64_t>(k) * n + r];
-      // id == S is a miss: the last sphere's albedo, never a light hit.
-      alive = alive && id != light;
-      const int gid = (id >= 0 && id < s_count) ? id : last;
-      product_rule_step(dt, tput, sc, s_count, gid, alive);
+    const int32_t* __restrict__ ids = idx + r;
+    int k = 0;
+    for (; k + kUnroll <= bounces; k += kUnroll) {
+      int id[kUnroll];
+#pragma unroll
+      for (int j = 0; j < kUnroll; ++j) {
+        id[j] = ids[static_cast<int64_t>(k + j) * n];
+      }
+#pragma unroll
+      for (int j = 0; j < kUnroll; ++j) {
+        replay_step(dt, tput, sc, light, id[j], alive);
+      }
+    }
+    for (; k < bounces; ++k) {
+      replay_step(dt, tput, sc, light, ids[static_cast<int64_t>(k) * n],
+                  alive);
     }
   }
-  write_block_partials(dt, tput, sc, g, n, r, in_range, s_count, light,
-                       partial);
+  write_block_partials(dt, tput, sc, gc, in_range, light, partial);
 }
 
 // ---------------------------------------------------------------------------
@@ -348,35 +419,35 @@ __global__ void __launch_bounds__(BLOCK, (RecomputeMinBlocks<T, S>::value))
       specular_bounce(ox, oy, oz, dx, dy, dz, tmin, sc[1][gid], sc[2][gid],
                       sc[3][gid]);
       alive = alive && win != light;
-      product_rule_step(dt, tput, sc, S, gid, alive);
+      product_rule_step(dt, tput, sc, gid, alive);
     }
   }
-  write_block_partials(dt, tput, sc, g, n, r, in_range, S, light, partial);
+  T gc[3];
+  load_cotangent(gc, g, n, r, in_range);
+  write_block_partials(dt, tput, sc, gc, in_range, light, partial);
 }
 
-// Second pass of both backwards: one block per element of grad[10, S].
-// Rows 0-3, and rows 4-6 off the light column, are exact zeros (the
-// render depends on geometry only through discrete winners).  The others
-// sum their column of the [n_blocks, NV] partials: each thread walks a
-// fixed stride, then a fixed tree.  The order never changes, so repeated
-// runs are bitwise equal.
+// Second pass of both backwards: one block per row j of the [3 + 3S,
+// n_blocks] partials, which sums the row into its element of grad[10, S]
+// (row c: grad[4 + c][light]; row 3 + c*S + s: grad[7 + c][s]): each
+// thread walks a fixed stride of consecutive blocks, then a fixed tree.
+// The order never changes, so repeated runs are bitwise equal.  Rows 0-3,
+// and rows 4-6 off the light column, are exact zeros (the render depends
+// on geometry only through discrete winners); block 0 writes them.
 template <typename T>
 __global__ void __launch_bounds__(BLOCK)
     reduce_partials_kernel(const T* __restrict__ partial, int64_t n_blocks,
                            int s_count, int light, T* __restrict__ grad) {
-  const int p = blockIdx.x / s_count;
-  const int s = blockIdx.x % s_count;
-  int j = -1;
-  if (p >= 4 && p <= 6 && s == light) j = p - 4;
-  if (p >= 7) j = 3 + (p - 7) * MAX_S + s;
-  if (j < 0) {
-    if (threadIdx.x == 0) grad[blockIdx.x] = T(0);
-    return;  // uniform over the block
+  const int j = blockIdx.x;
+  if (j == 0) {
+    for (int i = threadIdx.x; i < 7 * s_count; i += BLOCK) {
+      if (i < 4 * s_count || i % s_count != light) grad[i] = T(0);
+    }
   }
+  const T* __restrict__ row = partial + static_cast<int64_t>(j) * n_blocks;
   T acc = T(0);
-  for (int64_t b = threadIdx.x; b < n_blocks; b += BLOCK) {
-    acc += partial[b * NV + j];
-  }
+#pragma unroll 8
+  for (int64_t b = threadIdx.x; b < n_blocks; b += BLOCK) acc += row[b];
   __shared__ T red[BLOCK];
   red[threadIdx.x] = acc;
   __syncthreads();
@@ -385,7 +456,11 @@ __global__ void __launch_bounds__(BLOCK)
     if (threadIdx.x < w) red[threadIdx.x] += red[threadIdx.x + w];
     __syncthreads();
   }
-  if (threadIdx.x == 0) grad[blockIdx.x] = red[0];
+  if (threadIdx.x == 0) {
+    const int e = j - 3;  // the albedo rows: channel e / S, sphere e % S
+    grad[j < 3 ? (4 + j) * s_count + light
+               : (7 + e / s_count) * s_count + e % s_count] = red[0];
+  }
 }
 
 bool bad_args(long long n, int s_count, int light, int bounces) {
@@ -480,7 +555,7 @@ int launch_fwd(const void* rays, const void* scene, void* out, void* idx,
 template <typename T>
 int launch_reduce(const void* partial, long long n, int s_count, int light,
                   void* grad, cudaStream_t st) {
-  reduce_partials_kernel<T><<<PLANES * s_count, BLOCK, 0, st>>>(
+  reduce_partials_kernel<T><<<3 + 3 * s_count, BLOCK, 0, st>>>(
       static_cast<const T*>(partial), (n + BLOCK - 1) / BLOCK, s_count, light,
       static_cast<T*>(grad));
   return cudaGetLastError();
@@ -493,10 +568,13 @@ int launch_bwd_replay(const void* scene, const void* idx, const void* g,
   if (bad_args(n, s_count, light, bounces)) return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   if (n > 0) {
-    render_ref_bwd_replay_kernel<T><<<grid_for(n), BLOCK, 0, st>>>(
-        static_cast<const T*>(scene), static_cast<const int32_t*>(idx),
-        static_cast<const T*>(g), static_cast<T*>(partial), n, s_count, light,
-        bounces);
+    with_sphere_count(s_count, [&](auto size) {
+      constexpr int S = decltype(size)::value;
+      render_ref_bwd_replay_kernel<T, S><<<grid_for(n), BLOCK, 0, st>>>(
+          static_cast<const T*>(scene), static_cast<const int32_t*>(idx),
+          static_cast<const T*>(g), static_cast<T*>(partial), n, light,
+          bounces);
+    });
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
@@ -536,7 +614,6 @@ extern "C" {
 
 int apt_block_size() { return BLOCK; }
 int apt_max_spheres() { return MAX_S; }
-int apt_partial_width() { return NV; }
 const char* apt_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -14,7 +14,7 @@ inputs, then:
 |---|---|---|
 | ``render_reference_planes`` | ``render_ref_fwd_kernel<T, false, S>`` | ``_render_ref_kernel`` |
 | ``render_reference_planes_with_idx`` | ``render_ref_fwd_kernel<T, true, S>`` | ``_render_ref_fwd_idx_kernel`` |
-| ``render_ref_bwd_replay`` | ``render_ref_bwd_replay_kernel`` | ``_render_ref_bwd_replay_kernel`` |
+| ``render_ref_bwd_replay`` | ``render_ref_bwd_replay_kernel<T, S>`` | ``_render_ref_bwd_replay_kernel`` |
 | ``render_ref_bwd`` | ``render_ref_bwd_recompute_kernel<T, S>`` | ``_render_ref_bwd_kernel`` |
 
 (S, the scene's sphere count, is a template argument: the library holds
@@ -39,7 +39,6 @@ from ascendpathtracing_tpu_torch.ops import build
 
 MAX_S = 16  # csrc/render_ref.cu MAX_S
 BLOCK = 256  # csrc/render_ref.cu BLOCK: rays per CUDA block
-NV = 3 + 3 * MAX_S  # csrc/render_ref.cu NV: partial sums per block
 
 #: Kernel launches per wrapper, counted where the launch succeeded.
 LAUNCHES = {"fwd": 0, "fwd_idx": 0, "bwd_replay": 0, "bwd_recompute": 0}
@@ -69,7 +68,7 @@ def load_library() -> ctypes.CDLL:
     lib = build.load("render_ref")
     if getattr(lib, "_apt_declared", False):
         return lib
-    for name in ("apt_block_size", "apt_max_spheres", "apt_partial_width"):
+    for name in ("apt_block_size", "apt_max_spheres"):
         getattr(lib, name).argtypes = ()
         getattr(lib, name).restype = _I
     lib.apt_error_string.argtypes = (_I,)
@@ -79,9 +78,9 @@ def load_library() -> ctypes.CDLL:
             fn = getattr(lib, f"{stem}_{suffix}")
             fn.argtypes = sig
             fn.restype = _I
-    sizes = (lib.apt_block_size(), lib.apt_max_spheres(), lib.apt_partial_width())
-    if sizes != (BLOCK, MAX_S, NV):
-        raise RuntimeError(f"library sizes {sizes} != module sizes {(BLOCK, MAX_S, NV)}")
+    sizes = (lib.apt_block_size(), lib.apt_max_spheres())
+    if sizes != (BLOCK, MAX_S):
+        raise RuntimeError(f"library sizes {sizes} != module sizes {(BLOCK, MAX_S)}")
     lib._apt_declared = True
     return lib
 
@@ -175,9 +174,11 @@ def render_reference_planes_with_idx_plain(
     return _colors(tput, scene_planes, light_index), idx
 
 
-def render_ref_bwd_replay_plain(idx, scene_planes, g, *, light_index, bounces):
-    """Plain twin of :func:`render_ref_bwd_replay`: the albedo product
-    chain rebuilt from the winners, contracted with the cotangent."""
+def replay_terms_plain(idx, scene_planes, g, *, light_index, bounces):
+    """Each ray's terms of the replay's gradient: the albedo product chain
+    rebuilt from the winners, times the cotangent.  Returns g * tput [3, N]
+    (the light's emission) and g * emission * dt [S, 3, N] (the albedos,
+    dt[s, c] = d tput_c / d albedo[s]_c)."""
     s = scene_planes.shape[1]
     n = idx.shape[1]
     dtype, device = scene_planes.dtype, scene_planes.device
@@ -195,10 +196,21 @@ def render_ref_bwd_replay_plain(idx, scene_planes, g, *, light_index, bounces):
         pick = ((spheres == gid) & alive).to(dtype)
         dt = dt * m + pick[:, None, :] * tput
         tput = tput * m
-    grad = torch.zeros((10, s), dtype=dtype, device=device)
-    grad[4:7, light_index] = (g * tput).sum(dim=1)
     ge = g * scene_planes[4:7, light_index][:, None]
-    grad[7:10] = (ge * dt).sum(dim=2).T
+    return g * tput, ge * dt
+
+
+def render_ref_bwd_replay_plain(idx, scene_planes, g, *, light_index, bounces):
+    """Plain twin of :func:`render_ref_bwd_replay`: the sums over rays of
+    :func:`replay_terms_plain`."""
+    emission, albedo = replay_terms_plain(
+        idx, scene_planes, g, light_index=light_index, bounces=bounces
+    )
+    grad = torch.zeros(
+        (10, scene_planes.shape[1]), dtype=scene_planes.dtype, device=scene_planes.device
+    )
+    grad[4:7, light_index] = emission.sum(dim=1)
+    grad[7:10] = albedo.sum(dim=2).T
     return grad
 
 
@@ -257,8 +269,9 @@ def render_reference_planes_with_idx(
     return out, idx
 
 
-def _partials(n, like):
-    return torch.empty((-(-n // BLOCK), NV), dtype=like.dtype, device=like.device)
+def _partials(n, s, like):
+    """The backwards' scratch: [3 + 3S, n_blocks], a column per block."""
+    return torch.empty((3 + 3 * s, -(-n // BLOCK)), dtype=like.dtype, device=like.device)
 
 
 def render_ref_bwd_replay(idx, scene_planes, g, *, light_index, bounces):
@@ -272,7 +285,7 @@ def render_ref_bwd_replay(idx, scene_planes, g, *, light_index, bounces):
             idx, scene_planes, g, light_index=light_index, bounces=bounces
         )
     grad = torch.empty((10, s), dtype=scene_planes.dtype, device=g.device)
-    partial = _partials(n, g)
+    partial = _partials(n, s, g)
     _launch(
         "bwd_replay", "apt_render_ref_bwd_replay", g,
         scene_planes.data_ptr(), idx.data_ptr(), g.data_ptr(),
@@ -293,7 +306,7 @@ def render_ref_bwd(rays_planes, scene_planes, g, *, light_index, bounces, eps=1e
             bounces=bounces, eps=eps,
         )
     grad = torch.empty((10, s), dtype=scene_planes.dtype, device=g.device)
-    partial = _partials(n, g)
+    partial = _partials(n, s, g)
     _launch(
         "bwd_recompute", "apt_render_ref_bwd_recompute", g,
         rays_planes.data_ptr(), scene_planes.data_ptr(), g.data_ptr(),

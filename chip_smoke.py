@@ -58,7 +58,8 @@ are counted in the run its ``run`` field names; ``bound_ms`` is the
 larger of its bytes over 3.35 TB/s and its operations over 67 TFLOP/s,
 reckoned from this run's inputs); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
-Without a CUDA device it prints no result and exits 1.
+Without a CUDA device, or run alone (a directory that holds this script
+and not the package beside it), it prints no result and exits 1.
 """
 
 from __future__ import annotations
@@ -348,14 +349,14 @@ SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+([^;]*?)\s*;")
 SASS_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
 SASS_BRA = re.compile(r"\bBRA(?:\.\w+)*\s+(?:`\()?(0x[0-9a-f]+|\.L_x_\d+)")
 # The reference kernels of render_ref.cu whose SASS the build phase
-# counts: (name in the report, mangled-name stem, a mangled template
-# argument the instantiation must carry, or None).  Float32, and the
-# redesigned kernels at cornell8's S = 8 (``Li8E``; the parent's kernels
-# take S at run time and carry none).
+# counts: (name in the report, mangled-name stem, the mangled template
+# argument the instantiation must carry).  Float32 at cornell8's S = 8
+# (``Li8E``; a tree whose kernel takes S at run time carries none, and
+# ref_sass_report then takes its one instantiation).
 REF_SASS = (("fwd", "render_ref_fwd_kernelIfLb0E", "Li8E"),
             ("fwd_idx", "render_ref_fwd_kernelIfLb1E", "Li8E"),
             ("bwd_recompute", "render_ref_bwd_recompute_kernelIf", "Li8E"),
-            ("bwd_replay", "render_ref_bwd_replay_kernelIf", None))
+            ("bwd_replay", "render_ref_bwd_replay_kernelIf", "Li8E"))
 
 
 def sass_functions(text: str) -> dict:
@@ -532,7 +533,7 @@ def ref_sass_report(lib: Path, n_rays: int, bounces: int, spheres: int, clock_mh
                                           text=True, check=True, timeout=300).stdout)
     out = {}
     for name, stem, arg in REF_SASS:
-        fn = next((f for f in funcs if stem in f and (arg is None or arg in f
+        fn = next((f for f in funcs if stem in f and (arg in f
                                                      or "Li" not in f.split(stem)[1][:4])), None)
         if fn is None:
             out[name] = {"function": None}
@@ -657,6 +658,11 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is false; a CUDA card is "
               "required", file=sys.stderr)
         return 1
+    if not (REPO / "ascendpathtracing_tpu_torch" / "__init__.py").exists():
+        # run alone, away from a checkout: nothing to build or drive
+        print(f"chip_smoke: no ascendpathtracing_tpu_torch package beside {Path(__file__).name} "
+              f"in {REPO}; run it from the root of a checkout", file=sys.stderr)
+        return 1
 
     import numpy as np
 
@@ -751,8 +757,7 @@ def main(argv=None) -> int:
     # local memory (LDL/STL) in the loop; with --parent the parent's too.
     ref_log = build.library_path("render_ref").with_suffix(".log").read_text()
     ref_regs = {name: n for name, stem, arg in REF_SASS
-                for k, n in registers_by_kernel(ref_log).items()
-                if stem in k and (arg is None or arg in k)}
+                for k, n in registers_by_kernel(ref_log).items() if stem in k and arg in k}
     ref_spills = {k: v for k, v in spills_by_kernel(ref_log).items() if v != (0, 0)}
     require(sorted(ref_regs) == sorted(r[0] for r in REF_SASS) and not ref_spills,
             f"render_ref.cu: registers {ref_regs}, spills {ref_spills}")
@@ -766,7 +771,7 @@ def main(argv=None) -> int:
         ref_sass["same_sass_as_parent"] = {
             name: ref_sass["new"][name].get("sass_sha256") == ref_sass["parent"][name].get(
                 "sass_sha256") for name, _, _ in REF_SASS}
-    for name, _, _ in REF_SASS[:3]:
+    for name, _, _ in REF_SASS:
         loop = ref_sass["new"].get(name, {})
         require("cuobjdump" in ref_sass["new"] or (loop.get("per_bounce") and loop["LDL"] == 0
                                                    and loop["STL"] == 0),
@@ -966,7 +971,10 @@ def main(argv=None) -> int:
                           lambda: rk.render_ref_bwd_plain(rp, sp, g1, **kw)),
     }
     # Bounds at this run's inputs: n rays x 8 bounces of cornell8 (8
-    # spheres); reference mode runs every bounce of every ray.
+    # spheres); reference mode runs every bounce of every ray.  The bounds
+    # count the function's own bytes, not the backwards' [3 + 3S, n_blocks]
+    # scratch, which is this implementation's choice (its bytes, written
+    # and read once, print beside the replay's split).
     s8 = scene.n_spheres
     ray_ops = n * BOUNCES * (SPHERE_OPS * s8 + REF_SHADE_OPS)
     bounds = {
@@ -988,8 +996,20 @@ def main(argv=None) -> int:
             "issue_floor_ms": ref_sass["new"].get(name, {}).get("issue_floor_ms"),
         })
         torch.cuda.empty_cache()
+    # The replay's two launches, its kernel and the pass that sums the
+    # blocks' partials, by the profiler's device time per kernel name (as
+    # ``bench --profile`` gathers it), ms per call.
+    split = bench.profile_steps(calls["bwd_replay"][0], iters=10, top=4)
+    replay_split = {key: sum(ms for name, ms in split["top_device_ms_per_step"] if key in name)
+                    for key in ("render_ref_bwd_replay_kernel", "reduce_partials_kernel")}
+    require(all(v > 0 for v in replay_split.values()),
+            f"replay split: no device time for a kernel {split}")
+    next(r for r in rows if r["name"] == "bwd_replay")["split_ms"] = replay_split
     phase("kernel_times_4M_8bounce", gpu=gpu,
-          **{r["name"]: {"ms": r["ms"], "plain_ms": r["plain_ms"]} for r in rows})
+          **{r["name"]: {"ms": r["ms"], "plain_ms": r["plain_ms"]} for r in rows},
+          bwd_replay_split_ms=replay_split,
+          bwd_replay_profile=split,
+          bwd_scratch_bytes=2 * 4 * (3 + 3 * s8) * -(-n // rk.BLOCK))
 
     # ---- 8. entry points -----------------------------------------------
     with tempfile.TemporaryDirectory() as tmp:

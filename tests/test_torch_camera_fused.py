@@ -148,6 +148,82 @@ def test_kstats_match_pallas(tables, pallas):
     assert (ks2 == jks2).mean() >= 0.99
 
 
+# The ragged grid: icosphere s2 (320 faces) of radius 14 around (3, 3, 3)
+# in chunks of 8, 6 a super: 40 chunks, so the last of 7 supers holds 4
+# and two pad chunks.  A pad's box is build_chunk_grid's inverted [1, 1,
+# 1]-[-1, -1, -1], which the slab test's min/max swap makes [-1, 1]^3:
+# inside the sphere's hollow, outside the last super's box.  One emitting
+# sphere of radius 1000 around it all, and a camera 40 units from the
+# origin on the default direction, looking at it.
+RAGGED_PADS = 2
+#: Pad chunks the Pallas kernel lists and the port does not, summed over
+#: the cells: the allowance of the test below (reference faults 5 and 6).
+RAGGED_PAD_EXTRA = 8
+
+
+def _ragged_case():
+    v, f = jax_meshes.icosphere(center=(3.0, 3.0, 3.0), radius=14.0, subdivisions=2)
+    ms = jax_mesh.MeshScene.cornell_with_mesh(v, f, albedo=(0.85, 0.55, 0.2))
+    _, cb, sb, t24, _, grid = jax_mpt.mesh_pt_tables(ms, tris_per_chunk=8, supers_per=6)
+    planes = np.array([[1e6], [0.0], [0.0], [0.0], [1.0], [1.0], [1.0], [0.5], [0.5], [0.5]],
+                      np.float32)
+    cam = np.array(ptk.camera_constants(W, H), np.float32)
+    cam[0:3] = -40.0 * cam[3:6]
+    cam[10] = 0.0
+    return planes, cb, sb, t24, grid, cam
+
+
+def test_kstats_on_a_ragged_grid_with_pads_outside_their_super(monkeypatch):
+    """with_stats on a grid whose pad chunks lie outside their super, at 1
+    bounce: the supers equal the Pallas interpreter's, and the chunks too,
+    except the pad chunks the Pallas kernel lists and the port does not.
+    The Pallas kernel tests a hit super's chunks against every lane of the
+    cell, so it lists a pad chunk when one lane enters the super and
+    another passes [-1, 1]^3; the port lists a chunk a ray enters through
+    its super, as the twin's walk.  A model of both listings on the twin's
+    own rays gives the difference, cell by cell: the two pad chunks in
+    each of the 4 cells, RAGGED_PAD_EXTRA in all, and nothing else."""
+    planes, cb, sb, t24, grid, cam = _ragged_case()
+    n_real = int((grid.cboxes[:, 0] <= grid.cboxes[:, 3]).sum())
+    assert n_real % grid.supers_per and grid.cboxes.shape[0] - n_real == RAGGED_PADS
+    _, jks = jax_mpt.render_pt_mesh_pallas(
+        planes, cb, sb, t24, width=W, height=H, spp4=SPP4, materials=(0,), bounces=1,
+        rr_depth=RR, tile=TILE, interpret=True, with_stats=True, cam=jnp.asarray(cam),
+        **jax_mpt.pt_tables_kwargs(grid))
+    jks = np.asarray(jks)
+
+    pg_cb, pg_sb = grid.cboxes.tolist(), grid.sboxes.tolist()
+    per = grid.supers_per
+    listed = {"pallas": [], "port": []}  # chunks per cell (layer), in call order
+    walk = mpt.walk_plain
+
+    def model(g, o3, d3, tmin, *, gate, marks, **kw):
+        inv = [1.0 / torch.where(d == 0, 1e-30, d) for d in d3]
+        ray = (*o3, *inv)
+        enter = mpt._slab_all(pg_cb, ray, gate)  # [M, C]
+        sup = mpt._slab_all(pg_sb, ray, gate).repeat_interleave(per, dim=1)
+        assert bool((marks[0] == 0).all())  # one cell per layer
+        listed["pallas"].append(int((sup.any(0) & enter.any(0)).sum()))
+        listed["port"].append(int((sup & enter).any(0).sum()))
+        return walk(g, o3, d3, tmin, gate=gate, marks=marks, **kw)
+
+    monkeypatch.setattr(mpt, "walk_plain", model)
+    p, c, s, ss, t = convert.mesh_tables_from_numpy(planes, cb, sb, None, t24)
+    _, ks = mpt.render_pt_mesh(
+        p, c, s, t, ss, materials=torch.tensor([0], dtype=torch.int32), width=W, height=H,
+        spp4=SPP4, tris_per_chunk=grid.tris_per_chunk, supers_per=per, bounces=1,
+        rr_depth=RR, uniforms=torch.zeros((SPP4, ptk.n_uniforms(1), W * H)),
+        cam=torch.tensor(cam), with_stats=True, stats_tile=TILE)
+    ks = ks.numpy()
+    assert len(listed["port"]) == SPP4
+    np.testing.assert_array_equal(ks[1:], jks[1:])  # supers (and no super-supers)
+    np.testing.assert_array_equal(ks[0], listed["port"])
+    np.testing.assert_array_equal(jks[0], listed["pallas"])
+    extra = jks[0] - ks[0]
+    assert int(extra.min()) >= 0 and int(extra.max()) <= RAGGED_PADS
+    assert int(extra.sum()) == RAGGED_PAD_EXTRA
+
+
 def test_kstats_per_pixel_cells_sum_to_the_walk_counts(tables):
     """A one-pixel cell holds one path, so its union is that path's own
     walk: summed over the cells, the chunk rows equal the twin's walk

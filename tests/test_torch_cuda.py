@@ -30,6 +30,7 @@ from ascendpathtracing_tpu_torch.ops import mesh_pt_kernels as mpt
 from ascendpathtracing_tpu_torch.ops import pt_kernels as ptk
 from ascendpathtracing_tpu_torch.ops import render_kernels as rk
 from ascendpathtracing_tpu_torch.ops import wbvh_kernels as wk
+from tests import test_torch_ref_reduce_order as rro
 
 LIGHT = 7  # cornell8's light
 TRAVERSALS = [  # (subdivisions, tris_per_chunk, supers_per, supers2_per)
@@ -199,6 +200,29 @@ def _layer_stack(layers=64):
     return np.asarray(v, np.float64), np.asarray(f, np.int64)
 
 
+def _permuted_stack(layers, seed):
+    """:func:`_layer_stack` with its faces in a seeded order (so a ray's
+    nearest plate sits at any slot of its chunk) -> (v, f, plate of each
+    face row)."""
+    v, f = _layer_stack(layers)
+    perm = np.random.RandomState(seed).permutation(f.shape[0])
+    return v, f[perm], perm // 2
+
+
+def _rays_through_the_stack(n, seed, dtype, device):
+    """[6, n] rays along the stack's axis, half from z = 200 down and half
+    from z = -100 up, their x and y spread over the plates' square and
+    past its edges, tilted by up to 0.01: a ray through the square meets
+    every plate, each at its own t."""
+    rng = np.random.RandomState(seed)
+    o = np.stack([rng.uniform(10.0, 90.0, n), rng.uniform(5.0, 80.0, n),
+                  np.where(np.arange(n) % 2 == 0, 200.0, -100.0)])
+    d = np.stack([rng.uniform(-0.01, 0.01, n), rng.uniform(-0.01, 0.01, n),
+                  np.where(np.arange(n) % 2 == 0, -1.0, 1.0)])
+    d /= np.linalg.norm(d, axis=0)
+    return torch.tensor(np.concatenate([o, d]), dtype=dtype, device=device)
+
+
 # ------------------------------------------------ reference kernels ----
 @pytest.mark.cuda
 @pytest.mark.parametrize("np_dt", [np.float32, np.float64])
@@ -303,6 +327,74 @@ def test_reference_backwards_ignore_the_last_block_s_idle_threads(cuda, n, dtype
     assert bool((idx == 1).all())
     grad = rk.render_ref_bwd_replay(idx, sp, torch.ones_like(c), light_index=0, bounces=1)
     assert bool(torch.isinf(grad[7, 0])) and bool(torch.isfinite(grad[8:10, 0]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", range(1, rk.MAX_S + 1))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_reference_kernels_at_every_sphere_count(cuda, s, dtype):
+    """Every sphere count the launchers dispatch to a kernel of its own,
+    each of the four kernels launched once per run: forwards bitwise,
+    backwards within rtol of the twins and twice bitwise."""
+    light = (s - 1) // 2
+    rp, sp = _reference_case(s, light, 257, dtype, cuda)
+    rk.reset_launches()
+    _check_reference_kernels(rp, sp, light, 3)
+    assert rk.LAUNCHES == {"fwd": 1, "fwd_idx": 1, "bwd_replay": 2, "bwd_recompute": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["inf_cotangent", "nan_albedo_off_the_path",
+                                  "inf_albedo_on_the_path"])
+@pytest.mark.parametrize("s", [3, 8, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_replay_zero_and_one_times_tput_equal_the_twin(cuda, case, s, dtype):
+    """The replay on winners drawn at random (misses and light hits
+    among them), against the twin's pick * tput: an infinite cotangent
+    (inf times a zero accumulator is NaN); a NaN albedo on a sphere no
+    path takes (finite gradients); an infinite albedo on the paths, where
+    0 * tput is NaN for every accumulator that is not picked."""
+    rng = np.random.RandomState(s)
+    n, bounces, light = 1000, 5, s - 1
+    ids = rng.randint(0, s + 1, (bounces, n))
+    scene = _reference_scene(s, light)
+    g = rng.uniform(0.5, 1.5, (3, n))
+    if case == "inf_cotangent":
+        g[:, ::7] = np.inf
+        g[1, ::11] = -np.inf
+    elif case == "nan_albedo_off_the_path":
+        off = 1 if s > 2 else 0
+        ids[ids == off] = s  # a miss: the last sphere's albedo
+        scene[7:10, off] = np.nan
+    else:
+        scene[8, 0] = np.inf
+    idx = torch.tensor(ids, dtype=torch.int32, device=cuda)
+    sp = torch.tensor(scene, dtype=dtype, device=cuda)
+    g = torch.tensor(g, dtype=dtype, device=cuda)
+    kw = dict(light_index=light, bounces=bounces)
+    got = rk.render_ref_bwd_replay(idx, sp, g, **kw)
+    plain = rk.render_ref_bwd_replay_plain(idx, sp, g, **kw)
+    rtol = 1e-5 if dtype == torch.float32 else 1e-12
+    torch.testing.assert_close(got, plain, rtol=rtol, atol=0, equal_nan=True)
+    torch.testing.assert_close(rk.render_ref_bwd_replay(idx, sp, g, **kw), got, rtol=0, atol=0,
+                               equal_nan=True)
+    assert bool(torch.isfinite(got).all()) == (case == "nan_albedo_off_the_path")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["wide_range", "signed_zeros"])
+@pytest.mark.parametrize("s,bounces", rro.CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_replay_sums_in_the_modelled_order_bitwise(cuda, kind, s, bounces, dtype):
+    """The replay's gradient equals bit for bit the twin's per-ray terms
+    summed in the order test_torch_ref_reduce_order models (shfl_down warp
+    tree, warps in order, strided rows and a halving tree), on cotangents
+    of either sign over twelve decades, where another order shows."""
+    idx, sp, g, light = rro.replay_case(s, bounces, dtype, cuda, kind=kind)
+    kw = dict(light_index=light, bounces=bounces)
+    got = rk.render_ref_bwd_replay(idx, sp, g, **kw)
+    want = rro.ordered_replay_grad(*rk.replay_terms_plain(idx, sp, g, **kw), light)
+    assert _bits_equal(got, want), (got - want).abs().max()
 
 
 @pytest.mark.cuda
@@ -469,6 +561,76 @@ def test_wbvh_kernel_fills_its_queues(cuda, sp):
     over = wk.queue_overflows()
     assert over["chunk_queue"] > 0 and (sp == 0 or over["super_queue"] > 0)
     assert _wbvh_equal(k, wk.intersect_chunks_plain(rays, cb, sb, rows, ssb, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("layers", [16, 24])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_wbvh_kernel_minimum_of_many_pairs_of_one_ray(cuda, dtype, layers, seed):
+    """16 or 24 stacked plates in chunks of 32 triangles: a ray through
+    the stack puts 32 pairs of its own into one step of the warp walk,
+    16 of them hits at distinct t, all folded into its minimum at once
+    (min_pairs' atomicMin on a 64-bit shared word).  tmin, slot, attrs
+    and counts equal the twin's (walk_plain) bit for bit, and each ray
+    through the square wins on the plate nearest its origin."""
+    v, f, plate = _permuted_stack(layers, seed)
+    g = cg.build_chunk_grid(v.astype(np.float32), f, tris_per_chunk=32)
+    rows = torch.tensor(cg.attr_triangle_rows(g, np.ones((f.shape[0], 3)),
+                                              np.zeros((f.shape[0], 3)),
+                                              np.zeros(f.shape[0])), device=cuda)
+    cb, sb, _, _ = cg.chunk_grid_to_device(g, cuda)
+    rays = _rays_through_the_stack(4096, seed, dtype, cuda)
+    kw = dict(tris_per_chunk=32, attrs=True, stats=True)
+    k = wk.intersect_chunks(rays, cb, sb, rows, **kw)
+    assert _wbvh_equal(k, wk.intersect_chunks_plain(rays, cb, sb, rows, **kw))
+    x, y = rays[0].cpu().numpy(), rays[1].cpu().numpy()
+    inside = (x > 22.5) & (x < 77.5) & (y > 17.5) & (y < 67.5)  # a tilt drifts < 1.7
+    down = np.arange(x.shape[0]) % 2 == 0
+    won = plate[g.face_of_slot[k[1].cpu().numpy()]]
+    assert inside.sum() > 1500
+    assert (won[inside & down] == layers - 1).all() and (won[inside & ~down] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("layers", [16, 24])
+def test_mesh_pt_kernel_minimum_of_many_pairs_of_one_ray(cuda, dtype, layers):
+    """The fused kernel on the stack of plates facing the camera, chunks
+    of 32 triangles: each camera ray through it folds its 16 hits of one
+    step into its minimum at once.  Everything equals the twin bit for
+    bit, and every bounce-0 mesh winner is on the front plate."""
+    v, f, plate = _permuted_stack(layers, 2)
+    ms = mm.MeshScene.cornell_with_mesh(v, f, albedo=(0.7, 0.7, 0.7))
+    tables = mpt.mesh_pt_tables(ms, device=cuda, dtype=dtype, tris_per_chunk=32, supers_per=0)
+    k = _mesh_options_vs_twin(tables, cuda, width=32, height=32, spp4=4, bounces=2,
+                              rr_depth=5, stats_tile=256)
+    s_count = tables[0].shape[1]
+    slots = k[1][0][k[1][0] >= s_count] - s_count
+    assert slots.numel() > 100
+    assert (plate[tables[5].face_of_slot[slots.cpu().numpy()]] == layers - 1).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_mesh_pt_stats_on_a_ragged_grid_with_pads_outside_their_super(cuda, dtype):
+    """tests/test_torch_camera_fused.py's ragged grid (pad chunks at
+    [-1, 1]^3, outside their super): the kernel's kstats, image and
+    residuals equal the twin's, which lists a chunk a ray enters through
+    its super."""
+    v, f = meshes.icosphere(center=(3.0, 3.0, 3.0), radius=14.0, subdivisions=2)
+    ms = mm.MeshScene.cornell_with_mesh(v, f, albedo=(0.85, 0.55, 0.2))
+    planes, cb, sb, t24, _, grid = mpt.mesh_pt_tables(ms, device=cuda, dtype=dtype,
+                                                      tris_per_chunk=8, supers_per=6)
+    planes = torch.tensor([[1e6], [0.0], [0.0], [0.0], [1.0], [1.0], [1.0], [0.5], [0.5], [0.5]],
+                          dtype=dtype, device=cuda)
+    cam = torch.tensor(ptk.camera_constants(32, 32), dtype=torch.float32)
+    cam[0:3] = -40.0 * cam[3:6]
+    cam[10] = 0.0
+    mats = torch.tensor([0], dtype=torch.int32, device=cuda)
+    k = _mesh_options_vs_twin((planes, cb, sb, t24, mats, grid), cuda, width=32, height=32,
+                              spp4=4, bounces=2, rr_depth=2, stats_tile=1024, cam=cam)
+    assert int(k[4][0].min()) > 0
 
 
 @pytest.mark.cuda
