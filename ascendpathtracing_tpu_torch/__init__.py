@@ -43,11 +43,17 @@ that each module's counterpart is found under the same name:
 - ``models.mesh``       — mesh scenes, their device tables in four
   traversal modes, the first-hit query and the bounce-loop mesh path
   tracer.
+- ``parallel.sharded``  — the single-device training step
+  (``make_train_step(None)``: SGD through the reference kernels).
+- ``post``              — firefly clamp, tone maps, the a-trous denoiser.
+- ``utils.debug``       — ``print_data``, ``assert_finite`` and the float
+  guard ``checkify_render``.
 - ``ops.build``         — builds ``csrc/*.cu`` with nvcc at first use.
 - ``cli``, ``bench``    — the user entry points.
 - ``config``, ``scenes``, ``camera``, ``oracle``, ``utils.io``,
-  ``accel.meshes`` — the NumPy host modules, copies of the JAX package's
-  modules of the same names (tests hold each against its original).
+  ``utils.checkpoint``, ``accel.meshes`` — the NumPy host modules, copies
+  of the JAX package's modules of the same names (tests hold each against
+  its original).
 
 The port imports ``torch`` and never ``jax``, and nothing of the JAX
 package.

@@ -36,10 +36,25 @@ renderer (``models/mesh.render_pt_mesh_impl``): the chunk-grid traversal
 kernel on a card, the per-ray BVH walk (``jnp`` mode) with ``--backend
 cpu``, as the JAX CLI's jit renderer picks its traversal.
 
-Ported so far: ``render`` in reference and pt mode with the AOVs, mesh
-scenes through the fused kernel and the bounce-loop renderer, and
-``selftest`` (all seven checks).  The wavefront renderer, ``--shard``,
-post-processing and the ``train`` and ``oracle`` commands exit 2 with
+Post-processing, as the JAX CLI's (``post``, on the render's device):
+``--clamp L`` bounds each sample's luminance, the image is decoded to
+HDR, ``--denoise N`` runs N a-trous levels (guided by the first-hit
+G-buffer on sphere scenes), ``--tonemap reinhard|aces`` maps it with
+``--exposure``; the result is <out>/final.ppm.  ``--check-finite`` fails
+the render (exit 1) where a color is NaN or inf (``utils.debug``).
+
+    python -m ascendpathtracing_tpu_torch.cli train --backend cuda \
+        --width 1024 --height 1024 --bounces 8 --steps 40 --ckpt out/ckpt.npz
+    python -m ascendpathtracing_tpu_torch.cli oracle --out output/
+
+``train`` is the JAX CLI's inverse-rendering demo: cornell8, albedo
+perturbed by +0.08, plain SGD on the scene parameters through the
+reference kernels' forward with winners and replay backward
+(``parallel/sharded.make_train_step``), a checkpoint every
+``--ckpt-every`` steps and at the end, ``--resume`` from it.  ``oracle``
+runs only the NumPy oracle (oracle_color.bin, oracle_color.ppm).
+
+Not ported yet: the wavefront renderer and ``--shard``; both exit 2 with
 "not yet ported".
 """
 
@@ -47,6 +62,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
@@ -82,16 +98,34 @@ def _parse_args(argv):
     r.add_argument("--oracle", action="store_true",
                    help="also run the NumPy oracle and report parity")
 
+    t = sub.add_parser(
+        "train",
+        help="inverse-rendering demo: recover perturbed scene albedo from "
+        "a target render (exercises the differentiable pass + checkpoint)",
+    )
+    t.add_argument("--width", type=int, default=32)
+    t.add_argument("--height", type=int, default=32)
+    t.add_argument("--bounces", type=int, default=3)
+    t.add_argument("--steps", type=int, default=50)
+    t.add_argument("--lr", type=float, default=0.05)
+    t.add_argument("--backend", choices=["cuda", "cpu"], default="cuda")
+    t.add_argument("--ckpt", default="output/ckpt.npz")
+    t.add_argument("--resume", action="store_true")
+    t.add_argument("--ckpt-every", type=int, default=20)
+
     st = sub.add_parser("selftest", help="quick correctness checks of the "
                         "ported compute paths on the chosen backend")
     st.add_argument("--backend", choices=["cuda", "cpu"], default="cuda")
 
-    for name in ("train", "oracle"):
-        sub.add_parser(name, help="not yet ported")
-    args, rest = p.parse_known_args(argv)
-    if rest and args.cmd not in ("train", "oracle"):
-        p.error(f"unrecognized arguments: {' '.join(rest)}")
-    return args
+    o = sub.add_parser("oracle", help="run only the NumPy oracle")
+    o.add_argument("--width", type=int, default=16)
+    o.add_argument("--height", type=int, default=16)
+    o.add_argument("--samples", type=int, default=1)
+    o.add_argument("--bounces", type=int, default=5)
+    o.add_argument("--seed", type=int, default=0)
+    o.add_argument("--scene", default="cornell8")
+    o.add_argument("--out", default="output")
+    return p.parse_args(argv)
 
 
 def _not_ported(what: str) -> int:
@@ -114,8 +148,6 @@ def _device(name: str):
 def _unported_render_option(args) -> str | None:
     checks = [
         (args.renderer == "wavefront", "--renderer wavefront"),
-        (args.denoise > 0 or args.tonemap != "none" or args.clamp > 0,
-         "post-processing (--denoise/--tonemap/--clamp)"),
         (args.shard > 0, "--shard"),
     ]
     return next((what for bad, what in checks if bad), None)
@@ -219,19 +251,34 @@ def cmd_render(args) -> int:
         )
     else:
         colors = megakernel.render_reference_impl(rays_t, dev, bounces=args.bounces)
+    colors_dev = colors
     colors = colors.cpu().numpy()
     t_render = time.time() - t0
 
-    if args.check_finite and not np.isfinite(colors).all():
-        print(f"error: render produced {(~np.isfinite(colors)).sum()} "
-              "non-finite values", file=sys.stderr)
-        return 1
+    if args.check_finite:
+        from ascendpathtracing_tpu_torch.utils.debug import NonFiniteRenderError, assert_finite
+
+        try:
+            assert_finite(colors, "render")
+        except NonFiniteRenderError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 1
 
     io.write_color_bin(colors, f"{args.out}/color.bin")
     img = io.decode_color(colors, w, h, s)
     io.write_ppm(img, f"{args.out}/color.ppm")
+    # the first-hit G-buffer of sphere scenes: AOVs and denoiser guides
+    want_gbuf = (args.aov in ("normal", "albedo", "gbuffer")
+                 or args.denoise > 0) and mesh_scene is None
+    gbuf = megakernel.render_gbuffer_impl(rays_t, dev) if want_gbuf else None
     if args.aov != "none":
-        _write_aovs(args.aov, rays_t, dev, w, h, s, args.out)
+        _write_aovs(args.aov, gbuf, rays_t, dev, w, h, s, args.out)
+    post_active = args.denoise > 0 or args.tonemap != "none" or args.clamp > 0
+    if post_active:
+        final = post_pipeline(colors_dev, gbuf, w, h, s, clamp=args.clamp,
+                              denoise=args.denoise, tonemap=args.tonemap,
+                              exposure=args.exposure)
+        io.write_ppm(final, f"{args.out}/final.ppm")
 
     n_rays = rays.shape[0]
     stats = {
@@ -252,6 +299,8 @@ def cmd_render(args) -> int:
         ),
         "out": f"{args.out}/color.ppm",
     }
+    if post_active:
+        stats["final"] = f"{args.out}/final.ppm"
     if args.oracle and args.mode == "reference":
         exp = oracle.render_reference_numpy(rays, scene, bounces=args.bounces)
         img_o = io.decode_color(exp, w, h, s)
@@ -283,33 +332,73 @@ def _mesh_scene(kind: str):
     return MeshScene.cornell_with_mesh(v, f, albedo=(0.85, 0.55, 0.2))
 
 
-def _write_aovs(aov, rays_t, dev, w, h, s, out) -> None:
+def _write_aovs(aov, gbuf, rays_t, dev, w, h, s, out) -> None:
     """First-hit AOV images, as the JAX CLI writes them (cli.py:313-338):
-    depth.ppm (depth / its max), normal.ppm (normal * 0.5 + 0.5) and
-    albedo.ppm; ``gbuffer`` writes all three."""
+    depth.ppm (depth / its max; from the sphere first hit where there is
+    no G-buffer), and from the G-buffer normal.ppm (normal * 0.5 + 0.5)
+    and albedo.ppm; ``gbuffer`` writes all three."""
     import numpy as np
 
-    from ascendpathtracing_tpu_torch.utils import io
     from ascendpathtracing_tpu_torch.models import megakernel
+    from ascendpathtracing_tpu_torch.utils import io
 
-    gbuf = megakernel.render_gbuffer_impl(rays_t, dev)
     if aov in ("depth", "gbuffer"):
-        depth = gbuf["depth"].cpu().numpy()
+        depth = (gbuf["depth"] if gbuf is not None
+                 else megakernel.render_depth_impl(rays_t, dev)).cpu().numpy()
         dmax = max(float(depth.max()), 1e-9)
         io.write_ppm(
             io.decode_color(np.repeat((depth / dmax)[:, None], 3, axis=1), w, h, s),
             f"{out}/depth.ppm",
         )
-    if aov in ("normal", "gbuffer"):
+    if gbuf is not None and aov in ("normal", "gbuffer"):
         io.write_ppm(
             io.decode_color(gbuf["normal"].cpu().numpy() * 0.5 + 0.5, w, h, s),
             f"{out}/normal.ppm",
         )
-    if aov in ("albedo", "gbuffer"):
+    if gbuf is not None and aov in ("albedo", "gbuffer"):
         io.write_ppm(
             io.decode_color(gbuf["albedo"].cpu().numpy(), w, h, s),
             f"{out}/albedo.ppm",
         )
+
+
+def post_pipeline(colors, gbuf, w, h, s, *, clamp, denoise, tonemap, exposure):
+    """The JAX CLI's post pipeline (cli.py:341-381) on the colors' device:
+    firefly clamp of colors [N, 3] (``clamp`` > 0), decode to an HDR
+    image, a-trous denoise (``denoise`` levels; guided by the G-buffer
+    dict ``gbuf`` when given), tonemap ("none", "reinhard" or "aces") and
+    gamma -> the uint8 [W, H, 3] image of final.ppm."""
+    import numpy as np
+    import torch
+
+    from ascendpathtracing_tpu_torch import post
+    from ascendpathtracing_tpu_torch.utils import io
+
+    device = colors.device
+
+    def to_dev(a):
+        return torch.tensor(np.asarray(a, np.float32), device=device)
+
+    if clamp > 0:
+        colors = post.firefly_clamp(colors, max_radiance=clamp)
+    hdr = to_dev(io.decode_color_hdr(colors.cpu().numpy(), w, h, s))
+    if denoise > 0:
+        guides = {}
+        if gbuf is not None:
+            nrm = io.decode_color_hdr(gbuf["normal"].cpu().numpy(), w, h, s)
+            nrm /= np.maximum(np.linalg.norm(nrm, axis=-1, keepdims=True), 1e-9)
+            zplanes = np.repeat(gbuf["depth"].cpu().numpy()[:, None], 3, axis=1)
+            guides = {
+                "normal": to_dev(nrm),
+                "depth": to_dev(io.decode_color_hdr(zplanes, w, h, s)[..., 0]),
+                "albedo": to_dev(io.decode_color_hdr(gbuf["albedo"].cpu().numpy(), w, h, s)),
+            }
+        hdr = post.atrous_denoise(hdr, iterations=denoise, **guides)
+    if tonemap == "aces":
+        return post.to_u8(post.gamma_encode(post.tonemap_aces(hdr, exposure)))
+    if tonemap == "reinhard":
+        return post.to_u8(post.gamma_encode(post.tonemap_reinhard(hdr, exposure)))
+    return post.to_u8(torch.clamp(hdr, 0.0, 1.0))
 
 
 def pt_energy_check(device) -> dict:
@@ -451,9 +540,10 @@ def cmd_selftest(args) -> int:
     the NumPy oracle, kernel forward vs plain path, the kernel custom-VJP
     gradients vs plain autograd, the fused path tracer's energy vs the
     plain estimator's, the chunk-grid traversal vs brute force, the fused
-    mesh path tracer's energy vs the bounce-loop mesh renderer's, and the
-    fused mesh render's replay gradients.  One JSON line per check; exit 0
-    iff all pass."""
+    mesh path tracer's energy vs the bounce-loop mesh renderer's, the
+    fused mesh render's replay gradients, and the float guards of
+    ``utils/debug.checkify_render``.  One JSON line per check; exit 0 iff
+    all pass."""
     device = _device(args.backend)
     if device is None:
         return 2
@@ -527,6 +617,27 @@ def cmd_selftest(args) -> int:
     res = mesh_vjp_check(device)
     report("mesh_fused_vjp_grads", res.pop("ok"), **res)
 
+    # 7. float guards over the plain renderer: they must pass a healthy
+    #    render and catch an injected NaN (the JAX CLI's checkify check).
+    from ascendpathtracing_tpu_torch.utils import debug as dbg
+
+    checked = dbg.checkify_render(
+        lambda r: megakernel.render_reference_impl(r, dev, bounces=2)
+    )
+    try:
+        clean_ok = bool(torch.isfinite(checked(rays_t)).all())
+    except dbg.NonFiniteRenderError:
+        clean_ok = False
+    bad_rays = rays.copy()
+    bad_rays[0, 3] = np.nan  # poison one direction component
+    try:
+        checked(torch.tensor(bad_rays, device=device))
+        caught = False
+    except dbg.NonFiniteRenderError:
+        caught = True
+    report("checkify_float_guards", clean_ok and caught,
+           clean_pass=clean_ok, nan_caught=caught)
+
     n_ok = sum(checks)
     print(json.dumps({"selftest": "PASS" if n_ok == len(checks) else "FAIL",
                       "passed": n_ok, "ran": len(checks),
@@ -534,13 +645,104 @@ def cmd_selftest(args) -> int:
     return 0 if n_ok == len(checks) else 1
 
 
+def cmd_oracle(args) -> int:
+    """The NumPy oracle alone (the JAX CLI's cli.py:657-672)."""
+    import numpy as np
+
+    from ascendpathtracing_tpu_torch import camera, oracle, scenes
+    from ascendpathtracing_tpu_torch.utils import io
+
+    scene = scenes.get_scene(args.scene)
+    rays = camera.generate_rays_numpy(args.width, args.height, args.samples, seed=args.seed)
+    colors = oracle.render_reference_numpy(
+        rays.astype(np.float32), scene, bounces=args.bounces
+    )
+    io.write_color_bin(colors, f"{args.out}/oracle_color.bin")
+    img = io.decode_color(colors, args.width, args.height, args.samples)
+    io.write_ppm(img, f"{args.out}/oracle_color.ppm")
+    print(json.dumps({"rays": len(rays), "out": f"{args.out}/oracle_color.ppm"}))
+    return 0
+
+
+def train_problem(width, height, bounces, device):
+    """The train command's problem (the JAX CLI's cli.py:682-688): camera
+    rays [N, 6] of one tent quad a pixel, cornell8 on ``device``, and the
+    target colors [N, 3] the reference kernel renders -> (rays, scene,
+    target).  The rays and the target are transposed views of the
+    kernels' [6, N] and [3, N] planes, so a step reads them in place."""
+    import numpy as np
+    import torch
+
+    from ascendpathtracing_tpu_torch import camera, convert, scenes
+    from ascendpathtracing_tpu_torch.models import megakernel
+    from ascendpathtracing_tpu_torch.ops import render_kernels
+    from ascendpathtracing_tpu_torch.parallel.sharded import params_to_planes
+
+    rays = convert.rays_planes_from_numpy(
+        camera.generate_rays_numpy(width, height, 1, seed=0).astype(np.float32),
+        device=device).T
+    scene = megakernel.scene_to_device(scenes.get_scene("cornell8"), device=device)
+    with torch.no_grad():
+        target = render_kernels.render_reference(
+            rays, params_to_planes(scene), light_index=scene["light_index"], bounces=bounces)
+    return rays, scene, target
+
+
+def cmd_train(args) -> int:
+    """The JAX CLI's inverse-rendering demo (cli.py:675-715): recover
+    cornell8's albedo, perturbed by +0.08, from a target rendered by the
+    reference kernel (:func:`train_problem`); SGD through
+    ``parallel/sharded.make_train_step`` with a checkpoint every
+    ``--ckpt-every`` steps and at the end."""
+    device = _device(args.backend)
+    if device is None:
+        return 2
+    import torch
+
+    from ascendpathtracing_tpu_torch.parallel.sharded import make_train_step, split_scene_params
+    from ascendpathtracing_tpu_torch.utils import checkpoint as ckpt
+
+    rays, scene, target = train_problem(args.width, args.height, args.bounces, device)
+    params, aux = split_scene_params(scene)
+
+    start_step = 0
+    if args.resume and os.path.exists(args.ckpt):
+        params, start_step, _ = ckpt.load_checkpoint(args.ckpt)
+        params = {k: torch.tensor(v, device=device) for k, v in params.items()}
+        print(f"resumed from {args.ckpt} at step {start_step}", file=sys.stderr)
+    else:
+        # perturb albedo; training should recover it
+        params = dict(params, albedo=params["albedo"] + 0.08)
+
+    step_fn = make_train_step(None, bounces=args.bounces, learning_rate=args.lr)
+    loss = float("nan")
+    for i in range(start_step, start_step + args.steps):
+        loss, params = step_fn(params, aux, rays, target)
+        if (i + 1) % args.ckpt_every == 0 or i + 1 == start_step + args.steps:
+            ckpt.save_checkpoint(args.ckpt, params, step=i + 1)
+        if (i + 1) % 10 == 0:
+            print(f"step {i+1} loss {float(loss):.6e}", file=sys.stderr)
+    err = float((params["albedo"] - scene["albedo"]).abs().max())
+    print(json.dumps({
+        "steps": args.steps,
+        "final_loss": float(loss),
+        "albedo_max_err": err,
+        "ckpt": args.ckpt,
+    }))
+    return 0
+
+
 def main(argv=None) -> int:
     args = _parse_args(sys.argv[1:] if argv is None else argv)
     if args.cmd == "render":
         return cmd_render(args)
+    if args.cmd == "train":
+        return cmd_train(args)
+    if args.cmd == "oracle":
+        return cmd_oracle(args)
     if args.cmd == "selftest":
         return cmd_selftest(args)
-    return _not_ported(f"the {args.cmd} command")
+    return 1
 
 
 if __name__ == "__main__":

@@ -6,8 +6,8 @@
 // ascendpathtracing_tpu/ops/pallas_mesh_pt.py, with its replay residuals
 // (with_residuals: wid and resv, pt_trace.cuh's Residuals), its screen
 // coordinates (with_camera: suv, CameraResiduals) and its per-cell walk
-// record (with_stats: kstats, CellStats below); the debug dump is not
-// ported.
+// record (with_stats: kstats, CellStats below) and its debug dump
+// (DumpStats below).
 //
 // Build (ops/build.py runs this at first use, into build/):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false \
@@ -90,13 +90,28 @@
 // 1]^3 after the slab test's swap) outside their parent can list more on
 // the TPU.  The build log shows the registers of every instantiation;
 // apt_mesh_pt_blocks_per_sm their resident blocks.
+//
+// debug (pallas_mesh_pt.py:343-350 and 550-555): the Stats DumpStats
+// (over NoStats, or over CellStats with with_stats) marks the chunks that
+// the live paths of grid cell (0, 0) (pixels [0, debug_tile) of sample
+// layer 0) enter at each bounce, as with_stats marks a cell's
+// (debug_dump.cuh), and counts those paths alive after each bounce
+// (pt_trace.cuh's goes_on); dump_mesh_pt_kernel then prints per bounce
+// "mesh_pt worklist k: <count>" and "mesh_pt alive: <count>.0" with
+// device printf, the Pallas kernel's two lines.  Path regeneration runs
+// other sample layers in the same warp at once, so the marks and counts
+// are kept by (layer, bounce) and only layer 0 is recorded.  The image
+// and residuals are the same bit for bit; the instantiations without it
+// keep their code.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <cstdio>
 
 #include "pt_trace.cuh"
 #include "warp_walk.cuh"
+#include "debug_dump.cuh"  // DumpMarks, WithDump, count_bits
 
 namespace {
 
@@ -121,6 +136,7 @@ struct CellMarks {
 
 // The stats of one thread's pixel: where its cells' words start.
 struct CellStats {
+  using Marks = CellMarks;
   unsigned* bits;  // [cells, bounces, words], zeroed by the launcher
   int words, ws, wss, bounces, spp4, tile;
   long long cell0;  // the pixel's tile * spp4
@@ -129,11 +145,45 @@ struct CellStats {
   __device__ __forceinline__ CellMarks at(int layer, int k) const {
     return CellMarks{bits + ((cell0 + layer) * bounces + k) * words, ws, wss};
   }
+  __device__ __forceinline__ void goes_on(long long, int, int) const {}
 };
 
 struct NoStats {
+  using Marks = NoCounts;
   __device__ __forceinline__ void begin(long long) {}
   __device__ __forceinline__ NoCounts at(int, int) const { return NoCounts(); }
+  __device__ __forceinline__ void goes_on(long long, int, int) const {}
+};
+
+// The debug dump over a Base stats (NoStats or CellStats): the chunk
+// marks of grid cell (0, 0) by bounce, and its paths alive after each
+// bounce, recorded for sample layer 0 of the pixels [0, tile).
+struct MeshDump {
+  unsigned* bits;  // [bounces, words]: the chunks' bits, zeroed by the wrapper
+  int* alive;      // [bounces], zeroed by the wrapper
+  int words;
+  long long tile;
+};
+
+template <typename Base>
+struct DumpStats {
+  Base base;
+  MeshDump dump;
+  bool first;  // the thread's pixel lies in the dumped cell
+
+  __device__ __forceinline__ void begin(long long pix) {
+    base.begin(pix);
+    first = pix < dump.tile;
+  }
+  __device__ __forceinline__ WithDump<typename Base::Marks> at(int layer, int k) const {
+    return WithDump<typename Base::Marks>{
+        base.at(layer, k),
+        DumpMarks{first && layer == 0 ? dump.bits + static_cast<long long>(k) * dump.words
+                                      : nullptr}};
+  }
+  __device__ __forceinline__ void goes_on(long long, int layer, int k) const {
+    if (first && layer == 0) atomicAdd(dump.alive + k, 1);
+  }
 };
 
 // Spheres + a chunk-grid mesh of 24-float attribute rows; the warp walks
@@ -156,6 +206,11 @@ struct MeshScene {
     w.slot = walk_chunks_warp(g, *list, tris, tpc, r, gate, eps, live,
                               stats.at(layer, k), tmin);
     return live && (w.sphere >= 0 || w.slot >= 0);
+  }
+
+  // A path that goes on after bounce k (the debug dump's alive count).
+  __device__ __forceinline__ void goes_on(long long pix, int layer, int k) const {
+    stats.goes_on(pix, layer, k);
   }
 
   __device__ __forceinline__ Surface<T> surface(const Winner& w, T hx, T hy,
@@ -252,6 +307,17 @@ __global__ void __launch_bounds__(BLOCK)
   }
 }
 
+// The debug dump's lines: per bounce, "mesh_pt worklist k" (the chunk
+// bits of cell (0, 0)) and "mesh_pt alive" (the Pallas kernel's float32
+// sum of its 0/1 lanes).
+__global__ void dump_mesh_pt_kernel(const MeshDump dump, int bounces) {
+  for (int k = 0; k < bounces; ++k) {
+    printf("mesh_pt worklist k: %d\n",
+           count_bits(dump.bits + static_cast<long long>(k) * dump.words, dump.words));
+    printf("mesh_pt alive: %d.0\n", dump.alive[k]);
+  }
+}
+
 struct Launch {
   unsigned grid;
   size_t smem;
@@ -278,8 +344,14 @@ void launch_stats(const Launch& l, const T* sc, const int32_t* mt, const float* 
 template <typename T, typename Sink>
 void launch_sink(const Launch& l, const T* sc, const int32_t* mt, const float* tr,
                  T* o, const PtParams<T>& p, const ChunkGrid& g, const Sink& sink,
-                 const CellStats* stats) {
-  if (stats == nullptr) {
+                 const CellStats* stats, const MeshDump* dump) {
+  if (dump != nullptr) {
+    if (stats == nullptr) {
+      launch_stats(l, sc, mt, tr, o, p, g, sink, DumpStats<NoStats>{NoStats(), *dump, false});
+    } else {
+      launch_stats(l, sc, mt, tr, o, p, g, sink, DumpStats<CellStats>{*stats, *dump, false});
+    }
+  } else if (stats == nullptr) {
     launch_stats(l, sc, mt, tr, o, p, g, sink, NoStats());
   } else {
     launch_stats(l, sc, mt, tr, o, p, g, sink, *stats);
@@ -288,20 +360,28 @@ void launch_sink(const Launch& l, const T* sc, const int32_t* mt, const float* t
 
 inline int words_of(int boxes) { return (boxes + 31) / 32; }
 
+// The instantiations of one sink: without stats, with stats, with the
+// debug dump, with both.
+template <typename T, typename Sink>
+void sink_kernels(const void** out) {
+  out[0] = reinterpret_cast<const void*>(render_pt_mesh_kernel<T, Sink, NoStats>);
+  out[1] = reinterpret_cast<const void*>(render_pt_mesh_kernel<T, Sink, CellStats>);
+  out[2] = reinterpret_cast<const void*>(render_pt_mesh_kernel<T, Sink, DumpStats<NoStats>>);
+  out[3] = reinterpret_cast<const void*>(render_pt_mesh_kernel<T, Sink, DumpStats<CellStats>>);
+}
+
+constexpr int KERNELS_PER_TYPE = 12;
+
 // Resident blocks per SM of the instantiations of type T at `smem` bytes
-// of dynamic shared memory into out[6]: (forward, residuals, camera) x
-// (without, with stats).
+// of dynamic shared memory into out[12]: (forward, residuals, camera) x
+// (without, with stats, with the debug dump, with both).
 template <typename T>
 int blocks_per_sm(size_t smem, int* out) {
-  const void* kernels[6] = {
-      reinterpret_cast<const void*>(render_pt_mesh_kernel<T, NoResiduals, NoStats>),
-      reinterpret_cast<const void*>(render_pt_mesh_kernel<T, NoResiduals, CellStats>),
-      reinterpret_cast<const void*>(render_pt_mesh_kernel<T, Residuals<T>, NoStats>),
-      reinterpret_cast<const void*>(render_pt_mesh_kernel<T, Residuals<T>, CellStats>),
-      reinterpret_cast<const void*>(render_pt_mesh_kernel<T, CameraResiduals<T>, NoStats>),
-      reinterpret_cast<const void*>(render_pt_mesh_kernel<T, CameraResiduals<T>, CellStats>),
-  };
-  for (int i = 0; i < 6; ++i) {
+  const void* kernels[KERNELS_PER_TYPE];
+  sink_kernels<T, NoResiduals>(kernels);
+  sink_kernels<T, Residuals<T>>(kernels + 4);
+  sink_kernels<T, CameraResiduals<T>>(kernels + 8);
+  for (int i = 0; i < KERNELS_PER_TYPE; ++i) {
     const cudaError_t e =
         cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + i, kernels[i], BLOCK, smem);
     if (e != cudaSuccess) return e;
@@ -315,6 +395,7 @@ int launch_mesh_pt(const void* scene, const void* materials,
                    const void* ssboxes, const void* tris,
                    const void* uniforms, void* out, void* wid, void* resv,
                    void* suv, void* kstats, void* marks, int stats_tile,
+                   void* debug_bits, void* debug_alive, long long debug_tile,
                    int width, int height,
                    int spp4, int s_count, int n_chunks, int n_supers,
                    int n_supers2, int tris_per_chunk, int supers_per,
@@ -324,7 +405,9 @@ int launch_mesh_pt(const void* scene, const void* materials,
       reinterpret_cast<uintptr_t>(tris) % 16 != 0 ||  // load_row16
       (wid == nullptr) != (resv == nullptr) ||
       (suv != nullptr && wid == nullptr && bounces > 0) ||
-      (kstats == nullptr) != (marks == nullptr)) {
+      (kstats == nullptr) != (marks == nullptr) ||
+      (debug_bits == nullptr) != (debug_alive == nullptr) ||
+      (debug_bits != nullptr && debug_tile < 1)) {
     return cudaErrorInvalidValue;
   }
   ChunkGrid g;
@@ -371,12 +454,15 @@ int launch_mesh_pt(const void* scene, const void* materials,
     if (e != cudaSuccess) return e;
   }
   const CellStats* st = kstats != nullptr ? &stats : nullptr;
+  const MeshDump dump{static_cast<unsigned*>(debug_bits), static_cast<int*>(debug_alive), wc,
+                      debug_tile};
+  const MeshDump* dp = debug_bits != nullptr ? &dump : nullptr;
   const auto sc = static_cast<const T*>(scene);
   const auto mt = static_cast<const int32_t*>(materials);
   const auto tr = static_cast<const float*>(tris);
   const auto o = static_cast<T*>(out);
   if (wid == nullptr && suv == nullptr) {
-    launch_sink(l, sc, mt, tr, o, p, g, NoResiduals(), st);
+    launch_sink(l, sc, mt, tr, o, p, g, NoResiduals(), st, dp);
   } else {
     Residuals<T> res;
     res.wid = static_cast<int32_t*>(wid);
@@ -385,12 +471,12 @@ int launch_mesh_pt(const void* scene, const void* materials,
     res.at = 0;
     res.s_count = s_count;
     if (suv == nullptr) {
-      launch_sink(l, sc, mt, tr, o, p, g, res, st);
+      launch_sink(l, sc, mt, tr, o, p, g, res, st, dp);
     } else {
       CameraResiduals<T> cres;
       static_cast<Residuals<T>&>(cres) = res;
       cres.suv = static_cast<T*>(suv);
-      launch_sink(l, sc, mt, tr, o, p, g, cres, st);
+      launch_sink(l, sc, mt, tr, o, p, g, cres, st, dp);
     }
   }
   if (kstats != nullptr && cells * bounces > 0) {
@@ -398,7 +484,13 @@ int launch_mesh_pt(const void* scene, const void* materials,
                     l.stream>>>(static_cast<const unsigned*>(marks), cells, bounces, wc,
                                 wsn, wssn, static_cast<int32_t*>(kstats));
   }
-  return cudaGetLastError();
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || dp == nullptr || bounces == 0) return e;
+  dump_mesh_pt_kernel<<<1, 1, 0, l.stream>>>(dump, bounces);
+  e = cudaGetLastError();
+  if (e == cudaSuccess) e = cudaStreamSynchronize(l.stream);  // prints the lines
+  fflush(stdout);
+  return e;
 }
 
 }  // namespace
@@ -411,7 +503,11 @@ int launch_mesh_pt(const void* scene, const void* materials,
 // empty, and null).  kstats [3 * bounces, cells] int32 and marks
 // (scratch of cells * bounces * words uint32, words = ceil(C / 32) +
 // ceil(Cs / 32) + ceil(Css / 32)) are both null or both set (with_stats,
-// stats_tile pixels a cell).
+// stats_tile pixels a cell).  debug_bits (uint32 [bounces, ceil(C /
+// 32)], zeroed) and debug_alive (int32 [bounces], zeroed) are both null,
+// or the debug dump's scratch over the pixels [0, debug_tile) of sample
+// layer 0; with them the call prints the dump and returns after the
+// stream has synchronized.
 extern "C" {
 
 int apt_mesh_pt_max_spheres() { return MAX_S; }
@@ -424,14 +520,16 @@ const char* apt_mesh_pt_error_string(int err) {
       const void* scene, const void* materials, const void* cboxes,           \
       const void* sboxes, const void* ssboxes, const void* tris,              \
       const void* uniforms, void* out, void* wid, void* resv, void* suv,     \
-      void* kstats, void* marks, int stats_tile, int width, int height,      \
+      void* kstats, void* marks, int stats_tile, void* debug_bits,           \
+      void* debug_alive, long long debug_tile, int width, int height,        \
       int spp4, int s_count, int n_chunks, int n_supers, int n_supers2,      \
       int tris_per_chunk, int supers_per, int supers2_per, int bounces,       \
       int rr_depth, double eps, unsigned seed, const double* cam,             \
       void* stream) {                                                         \
     return launch_mesh_pt<T>(scene, materials, cboxes, sboxes, ssboxes, tris, \
                              uniforms, out, wid, resv, suv, kstats, marks,    \
-                             stats_tile, width, height, spp4, s_count,        \
+                             stats_tile, debug_bits, debug_alive, debug_tile, \
+                             width, height, spp4, s_count,                    \
                              n_chunks, n_supers, n_supers2, tris_per_chunk,   \
                              supers_per, supers2_per, bounces, rr_depth, eps, \
                              seed, cam, stream);                              \
@@ -441,11 +539,13 @@ APT_MESH_PT(f32, float)
 APT_MESH_PT(f64, double)
 
 // Resident blocks per SM of every instantiation at `smem` bytes of dynamic
-// shared memory (the boxes'), out[12]: float then double, each (forward,
-// residuals, camera) x (without, with stats).
+// shared memory (the boxes'), out[24]: float then double, each (forward,
+// residuals, camera) x (without, with stats, with the debug dump, with
+// both).
 int apt_mesh_pt_blocks_per_sm(long long smem, int* out) {
   const int err = blocks_per_sm<float>(static_cast<size_t>(smem), out);
-  return err != 0 ? err : blocks_per_sm<double>(static_cast<size_t>(smem), out + 6);
+  return err != 0 ? err
+                  : blocks_per_sm<double>(static_cast<size_t>(smem), out + KERNELS_PER_TYPE);
 }
 
 // The worklist's capacity (entries per queue per warp).

@@ -187,6 +187,28 @@ struct CameraResiduals : Residuals<T> {
   }
 };
 
+// The `debug` dump's count of paths alive after each bounce (the Pallas
+// kernels' lane mask: the ray hit something and Russian roulette kept the
+// path), over grid cell (0, 0) of the Pallas kernels: pixels [0, tile) of
+// sample layer 0.  NoPathDump counts nothing and keeps render_pixel's
+// zero-throughput exit; AliveDump turns the exit off, since a Pallas lane
+// with zero throughput stays alive until a miss or Russian roulette ends
+// it (the exit leaves the image bit for bit: render_pixel says why).
+struct NoPathDump {
+  static constexpr bool kZeroExit = true;
+  __device__ __forceinline__ void goes_on(long long, int, int) const {}
+};
+
+struct AliveDump {
+  static constexpr bool kZeroExit = false;
+  int* alive;      // [bounces], zeroed by the wrapper
+  long long tile;  // the pixels of the Pallas kernel's cell
+
+  __device__ __forceinline__ void goes_on(long long pix, int layer, int k) const {
+    if (layer == 0 && pix < tile) atomicAdd(alive + k, 1);
+  }
+};
+
 // One path between bounces: the ray of its next bounce, its throughput
 // and the radiance gathered so far.
 template <typename T>
@@ -384,11 +406,13 @@ __device__ __forceinline__ void begin_sample(const PtParams<T>& p, long long pix
 // its radiance and keep tr x a x s = +-0 (s, the glass and RR weights, is
 // finite wherever its uniform lies in [0, 1)), and L + +-0 == L bit for
 // bit (L is never -0: it starts at +0, and a sum that cancels rounds to
-// +0), so the image does not change.  A NaN or inf value turns it off.
-template <typename T, typename Scene>
+// +0), so the image does not change.  A NaN or inf value turns it off, and
+// so does the debug dump (AliveDump).
+template <typename T, typename Scene, typename Dump = NoPathDump>
 __device__ __forceinline__ void render_pixel(const Scene& scene,
                                              const PtParams<T>& p,
-                                             long long pix, T* out, bool finite) {
+                                             long long pix, T* out, bool finite,
+                                             const Dump& dump = Dump()) {
   NoResiduals sink;
   SampleUniforms<T> u;
   u.stride = p.n_pix;
@@ -410,9 +434,11 @@ __device__ __forceinline__ void render_pixel(const Scene& scene,
         break;
       }
       if (!bounce_path(scene, p, path, k, tmin, w, u, sink) ||
-          (finite && path.tr == T(0) && path.tg == T(0) && path.tb == T(0))) {
+          (Dump::kZeroExit && finite && path.tr == T(0) && path.tg == T(0) &&
+           path.tb == T(0))) {
         break;
       }
+      dump.goes_on(pix, a, k);
     }
     ar = ar + path.lr * p.inv_spp;
     ag = ag + path.lg * p.inv_spp;
@@ -468,6 +494,7 @@ __device__ __forceinline__ void render_pixel_regen(const Scene& scene,
     bool goes_on = false;
     if (live && hit) {
       goes_on = bounce_path(scene, p, path, k, tmin, w, u, sink);
+      if (goes_on) scene.goes_on(pix, a, k);  // the debug dump's alive count
       ++k;
     }
     if (work && !waiting && (!goes_on || k == p.bounces)) {

@@ -48,6 +48,14 @@
 // Philox calls at other bounces than their neighbours', and the frame
 // took longer than this loop (PERF.md, section 6).
 //
+// The debug dump (_render_pt_kernel's debug=True, pallas_kernels.py:
+// 493-499): the instantiation with AliveDump (pt_trace.cuh) counts the
+// paths of grid cell (0, 0) (pixels [0, debug_tile), sample layer 0)
+// alive after each bounce, without the zero-throughput exit, and
+// dump_pt_alive_kernel prints "pt_pallas alive: <count>.0" per bounce
+// with device printf, the Pallas kernel's float32 sum.  The image is the
+// same bit for bit; the instantiation without it keeps its code.
+//
 // Bound on the H100: FP32 throughput, about 20*S + 60 operations per live
 // sample-bounce and 40 per camera ray against 12 B of HBM per pixel; with
 // -fmad=false no multiply-add fuses, so the card issues at most half the
@@ -59,6 +67,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <cstdio>
 
 // MAX_S, PLANES, BLOCK, load_scene, closest_hit (sphere_hit.cuh);
 // Philox (philox.cuh); PtParams, Spheres, camera_path, bounce_path,
@@ -94,21 +103,23 @@ struct SphereScene {
 // __launch_bounds__(BLOCK, MinBlocks): ptxas fits the registers to
 // MinBlocks resident blocks of 256 threads per SM (65,536 registers: 4
 // blocks up to 64 a thread); the double instantiation serves the parity
-// tests.
-template <typename T>
+// tests, and the debug one (AliveDump) the dump, which keeps its
+// registers free of the cap rather than spill.
+template <typename T, typename Dump>
 struct MinBlocks {
   static constexpr int value = 1;
 };
 template <>
-struct MinBlocks<float> {
+struct MinBlocks<float, NoPathDump> {
   static constexpr int value = 4;
 };
 
-template <typename T>
-__global__ void __launch_bounds__(BLOCK, MinBlocks<T>::value)
+template <typename T, typename Dump>
+__global__ void __launch_bounds__(BLOCK, (MinBlocks<T, Dump>::value))
     render_pt_kernel(const T* __restrict__ scene,
                      const int32_t* __restrict__ materials,
-                     T* __restrict__ out, const PtParams<T> p, int s_count) {
+                     T* __restrict__ out, const PtParams<T> p, int s_count,
+                     const Dump dump) {
   __shared__ T sc[PLANES][MAX_S];
   __shared__ int mat[MAX_S];
   const int tid = static_cast<int>(threadIdx.x);
@@ -124,23 +135,47 @@ __global__ void __launch_bounds__(BLOCK, MinBlocks<T>::value)
   world.sph.sc = sc;
   world.sph.mat = mat;
   world.sph.count = s_count;
-  render_pixel(world, p, pix, out, finite);
+  render_pixel(world, p, pix, out, finite, dump);
+}
+
+// The debug dump's lines: "pt_pallas alive" after each bounce, the Pallas
+// kernel's float32 sum of its 0/1 lanes.
+__global__ void dump_pt_alive_kernel(const int* alive, int bounces) {
+  for (int k = 0; k < bounces; ++k) printf("pt_pallas alive: %d.0\n", alive[k]);
 }
 
 template <typename T>
 int launch_pt(const void* scene, const void* materials, const void* uniforms,
               void* out, int width, int height, int spp4, int s_count,
               int bounces, int rr_depth, double eps, unsigned seed,
-              const double* cam, void* stream) {
-  if (s_count < 1 || s_count > MAX_S) return cudaErrorInvalidValue;
+              const double* cam, void* debug_alive, long long debug_tile,
+              void* stream) {
+  if (s_count < 1 || s_count > MAX_S || (debug_alive != nullptr && debug_tile < 1)) {
+    return cudaErrorInvalidValue;
+  }
   PtParams<T> p;
   const int err = make_pt_params(p, uniforms, width, height, spp4, bounces,
                                  rr_depth, eps, seed, cam);
   if (err != 0) return err;
   const auto grid = static_cast<unsigned>((p.n_pix + BLOCK - 1) / BLOCK);
-  render_pt_kernel<T><<<grid, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(scene), static_cast<const int32_t*>(materials),
-      static_cast<T*>(out), p, s_count);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto sc = static_cast<const T*>(scene);
+  const auto mt = static_cast<const int32_t*>(materials);
+  if (debug_alive == nullptr) {
+    render_pt_kernel<T, NoPathDump><<<grid, BLOCK, 0, st>>>(sc, mt, static_cast<T*>(out), p,
+                                                            s_count, NoPathDump());
+  } else {
+    const AliveDump dump{static_cast<int*>(debug_alive), debug_tile};
+    render_pt_kernel<T, AliveDump><<<grid, BLOCK, 0, st>>>(sc, mt, static_cast<T*>(out), p,
+                                                           s_count, dump);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess || bounces == 0) return e;
+    dump_pt_alive_kernel<<<1, 1, 0, st>>>(dump.alive, bounces);
+    e = cudaGetLastError();
+    if (e == cudaSuccess) e = cudaStreamSynchronize(st);  // prints the lines
+    fflush(stdout);
+    return e;
+  }
   return cudaGetLastError();
 }
 
@@ -149,6 +184,9 @@ int launch_pt(const void* scene, const void* materials, const void* uniforms,
 // Plain C interface, loaded with ctypes.  Returns cudaGetLastError()
 // after the launch (0 = success); the wrapper raises on anything else.
 // cam points at 11 host doubles; pointers and the stream arrive as void*.
+// debug_alive (int32 [bounces], zeroed) is null, or the debug dump's
+// counts over the pixels [0, debug_tile) of sample layer 0; with it the
+// call prints the dump and returns after the stream has synchronized.
 extern "C" {
 
 int apt_pt_max_spheres() { return MAX_S; }
@@ -160,18 +198,19 @@ int apt_render_pt_f32(const void* scene, const void* materials,
                       const void* uniforms, void* out, int width, int height,
                       int spp4, int s_count, int bounces, int rr_depth,
                       double eps, unsigned seed, const double* cam,
-                      void* stream) {
+                      void* debug_alive, long long debug_tile, void* stream) {
   return launch_pt<float>(scene, materials, uniforms, out, width, height, spp4,
-                          s_count, bounces, rr_depth, eps, seed, cam, stream);
+                          s_count, bounces, rr_depth, eps, seed, cam,
+                          debug_alive, debug_tile, stream);
 }
 int apt_render_pt_f64(const void* scene, const void* materials,
                       const void* uniforms, void* out, int width, int height,
                       int spp4, int s_count, int bounces, int rr_depth,
                       double eps, unsigned seed, const double* cam,
-                      void* stream) {
+                      void* debug_alive, long long debug_tile, void* stream) {
   return launch_pt<double>(scene, materials, uniforms, out, width, height,
                            spp4, s_count, bounces, rr_depth, eps, seed, cam,
-                           stream);
+                           debug_alive, debug_tile, stream);
 }
 
 }  // extern "C"

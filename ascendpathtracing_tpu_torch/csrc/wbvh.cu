@@ -39,6 +39,16 @@
 // The times a warp filled a queue and worked it off before going on are
 // counted (apt_wbvh_queue_overflows); no entry is dropped.
 //
+// The debug dump (_wbvh_kernel's debug=True, pallas_wbvh.py:602-607):
+// the instantiation with kDump marks, for each tile of debug_tile rays
+// (the Pallas kernel's ray tile), the chunks some ray of the tile enters
+// (debug_dump.cuh), and dump_wbvh_tiles_kernel prints "wbvh tile worklist
+// k: <count>" for every tile in order with device printf, a batch of
+// DUMP_LINES lines a launch, each batch synchronized and flushed to
+// stdout before the next (the printf buffer holds about 1 MB).  The
+// outputs are the same bit for bit; the instantiations without it keep
+// their code.
+//
 // Bound on the H100: FP32/FP64 instruction throughput.  Per ray ~20
 // flops per box tested and ~30 per triangle: the root box, the top level
 // for the rays that enter the root, each hit box's children, each entered
@@ -48,10 +58,12 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <cstdio>
 
 #include "chunk_walk.cuh"
 #include "sphere_hit.cuh"  // BLOCK, miss_t
 #include "warp_walk.cuh"
+#include "debug_dump.cuh"  // DumpMarks, WithDump, count_bits
 
 namespace {
 
@@ -64,12 +76,22 @@ struct WbvhParams {
   bool shared_boxes;
 };
 
-template <typename T, typename Rows, bool kStats>
+// The debug dump's chunk bits: [tiles, words], a tile of `tile` rays.
+struct TileDump {
+  unsigned* bits;
+  int words;
+  long long tile;
+};
+
+// Lines a dump_wbvh_tiles_kernel launch prints at most.
+constexpr long long DUMP_LINES = 8192;
+
+template <typename T, typename Rows, bool kStats, bool kDump>
 __global__ void __launch_bounds__(BLOCK)
     wbvh_kernel(const T* __restrict__ rays, const Rows rows, const float* __restrict__ tris,
                 T* __restrict__ tmin_out, int32_t* __restrict__ hit_out,
                 T* __restrict__ attrs_out, int32_t* __restrict__ stats_out,
-                const WbvhParams<T> p) {
+                const WbvhParams<T> p, const TileDump dump) {
   extern __shared__ float smem[];
   __shared__ WarpList lists[BLOCK / WARP];
   __shared__ int counts[kStats ? BLOCK / WARP : 1][3 * WARP];
@@ -91,7 +113,15 @@ __global__ void __launch_bounds__(BLOCK)
   }
   T tmin = miss_t<T>();
   int slot;
-  if constexpr (kStats) {
+  if constexpr (kDump) {
+    const DumpMarks dm{live ? dump.bits + i / dump.tile * dump.words : nullptr};
+    if constexpr (kStats) {
+      slot = walk_grid_warp<false>(g, L, rows, p.tpc, r, miss_t<T>(), p.eps, live,
+                                   WithDump<RayCounts>{RayCounts{cnt, lane}, dm}, tmin);
+    } else {
+      slot = walk_grid_warp<false>(g, L, rows, p.tpc, r, miss_t<T>(), p.eps, live, dm, tmin);
+    }
+  } else if constexpr (kStats) {
     slot = walk_grid_warp<false>(g, L, rows, p.tpc, r, miss_t<T>(), p.eps, live,
                                  RayCounts{cnt, lane}, tmin);
   } else {
@@ -114,30 +144,51 @@ __global__ void __launch_bounds__(BLOCK)
   }
 }
 
+// The debug dump's lines: "wbvh tile worklist k" of tiles [first, first
+// + n), from their chunk bits.
+__global__ void dump_wbvh_tiles_kernel(const unsigned* bits, int words, long long first,
+                                       long long n) {
+  for (long long t = first; t < first + n; ++t) {
+    printf("wbvh tile worklist k: %d\n", count_bits(bits + t * words, words));
+  }
+}
+
 // Launches one instantiation with `smem` bytes of dynamic shared memory
 // (the boxes'), asking for them past the default 48 KB.
-template <typename T, typename Rows, bool kStats>
+template <typename T, typename Rows, bool kStats, bool kDump>
 cudaError_t launch_one(const Rows& rows, const WbvhParams<T>& p, size_t smem,
                        cudaStream_t st, const T* rays, const float* tris, T* tmin,
-                       int32_t* hit, T* attrs, int32_t* stats) {
-  const cudaError_t e = cudaFuncSetAttribute(wbvh_kernel<T, Rows, kStats>,
+                       int32_t* hit, T* attrs, int32_t* stats, const TileDump& dump) {
+  const cudaError_t e = cudaFuncSetAttribute(wbvh_kernel<T, Rows, kStats, kDump>,
                                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                                              static_cast<int>(smem));
   if (e != cudaSuccess) return e;
   const auto grid = static_cast<unsigned>((p.n + BLOCK - 1) / BLOCK);
-  wbvh_kernel<T, Rows, kStats><<<grid, BLOCK, smem, st>>>(rays, rows, tris, tmin, hit, attrs,
-                                                         stats, p);
+  wbvh_kernel<T, Rows, kStats, kDump><<<grid, BLOCK, smem, st>>>(rays, rows, tris, tmin, hit,
+                                                                attrs, stats, p, dump);
   return cudaSuccess;
+}
+
+template <typename T, typename Rows, bool kDump>
+cudaError_t launch_stats(const Rows& rows, const WbvhParams<T>& p, size_t smem,
+                         cudaStream_t st, const T* rays, const float* tris, T* tmin,
+                         int32_t* hit, T* attrs, int32_t* stats, const TileDump& dump) {
+  return stats != nullptr
+             ? launch_one<T, Rows, true, kDump>(rows, p, smem, st, rays, tris, tmin, hit, attrs,
+                                                stats, dump)
+             : launch_one<T, Rows, false, kDump>(rows, p, smem, st, rays, tris, tmin, hit,
+                                                 attrs, stats, dump);
 }
 
 template <typename T, typename Rows>
 cudaError_t launch_rows(const Rows& rows, const WbvhParams<T>& p, size_t smem,
                         cudaStream_t st, const T* rays, const float* tris, T* tmin,
-                        int32_t* hit, T* attrs, int32_t* stats) {
-  return stats != nullptr
-             ? launch_one<T, Rows, true>(rows, p, smem, st, rays, tris, tmin, hit, attrs, stats)
-             : launch_one<T, Rows, false>(rows, p, smem, st, rays, tris, tmin, hit, attrs,
-                                          stats);
+                        int32_t* hit, T* attrs, int32_t* stats, const TileDump& dump) {
+  return dump.bits != nullptr
+             ? launch_stats<T, Rows, true>(rows, p, smem, st, rays, tris, tmin, hit, attrs,
+                                           stats, dump)
+             : launch_stats<T, Rows, false>(rows, p, smem, st, rays, tris, tmin, hit, attrs,
+                                            stats, dump);
 }
 
 template <typename T>
@@ -146,7 +197,7 @@ int launch_wbvh(const void* rays, const void* cboxes, const void* sboxes,
                 void* attrs, void* stats, long long n, int n_chunks,
                 int n_supers, int n_supers2, int tris_per_chunk,
                 int supers_per, int supers2_per, int stride, double eps,
-                void* stream) {
+                void* debug_bits, long long debug_tile, void* stream) {
   WbvhParams<T> p;
   p.g.cboxes = static_cast<const float*>(cboxes);
   p.g.sboxes = static_cast<const float*>(sboxes);
@@ -159,9 +210,11 @@ int launch_wbvh(const void* rays, const void* cboxes, const void* sboxes,
   const int err = check_grid(p.g, tris_per_chunk);
   if (err != 0) return err;
   if (n < 1 || tris == nullptr || (stride != TRI_F && stride != TRI_ATTR_F) ||
-      (attrs != nullptr && stride != TRI_ATTR_F) || n_chunks >= (1 << 26)) {
+      (attrs != nullptr && stride != TRI_ATTR_F) || n_chunks >= (1 << 26) ||
+      (debug_bits != nullptr && debug_tile < 1)) {
     return cudaErrorInvalidValue;  // a queue entry holds its box in 26 bits
   }
+  const TileDump dump{static_cast<unsigned*>(debug_bits), (n_chunks + 31) / 32, debug_tile};
   p.n = n;
   p.eps = static_cast<T>(eps);
   p.tpc = tris_per_chunk;
@@ -176,11 +229,23 @@ int launch_wbvh(const void* rays, const void* cboxes, const void* sboxes,
   auto* at = static_cast<T*>(attrs);
   auto* sc = static_cast<int32_t*>(stats);
   const bool row16 = stride == TRI_ATTR_F && (reinterpret_cast<uintptr_t>(tris) & 15u) == 0u;
-  const cudaError_t e =
-      row16 ? launch_rows<T>(Rows24{tr}, p, smem, st, ry, tr, tm, ht, at, sc)
-            : launch_rows<T>(RowsStrided{tr, stride}, p, smem, st, ry, tr, tm, ht, at, sc);
+  cudaError_t e =
+      row16 ? launch_rows<T>(Rows24{tr}, p, smem, st, ry, tr, tm, ht, at, sc, dump)
+            : launch_rows<T>(RowsStrided{tr, stride}, p, smem, st, ry, tr, tm, ht, at, sc,
+                             dump);
   if (e != cudaSuccess) return e;
-  return cudaGetLastError();
+  e = cudaGetLastError();
+  if (e != cudaSuccess || dump.bits == nullptr) return e;
+  const long long tiles = (n + debug_tile - 1) / debug_tile;
+  for (long long first = 0; first < tiles; first += DUMP_LINES) {
+    const long long lines = tiles - first < DUMP_LINES ? tiles - first : DUMP_LINES;
+    dump_wbvh_tiles_kernel<<<1, 1, 0, st>>>(dump.bits, dump.words, first, lines);
+    e = cudaGetLastError();
+    if (e == cudaSuccess) e = cudaStreamSynchronize(st);  // prints the batch
+    if (e != cudaSuccess) return e;
+    fflush(stdout);
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -188,6 +253,9 @@ int launch_wbvh(const void* rays, const void* cboxes, const void* sboxes,
 // Plain C interface, loaded with ctypes.  Returns cudaGetLastError()
 // after the launch (0 = success); the wrapper raises on anything else.
 // Pointers and the stream arrive as void*; attrs and stats may be null.
+// debug_bits (uint32 [ceil(N / debug_tile), ceil(C / 32)], zeroed) is
+// null, or the debug dump's chunk bits; with it the call prints the dump
+// and returns after the stream has synchronized.
 extern "C" {
 
 int apt_wbvh_attr_count() { return N_ATTR; }
@@ -214,11 +282,11 @@ const char* apt_wbvh_error_string(int err) {
                         void* stats, long long n, int n_chunks, int n_supers,  \
                         int n_supers2, int tris_per_chunk, int supers_per,     \
                         int supers2_per, int stride, double eps,               \
-                        void* stream) {                                        \
+                        void* debug_bits, long long debug_tile, void* stream) {\
     return launch_wbvh<T>(rays, cboxes, sboxes, ssboxes, tris, tmin, hit,      \
                           attrs, stats, n, n_chunks, n_supers, n_supers2,      \
                           tris_per_chunk, supers_per, supers2_per, stride,     \
-                          eps, stream);                                        \
+                          eps, debug_bits, debug_tile, stream);                \
   }
 
 APT_WBVH(f32, float)

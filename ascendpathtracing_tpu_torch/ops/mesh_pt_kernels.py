@@ -2,8 +2,7 @@
 
 Counterpart of ``ascendpathtracing_tpu/ops/pallas_mesh_pt.py``
 (``render_pt_mesh_pallas`` and its kernel ``_mesh_pt_kernel``, with its
-replay residuals, camera and stats outputs; the debug dump is not
-ported).
+replay residuals, camera and stats outputs and its debug dump).
 :func:`render_pt_mesh` checks its inputs, then:
 
 - for tensors on the CPU, runs :func:`render_pt_mesh_plain`;
@@ -45,11 +44,20 @@ path of the cell enters (the walk's gate included), rows bounces + k and
 2 * bounces + k the supers and super-supers.  These are unions over the
 cell's paths, not per-path sums.  Neither option changes the image, wid
 or resv.
+
+``debug=True`` is the Pallas kernel's debug dump: per bounce, two lines on
+stdout, ``mesh_pt worklist k: <k>`` (kstats' row k for grid cell (0, 0):
+pixels [0, debug_tile) of sample layer 0; ``debug_tile`` is the Pallas
+wrapper's ``tile``) and ``mesh_pt alive: <n>.0`` (the paths of that cell
+alive after the bounce: their ray hit something and Russian roulette
+kept them).  The kernel prints them with device printf from its debug
+instantiation, the twin from torch; no output changes.
 """
 
 from __future__ import annotations
 
 import ctypes
+import sys
 
 import numpy as np
 import torch
@@ -61,6 +69,7 @@ from ascendpathtracing_tpu_torch.ops.render_kernels import MAX_S, on_cpu
 from ascendpathtracing_tpu_torch.ops.wbvh_kernels import (
     PlainGrid,
     check_grid,
+    level_marks,
     plain_grid,
     walk_plain,
 )
@@ -73,7 +82,7 @@ LAUNCHES = {"mesh_pt": 0}
 _DTYPES = {torch.float32: "f32", torch.float64: "f64"}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURE = (_P,) * 13 + (_I,) * 13 + (
+_SIGNATURE = (_P,) * 13 + (_I, _P, _P, ctypes.c_longlong) + (_I,) * 12 + (
     ctypes.c_double, ctypes.c_uint32, ctypes.POINTER(ctypes.c_double), _P,
 )
 
@@ -117,7 +126,10 @@ def _raise_on(lib, err, what):
 #: The kernel's instantiations in ``blocks_per_sm``'s order.
 INSTANTIATIONS = tuple(f"{t}_{sink}{stats}" for t in ("f32", "f64")
                        for sink in ("forward", "residuals", "camera")
-                       for stats in ("", "_stats"))
+                       for stats in ("", "_stats", "_debug", "_debug_stats"))
+
+#: ``render_pt_mesh_pallas``'s default ``tile``: pixels of a grid cell.
+DEBUG_TILE = 2048
 
 
 def blocks_per_sm(box_bytes: int) -> dict:
@@ -250,14 +262,16 @@ def render_pt_mesh_plain(scene_planes, cboxes, sboxes, tris24, ssboxes=None, *,
                          supers_per=0, supers2_per=0, bounces=8, rr_depth=5,
                          eps=1e-4, seed=0, cam=None, uniforms=None,
                          with_residuals=False, with_camera=False, with_stats=False,
-                         stats_tile=2048, walk_counts=None):
+                         stats_tile=2048, walk_counts=None, debug=False,
+                         debug_tile=DEBUG_TILE):
     """Plain twin of :func:`render_pt_mesh`: the kernel's arithmetic and
     random stream as torch ops, one sample layer at a time; the mesh is
     walked for the live paths only.  ``walk_counts``, an int64 [bounces,
     5] tensor when given, is added to in place, a row per bounce: the
     rays walked, summed over them ``walk_plain``'s counts (chunks tested,
     supers hit, super-supers hit), and the rays that enter the kernel's
-    root box (:func:`root_entries`), the walk's work for a bound."""
+    root box (:func:`root_entries`), the walk's work for a bound.
+    ``debug`` prints the dump's lines from torch."""
     *_, ssboxes = check_grid(cboxes, sboxes, ssboxes, tris24,
                              tris_per_chunk=tris_per_chunk, supers_per=supers_per,
                              supers2_per=supers2_per, widths=(TRI_PT_F,))
@@ -272,34 +286,40 @@ def render_pt_mesh_plain(scene_planes, cboxes, sboxes, tris24, ssboxes=None, *,
     n_tiles = n_pix // stats_tile if with_stats else 0
     kstats = (torch.zeros((3 * bounces, n_tiles * spp4), dtype=torch.int32, device=device)
               if with_stats else None)
-    level_sizes = (len(grid.cboxes), len(grid.sboxes), len(grid.ssboxes))
 
     def hit_fn(o3, d3, alive, layer, k):
         tmin, win = pt_kernels.sphere_hits(planes_pad, *o3, *d3, eps)
         slot = torch.full(tmin.shape, -1, dtype=torch.int64, device=tmin.device)
         ids = alive.nonzero()[:, 0]
+        dump_k = debug and layer == 0
+        worklist_k = 0
         if ids.numel():
             tsub = tmin[ids]
             gate = tsub.clone()  # the tmin after the spheres, before the triangles
             counts = (None if walk_counts is None else
                       torch.zeros((3, ids.numel()), dtype=torch.int32, device=tmin.device))
-            marks = None
-            if kstats is not None:  # the boxes each tile's live paths enter
-                marks = (ids // stats_tile, tuple(
-                    torch.zeros((n_tiles, n), dtype=torch.bool, device=device)
-                    for n in level_sizes))
+            # the boxes the live paths of cell (0, 0) (group 0) enter, and
+            # those each tile's live paths enter
+            dump_marks = level_marks(grid, (ids >= debug_tile).long(), 2) if dump_k else None
+            stats_marks = (level_marks(grid, ids // stats_tile, n_tiles)
+                           if kstats is not None else None)
+            marks = [m for m in (dump_marks, stats_marks) if m is not None]
             slot[ids] = walk_plain(grid, tuple(c[ids] for c in o3),
                                    tuple(c[ids] for c in d3), tsub, eps=eps, gate=gate,
-                                   counts=counts, marks=marks)
+                                   counts=counts, marks=marks or None)
+            if dump_k:
+                worklist_k = int(dump_marks[1][0][0].sum())
             tmin = tmin.index_put((ids,), tsub)
             if counts is not None:
                 walk_counts[k, 0] += ids.numel()
                 walk_counts[k, 1:4] += counts.sum(dim=1)
                 walk_counts[k, 4] += int(root_entries(
                     grid, tuple(c[ids] for c in o3), tuple(c[ids] for c in d3), gate).sum())
-            if marks is not None:
-                for level, m in enumerate(marks[1]):
+            if kstats is not None:
+                for level, m in enumerate(stats_marks[1]):
                     kstats[level * bounces + k, layer::spp4] = m.sum(dim=1, dtype=torch.int32)
+        if dump_k:
+            print(f"mesh_pt worklist k: {worklist_k}", flush=True)
         code = torch.where(slot >= 0, s_count + slot, win)
         return tmin, pt_kernels.surface(planes_pad, mat_pad, win, tmin, o3, d3,
                                         grid.rows, slot), code
@@ -311,6 +331,7 @@ def render_pt_mesh_plain(scene_planes, cboxes, sboxes, tris24, ssboxes=None, *,
         height=height, spp4=spp4, bounces=bounces, rr_depth=rr_depth, eps=eps,
         seed=seed, uniforms=uniforms, cam=camera_vector(cam, width, height),
         res=res, suv=suv,
+        dump=pt_kernels.alive_dump("mesh_pt alive", debug_tile) if debug else None,
     )
     return _outputs(img, res, suv, kstats)
 
@@ -438,7 +459,7 @@ def render_pt_mesh(scene_planes, cboxes, sboxes, tris24, ssboxes=None, *,
                    supers_per=0, supers2_per=0, bounces=8, rr_depth=5,
                    eps=1e-4, seed=0, cam=None, uniforms=None,
                    with_residuals=False, with_camera=False, with_stats=False,
-                   stats_tile=2048):
+                   stats_tile=2048, debug=False, debug_tile=DEBUG_TILE):
     """Fully fused sphere+mesh path trace: scene [10, S] (float32 or
     float64; the compute dtype), materials [S] int32, a chunk grid of
     float32 boxes and [C*T, 24] rows (``mesh_pt_tables``) -> per-pixel
@@ -447,7 +468,11 @@ def render_pt_mesh(scene_planes, cboxes, sboxes, tris24, ssboxes=None, *,
     the 11-float camera vector (None: the default smallpt camera);
     ``uniforms`` [spp4, 2 + 3 * bounces, W*H] replaces the Philox stream.
     Pixel p is column p // height, row p % height; sample layer a is (sy,
-    sx, k) = (a // (2s), (a // s) % 2, a % s) with s = spp4 / 4."""
+    sx, k) = (a // (2s), (a // s) % 2, a % s) with s = spp4 / 4.
+    ``debug`` prints the dump of the module's head (on a card the call
+    returns once the lines are out)."""
+    if debug_tile < 1:
+        raise ValueError(f"debug_tile must be >= 1, got {debug_tile}")
     s_count, (c, cs, css, ssboxes), cpu = _check(
         scene_planes, materials, cboxes, sboxes, ssboxes, tris24, width=width,
         height=height, spp4=spp4, bounces=bounces, rr_depth=rr_depth,
@@ -461,7 +486,8 @@ def render_pt_mesh(scene_planes, cboxes, sboxes, tris24, ssboxes=None, *,
               supers2_per=supers2_per, bounces=bounces, rr_depth=rr_depth,
               eps=eps, seed=seed, cam=cam_vals, uniforms=uniforms,
               with_residuals=with_residuals, with_camera=with_camera,
-              with_stats=with_stats, stats_tile=stats_tile)
+              with_stats=with_stats, stats_tile=stats_tile, debug=debug,
+              debug_tile=debug_tile)
     if cpu:
         return render_pt_mesh_plain(scene_planes, cboxes, sboxes, tris24, ssboxes, **kw)
     if tris24.data_ptr() % 16:  # the kernel reads rows 16 bytes at a time
@@ -477,7 +503,13 @@ def render_pt_mesh(scene_planes, cboxes, sboxes, tris24, ssboxes=None, *,
         kstats = torch.empty((3 * bounces, cells), dtype=torch.int32, device=device)
         words = sum(-(-n // 32) for n in (c, cs, css))  # the kernel zeroes them
         marks = torch.empty((cells * bounces * words,), dtype=torch.int32, device=device)
+    dump_bits = dump_alive = None
+    if debug and bounces:
+        dump_bits = torch.zeros((bounces * -(-c // 32),), dtype=torch.int32, device=device)
+        dump_alive = torch.zeros((bounces,), dtype=torch.int32, device=device)
     lib = load_library()
+    if debug:
+        sys.stdout.flush()  # Python's lines before the kernel's
 
     def ptr(t):
         return None if t is None or t.numel() == 0 else t.data_ptr()
@@ -488,7 +520,8 @@ def render_pt_mesh(scene_planes, cboxes, sboxes, tris24, ssboxes=None, *,
             scene_planes.data_ptr(), materials.data_ptr(), cboxes.data_ptr(),
             ptr(sboxes), ptr(ssboxes), tris24.data_ptr(), ptr(uniforms), out.data_ptr(),
             *(ptr(t) for t in (res or (None, None))), ptr(suv), ptr(kstats), ptr(marks),
-            stats_tile, width, height, spp4, s_count, c, cs, css, tris_per_chunk,
+            stats_tile, ptr(dump_bits), ptr(dump_alive), debug_tile,
+            width, height, spp4, s_count, c, cs, css, tris_per_chunk,
             supers_per, supers2_per, bounces, rr_depth, eps, seed & 0xFFFFFFFF,
             (ctypes.c_double * 11)(*cam_vals), stream,
         )

@@ -21,11 +21,19 @@ TPU's hardware PRNG, so the port's images match the TPU's only
 statistically; ``uniforms`` [spp4, 2 + 3 * bounces, W*H] replaces the
 stream in parity tests (zeros give the Pallas interpreter's u = 0
 estimator).
+
+``debug=True`` is the Pallas kernel's debug dump: after each bounce, one
+line ``pt_pallas alive: <n>.0`` on stdout, n the paths of grid cell (0,
+0) (pixels [0, debug_tile) of sample layer 0; ``debug_tile`` is the
+Pallas wrapper's ``tile``) that are still alive: their ray hit something
+and Russian roulette kept them.  The kernel prints it with device printf
+from its debug instantiation, the twin from torch; the image is the same.
 """
 
 from __future__ import annotations
 
 import ctypes
+import sys
 
 import torch
 
@@ -52,8 +60,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURE = (
     _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_double, ctypes.c_uint32,
-    ctypes.POINTER(ctypes.c_double), _P,
+    ctypes.POINTER(ctypes.c_double), _P, ctypes.c_longlong, _P,
 )
+
+#: The Pallas wrappers' default ``tile``: pixels of a grid cell.
+DEBUG_TILE = 2048
 
 
 def reset_launches() -> None:
@@ -188,8 +199,20 @@ def pad_scene(scene_planes, materials):
     return planes_pad, mat_pad
 
 
+def alive_dump(label: str, tile: int):
+    """The debug dump's alive line of a bounce as the twins print it:
+    ``dump(k, alive)`` prints "<label>: <n>.0", n the paths of ``alive``
+    [P] among the pixels [0, tile) (the Pallas kernel's float32 sum of its
+    lanes)."""
+
+    def dump(k, alive):
+        print(f"{label}: {float(int(alive[:tile].sum()))}", flush=True)
+
+    return dump
+
+
 def _trace_layer(hit_fn, u, layer, i_idx, j_idx, *, width, height, spp4,
-                 bounces, rr_depth, eps, cam, res=None, suv=None):
+                 bounces, rr_depth, eps, cam, res=None, suv=None, dump=None):
     """One sample layer of every pixel -> radiance (lr, lg, lb), the
     kernels' ``camera_path`` and ``bounce_path`` as [P]-wide tensor ops.
     ``hit_fn(o3, d3, alive, layer, k)`` -> (tmin, ``surface(...)``, winner
@@ -198,7 +221,8 @@ def _trace_layer(hit_fn, u, layer, i_idx, j_idx, *, width, height, spp4,
     [bounces, P], resv [bounces, 7, P]) views take the replay residuals:
     the winner code, albedo, emission and s = scl x RR weight on live
     bounces, -1 and zeros on dead ones; the ``suv`` [2, P] view the screen
-    coordinates (su, sv) of the primary rays."""
+    coordinates (su, sv) of the primary rays.  ``dump(k, alive)`` hears
+    of the paths alive after each bounce (the debug dump)."""
     px, py, pz, dx0, dy0, dz0, cxx, cyx, cyy, cyz, push = cam
     s = spp4 // 4
     sy, sx = layer // (2 * s), (layer // s) % 2
@@ -301,6 +325,8 @@ def _trace_layer(hit_fn, u, layer, i_idx, j_idx, *, width, height, spp4,
             tb = torch.where(survive, tb * pinv, tb)
             alive = live & survive
             s_res = scl * torch.where(survive, pinv, 1.0)
+        if dump is not None:
+            dump(k, alive)
         if res is not None:
             res[0][k] = torch.where(live, code, -1)
             for j, v in enumerate((ar, ag, ab, er, eg, eb, s_res)):
@@ -317,12 +343,13 @@ def _trace_layer(hit_fn, u, layer, i_idx, j_idx, *, width, height, spp4,
 
 
 def render_layers(hit_fn, *, dtype, device, width, height, spp4, bounces,
-                  rr_depth, eps, seed, uniforms, cam, res=None, suv=None):
+                  rr_depth, eps, seed, uniforms, cam, res=None, suv=None, dump=None):
     """The per-pixel mean over ``spp4`` sample layers, accumulated layer
     by layer (memory stays at one layer's [W*H] planes) -> [3, W*H].
     ``res`` = (wid [bounces, spp4, W*H], resv [bounces, 7, spp4, W*H])
     takes the replay residuals of every layer, ``suv`` [2, spp4, W*H] the
-    screen coordinates of its primary rays."""
+    screen coordinates of its primary rays; ``dump(k, alive)`` hears of
+    sample layer 0's paths alive after each bounce."""
     n_pix = width * height
     pix = torch.arange(n_pix, device=device)
     i_idx, j_idx = (pix // height).to(dtype), (pix % height).to(dtype)
@@ -336,15 +363,18 @@ def render_layers(hit_fn, *, dtype, device, width, height, spp4, bounces,
         )
         res_a = None if res is None else (res[0][:, a], res[1][:, :, a])
         lr, lg, lb = _trace_layer(hit_fn, u, a, i_idx, j_idx, res=res_a,
-                                  suv=None if suv is None else suv[:, a], **kw)
+                                  suv=None if suv is None else suv[:, a],
+                                  dump=dump if a == 0 else None, **kw)
         acc = acc + torch.stack((lr, lg, lb)) * inv_spp
     return acc
 
 
 def render_pt_plain(scene_planes, materials, *, width, height, spp4, bounces=8,
-                    rr_depth=5, eps=1e-4, seed=0, uniforms=None):
+                    rr_depth=5, eps=1e-4, seed=0, uniforms=None, debug=False,
+                    debug_tile=DEBUG_TILE):
     """Plain twin of :func:`render_pt`: the kernel's arithmetic and
-    random stream as torch ops, one sample layer at a time."""
+    random stream as torch ops, one sample layer at a time; ``debug``
+    prints the dump's lines from torch."""
     planes_pad, mat_pad = pad_scene(scene_planes, materials)
 
     def hit_fn(o3, d3, alive, layer, k):
@@ -356,6 +386,7 @@ def render_pt_plain(scene_planes, materials, *, width, height, spp4, bounces=8,
         width=width, height=height, spp4=spp4, bounces=bounces,
         rr_depth=rr_depth, eps=eps, seed=seed, uniforms=uniforms,
         cam=camera_constants(width, height),
+        dump=alive_dump("pt_pallas alive", debug_tile) if debug else None,
     )
 
 
@@ -399,30 +430,40 @@ def path_record_plain(scene_planes, materials, *, width, height, spp4, bounces=8
 
 # ---------------------------------------------------------- wrapper ----
 def render_pt(scene_planes, materials, *, width, height, spp4, bounces=8,
-              rr_depth=5, eps=1e-4, seed=0, uniforms=None):
+              rr_depth=5, eps=1e-4, seed=0, uniforms=None, debug=False,
+              debug_tile=DEBUG_TILE):
     """Fully fused path trace: scene [10, S] (float32 or float64) and
     materials [S] int32 -> per-pixel means [3, W*H] in the scene's dtype.
     No ray input: each sample's camera ray is made from its uniforms.
     Pixel p is column p // height, row p % height; sample layer a is
-    (sy, sx, k) = (a // (2s), (a // s) % 2, a % s) with s = spp4 / 4."""
+    (sy, sx, k) = (a // (2s), (a // s) % 2, a % s) with s = spp4 / 4.
+    ``debug`` prints the dump of the module's head (on a card the call
+    returns once the lines are out)."""
     s_count, cpu = check_inputs(
         scene_planes, materials, width, height, spp4, bounces, rr_depth, uniforms
     )
+    if debug_tile < 1:
+        raise ValueError(f"debug_tile must be >= 1, got {debug_tile}")
     kw = dict(width=width, height=height, spp4=spp4, bounces=bounces,
-              rr_depth=rr_depth, eps=eps, seed=seed, uniforms=uniforms)
+              rr_depth=rr_depth, eps=eps, seed=seed, uniforms=uniforms,
+              debug=debug, debug_tile=debug_tile)
     if cpu:
         return render_pt_plain(scene_planes, materials, **kw)
     out = torch.empty((3, width * height), dtype=scene_planes.dtype,
                       device=scene_planes.device)
+    alive = torch.zeros((bounces,), dtype=torch.int32, device=out.device) if debug else None
     cam = (ctypes.c_double * 11)(*camera_constants(width, height))
     lib = load_library()
+    if debug:
+        sys.stdout.flush()  # Python's lines before the kernel's
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream(out.device).cuda_stream
         err = getattr(lib, f"apt_render_pt_{_DTYPES[out.dtype]}")(
             scene_planes.data_ptr(), materials.data_ptr(),
             None if uniforms is None else uniforms.data_ptr(), out.data_ptr(),
             width, height, spp4, s_count, bounces, rr_depth, eps,
-            seed & 0xFFFFFFFF, cam, stream,
+            seed & 0xFFFFFFFF, cam, None if alive is None or bounces == 0 else alive.data_ptr(),
+            debug_tile, stream,
         )
     if err != 0:
         raise RuntimeError(

@@ -24,11 +24,20 @@ boxes are not gated and so the pairs tested do not depend on their order
 Tables are the chunk grid's (``ops/chunk_grid``): float32 boxes and
 13- or 24-float rows.  Rays [6, N] are float32 or float64; the rows are
 read widened in float64.
+
+``debug=True`` is the Pallas kernel's debug dump: for every tile of
+``debug_tile`` rays (the Pallas wrapper's ``tile``), in order, one line
+``wbvh tile worklist k: <k>`` on stdout, k the number of chunks whose box
+some ray of the tile enters (through its super-super's and super's
+boxes): the length of the chunk worklist the Pallas kernel compacts for
+that tile.  The kernel prints it with device printf from its debug
+instantiation, the twin from torch; the outputs are the same.
 """
 
 from __future__ import annotations
 
 import ctypes
+import sys
 from typing import NamedTuple
 
 import torch
@@ -45,7 +54,11 @@ LAUNCHES = {"wbvh": 0}
 _DTYPES = {torch.float32: "f32", torch.float64: "f64"}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURE = (_P,) * 9 + (ctypes.c_longlong,) + (_I,) * 7 + (ctypes.c_double, _P)
+_SIGNATURE = (_P,) * 9 + (ctypes.c_longlong,) + (_I,) * 7 + (
+    ctypes.c_double, _P, ctypes.c_longlong, _P)
+
+#: ``intersect_chunks_pallas``'s default ``tile``: rays of a ray tile.
+DEBUG_TILE = 2048
 
 
 def reset_launches() -> None:
@@ -205,10 +218,11 @@ def walk_plain(grid: PlainGrid, o3, d3, tmin, *, eps, gate=None, counts=None,
     test the listed chunks' rows on those rays.  ``tmin`` [M] is the
     running minimum (updated in place); ``gate`` [M] the mesh path
     tracer's entry bound; ``counts`` [3, M] int32 (chunks tested, supers
-    hit, super-supers hit) are added to in place.  ``marks`` = (group [M]
-    int64, (chunks [G, C], supers [G, Cs], super-supers [G, Css]) bool):
-    each box a ray enters is set for the ray's group, so each row ends as
-    the union over the group's rays (the mesh kernel's with_stats).
+    hit, super-supers hit) are added to in place.  ``marks``, when given,
+    is a sequence of (group [M] int64, (chunks [G, C], supers [G, Cs],
+    super-supers [G, Css]) bool): each box a ray enters is set for the
+    ray's group, so each row ends as the union over the group's rays (the
+    mesh kernel's with_stats, and the debug dumps' worklist k).
     Returns slot [M] int64, -1 where no triangle won."""
     ox, oy, oz = o3
     dx, dy, dz = d3
@@ -232,8 +246,8 @@ def walk_plain(grid: PlainGrid, o3, d3, tmin, *, eps, gate=None, counts=None,
                 continue
             if counts is not None:
                 counts[level, sub["ids"]] += 1
-            if marks is not None:
-                marks[1][level][marks[0][sub["ids"]], b] = True
+            for group, levels in marks or ():
+                levels[level][group[sub["ids"]], b] = True
             inner(b, sub)
 
     def chunk(c, sub):
@@ -257,11 +271,20 @@ def walk_plain(grid: PlainGrid, o3, d3, tmin, *, eps, gate=None, counts=None,
     return slot
 
 
+def level_marks(grid: PlainGrid, group, n_groups: int):
+    """A ``marks`` pair of :func:`walk_plain`: (group [M], a zeroed [G, B]
+    bool table per box level, chunks, supers, super-supers)."""
+    return group, tuple(
+        torch.zeros((n_groups, len(boxes)), dtype=torch.bool, device=group.device)
+        for boxes in (grid.cboxes, grid.sboxes, grid.ssboxes))
+
+
 def intersect_chunks_plain(rays_planes, cboxes, sboxes, tris, ssboxes=None, *,
                            tris_per_chunk, supers_per=0, supers2_per=0,
-                           eps=1e-4, attrs=False, stats=False):
+                           eps=1e-4, attrs=False, stats=False, debug=False,
+                           debug_tile=DEBUG_TILE):
     """Plain twin of :func:`intersect_chunks`, same arguments and
-    results."""
+    results; ``debug`` prints the dump's lines from torch."""
     _, _, _, ssboxes = check_grid(
         cboxes, sboxes, ssboxes, tris, tris_per_chunk=tris_per_chunk,
         supers_per=supers_per, supers2_per=supers2_per,
@@ -273,8 +296,15 @@ def intersect_chunks_plain(rays_planes, cboxes, sboxes, tris, ssboxes=None, *,
                       supers2_per=supers2_per)
     tmin = torch.full((n,), MISS_T, dtype=dtype, device=device)
     counts = torch.zeros((3, n), dtype=torch.int32, device=device) if stats else None
+    marks = None
+    if debug:  # the boxes each tile's rays enter
+        marks = (level_marks(grid, torch.arange(n, device=device) // debug_tile,
+                             -(-n // debug_tile)),)
     slot = walk_plain(grid, tuple(rays_planes[0:3]), tuple(rays_planes[3:6]), tmin,
-                      eps=eps, counts=counts)
+                      eps=eps, counts=counts, marks=marks)
+    if debug:
+        for k in marks[0][1][0].sum(dim=1).tolist():
+            print(f"wbvh tile worklist k: {k}", flush=True)
     won = slot >= 0
     res = (tmin, torch.where(won, slot, 0).to(torch.int32))
     if attrs:
@@ -286,7 +316,7 @@ def intersect_chunks_plain(rays_planes, cboxes, sboxes, tris, ssboxes=None, *,
 # ---------------------------------------------------------- wrapper ----
 def intersect_chunks(rays_planes, cboxes, sboxes, tris, ssboxes=None, *,
                      tris_per_chunk, supers_per=0, supers2_per=0, eps=1e-4,
-                     attrs=False, stats=False):
+                     attrs=False, stats=False, debug=False, debug_tile=DEBUG_TILE):
     """Closest hit of rays [6, N] (ox oy oz dx dy dz; float32 or float64)
     against a chunk grid -> (tmin [N], hit [N] int32): hit is the winning
     SLOT (index into the chunk-ordered rows; map to faces with
@@ -296,7 +326,8 @@ def intersect_chunks(rays_planes, cboxes, sboxes, tris, ssboxes=None, *,
     appends a tuple of the 11 winner planes (nx ny nz ar ag ab er eg eb
     is_diff is_refr; zeros on a miss).  ``stats=True`` appends an int32
     [3, N] of per-ray counts: chunks tested, supers hit, super-supers hit.
-    Any N."""
+    ``debug`` prints the dump of the module's head (on a card the call
+    returns once the lines are out).  Any N."""
     if rays_planes.dtype not in _DTYPES:
         raise TypeError(f"rays must be float32 or float64, got {rays_planes.dtype}")
     if rays_planes.dim() != 2 or rays_planes.shape[0] != 6 or rays_planes.shape[1] < 1:
@@ -309,8 +340,11 @@ def intersect_chunks(rays_planes, cboxes, sboxes, tris, ssboxes=None, *,
     )
     if attrs and tris.shape[1] != TRI_ATTR_F:
         raise ValueError(f"attrs=True needs [C*T, {TRI_ATTR_F}] rows")
+    if debug_tile < 1:
+        raise ValueError(f"debug_tile must be >= 1, got {debug_tile}")
     kw = dict(tris_per_chunk=tris_per_chunk, supers_per=supers_per,
-              supers2_per=supers2_per, eps=eps, attrs=attrs, stats=stats)
+              supers2_per=supers2_per, eps=eps, attrs=attrs, stats=stats,
+              debug=debug, debug_tile=debug_tile)
     if on_cpu(rays_planes, cboxes, sboxes, ssboxes, tris):
         return intersect_chunks_plain(rays_planes, cboxes, sboxes, tris, ssboxes, **kw)
 
@@ -320,18 +354,22 @@ def intersect_chunks(rays_planes, cboxes, sboxes, tris, ssboxes=None, *,
     hit = torch.empty((n,), dtype=torch.int32, device=device)
     attr_out = torch.empty((N_ATTR, n), dtype=dtype, device=device) if attrs else None
     stats_out = torch.empty((3, n), dtype=torch.int32, device=device) if stats else None
+    dump_bits = (torch.zeros((-(-n // debug_tile) * -(-c // 32),), dtype=torch.int32,
+                             device=device) if debug else None)
 
     def ptr(t):
         return None if t is None or t.numel() == 0 else t.data_ptr()
 
     lib = load_library()
+    if debug:
+        sys.stdout.flush()  # Python's lines before the kernel's
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = getattr(lib, f"apt_wbvh_{_DTYPES[dtype]}")(
             rays_planes.data_ptr(), cboxes.data_ptr(), ptr(sboxes), ptr(ssboxes),
             tris.data_ptr(), tmin.data_ptr(), hit.data_ptr(), ptr(attr_out),
             ptr(stats_out), n, c, cs, css, tris_per_chunk, supers_per,
-            supers2_per, tris.shape[1], eps, stream,
+            supers2_per, tris.shape[1], eps, ptr(dump_bits), debug_tile, stream,
         )
     if err != 0:
         raise RuntimeError(

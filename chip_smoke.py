@@ -30,7 +30,15 @@ traversal kernel (csrc/bvh.cu) against its twin, the chunk kernel and
 brute force on the camera rays and the bounced rays of the s4 cell, the
 render at 1024 x 1024 x 4 samples x 8 bounces with either traversal
 kernel, its fwd+bwd step through ``diff/mesh`` with a float64
-finite-difference gate, and its CLI and bench entry points.  Right after
+finite-difference gate, and its CLI and bench entry points.  After the
+main path's entry points come the trainer (``cli train`` at the main
+path's 4,194,304 rays: 40 steps, then ``--resume`` for 20, bitwise equal
+to a straight 60, every step counted through the forward with winners
+and the replay backward, and timed), the CLI's post pipeline at 1024 x
+1024 and ``cli oracle``; before the A/B, the ``debug`` dumps of
+render_pt.cu, wbvh.cu and mesh_pt.cu (device printf read back from fd 1,
+each equal to its twin's lines, every output bitwise the debug-off
+launch's).  Right after
 the build it runs the card-only tests (tests/test_torch_cuda.py) in a
 pytest subprocess without the repository's conftest.  It proves
 through the launch counters, reset
@@ -47,8 +55,11 @@ parent), on inputs this run saved to one file (the replay and gather
 streams of the segment-sum, the bounce-1 rays of the chunk and BVH
 kernels); the last phase,
 ``ab_vs_parent``, reports them, and requires the reference kernels'
-outputs (colors, idx, gradients) bitwise equal to the parent's.  The
-build phase records the reference kernels' registers and, from
+outputs (colors, idx, gradients) and the render_pt, mesh_pt and wbvh
+frames' outputs bitwise equal to the parent's.  The build phase requires
+the registers of render_pt.cu's, wbvh.cu's and mesh_pt.cu's debug-off
+instantiations equal to the parent's build, records the reference
+kernels' registers and, from
 ``cuobjdump -sass``, the instructions of one bounce of each one's loop,
 the issue floor they set and the first sqrt's slow-path check (with
 ``--parent``, the parent's too).
@@ -104,8 +115,9 @@ STATS_TILE = 2048  # with_stats: pixels per cell, the Pallas kernel's default ti
 # the two backwards on phase 5's cotangent, and the bench's fwd+bwd step),
 # each with a digest of its outputs (colors, idx, the [10, S] gradient), the
 # same digests at phase 3's 256 x 256 rays in float64, and fwd_idx's share
-# of rays whose trail differs from the plain twin's (phase 4).  Both trees
-# load the same saved bytes.  It prints {"ms": {frame: median ms},
+# of rays whose trail differs from the plain twin's (phase 4); and a digest
+# of every render_pt, mesh_pt and wbvh frame's outputs (image; tmin, slot,
+# attrs).  Both trees load the same saved bytes.  It prints {"ms": {frame: median ms},
 # "digests": {name: hex}, "facts": {name: value}}.
 AB_SCRIPT = r"""
 import hashlib, json, statistics, sys
@@ -197,11 +209,20 @@ frames = {  # kernel -> {frame: its step's maker}
                       ("ref_fwd", "ref_fwd_idx", "ref_bwd_replay", "ref_bwd_recompute")},
                    "ref_step": ref_step},
 }
+
+def outputs(x):  # the tensors of a frame's result, in order
+    if isinstance(x, torch.Tensor):
+        return [x]
+    return [t for y in (x if isinstance(x, (tuple, list)) else ()) for t in outputs(y)]
+
 build.build_all(sys.argv[2:])
 out = {}
 for kernel in sys.argv[2:]:
     for name, make in frames[kernel].items():
-        out[name] = statistics.median(bench.time_steps(make(), iters=10, warmup=2)[0])
+        step = make()
+        if kernel in ("render_pt", "mesh_pt", "wbvh"):  # their debug-off outputs
+            digest(name, *outputs(step()))
+        out[name] = statistics.median(bench.time_steps(step, iters=10, warmup=2)[0])
         torch.cuda.empty_cache()
 print(json.dumps({"ms": out, "digests": digests, "facts": facts}))
 """
@@ -331,17 +352,83 @@ def registers_by_kernel(log: str) -> dict:
     return out
 
 
-def mesh_kernel_registers(log: str) -> dict:
-    """The fused mesh kernel's registers by instantiation: {"<f32|f64>_
-    <forward|residuals|camera>[_stats]": registers}."""
-    out = {}
-    for name, n in registers_by_kernel(log).items():
-        if "render_pt_mesh_kernel" not in name:
-            continue
+def kernel_key(lib: str, name: str):
+    """The instantiation a mangled kernel name of ``lib`` stands for, in
+    words that do not depend on the tree (None for other functions):
+    render_pt "<f32|f64>[_debug]"; wbvh "<f32|f64>_<Rows24|RowsStrided>
+    [_stats][_debug]" (the mangled bools are kStats, then, where the tree
+    has it, kDump); mesh_pt "<f32|f64>_<forward|residuals|camera>[_debug]
+    [_stats]"."""
+    if lib == "render_pt" and "render_pt_kernel" in name:
+        return ("f32" if "render_pt_kernelIf" in name else "f64") + (
+            "_debug" if "AliveDump" in name else "")
+    if lib == "wbvh":
+        m = re.search(r"wbvh_kernelI([fd])NS_\d+(Rows24|RowsStrided)E((?:Lb[01]E)+)", name)
+        if m:
+            flags = re.findall(r"Lb([01])E", m.group(3)) + ["0"]
+            return (f"f{'32' if m.group(1) == 'f' else '64'}_{m.group(2)}"
+                    + ("_stats" if flags[0] == "1" else "") + ("_debug" if flags[1] == "1" else ""))
+    if lib == "mesh_pt" and "render_pt_mesh_kernel" in name:
         sink = ("camera" if "CameraResiduals" in name else
                 "forward" if "NoResiduals" in name else "residuals")
-        key = f"{'f32' if 'render_pt_mesh_kernelIf' in name else 'f64'}_{sink}"
-        out[key + ("_stats" if "CellStats" in name else "")] = n
+        return (f"{'f32' if 'render_pt_mesh_kernelIf' in name else 'f64'}_{sink}"
+                + ("_debug" if "DumpStats" in name else "")
+                + ("_stats" if "CellStats" in name else ""))
+    return None
+
+
+def keyed(lib: str, by_name: dict) -> dict:
+    """{mangled name: value} -> {kernel_key: value} for ``lib``'s kernels."""
+    return {kernel_key(lib, n): v for n, v in by_name.items() if kernel_key(lib, n)}
+
+
+def sass_listing(insns) -> list:
+    """A function's SASS instructions without what depends on the rest of
+    the module: labels numbered in the function's own order; symbols (the
+    callee subroutines, named after the kernel and numbered across the
+    module) by their last part with its digits dropped; and the slot of a
+    module global's address in constant bank 4 (a new kernel's printf
+    format strings move the others' slots)."""
+    labels = {}
+
+    def label(m):
+        return f"L{labels.setdefault(m.group(0), len(labels))}"
+
+    def symbol(m):
+        return "$" + re.sub(r"\d+", "#", m.group(0).split("$")[-1])
+
+    return [re.sub(r"c\[0x4\]\[0x[0-9a-f]+\]", "c[0x4][#]",
+                   re.sub(r"\$[^)`\s]+", symbol, re.sub(r"\.L_x_\d+", label, t)))
+            for _, t in insns]
+
+
+def sass_listings(lib: Path) -> dict:
+    """{mangled function: sass_listing} of ``lib`` (``cuobjdump -sass``);
+    {} without the tool."""
+    from ascendpathtracing_tpu_torch.ops import build
+
+    tool = Path(build.find_nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        return {}
+    funcs = sass_functions(subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                                          text=True, check=True, timeout=300).stdout)
+    return {f: sass_listing(insns) for f, (insns, _) in funcs.items()}
+
+
+def same_sass(old_lib: Path, new_lib: Path, lib: str) -> dict:
+    """For each instantiation of the parent's ``old_lib``: whether the new
+    build's has the same instructions, or the count of lines that differ
+    and the first pair."""
+    old, new = (keyed(lib, sass_listings(p)) for p in (old_lib, new_lib))
+    out = {}
+    for key, a in old.items():
+        b = new.get(key, [])
+        if a == b:
+            out[key] = True
+            continue
+        diff = [(x, y) for x, y in zip(a, b) if x != y]
+        out[key] = {"lines": [len(a), len(b)], "differ": len(diff) + abs(len(a) - len(b)),
+                    "first": diff[:1]}
     return out
 
 
@@ -736,20 +823,33 @@ def main(argv=None) -> int:
     # The fused mesh kernel's twelve instantiations: registers (the float
     # ones without spills, above) and resident 256-thread blocks per SM
     # with the s4 cell's 8,160 bytes of boxes in shared memory.
-    mesh_regs = mesh_kernel_registers(build.library_path("mesh_pt").with_suffix(".log")
-                                      .read_text())
+    mesh_regs = keyed("mesh_pt", registers_by_kernel(
+        build.library_path("mesh_pt").with_suffix(".log").read_text()))
     mesh_blocks = mpt.blocks_per_sm(24 * (320 + 20))
     require(sorted(mesh_regs) == sorted(mesh_blocks) and min(mesh_blocks.values()) >= 1,
             f"fused mesh kernel: registers {mesh_regs}, blocks per SM {mesh_blocks}")
     # The path tracer's and the BVH walk's registers (their MinBlocks and
-    # occupancy).
-    pt_regs = {("f32" if "render_pt_kernelIf" in k else "f64"): n for k, n in
-               registers_by_kernel(build.library_path("render_pt").with_suffix(".log")
-                                   .read_text()).items() if "render_pt_kernel" in k}
+    # occupancy), and the traversal kernel's.
+    pt_regs, wbvh_regs = (keyed(lib, registers_by_kernel(
+        build.library_path(lib).with_suffix(".log").read_text())) for lib in ("render_pt", "wbvh"))
     bvh_regs = [n for k, n in registers_by_kernel(build.library_path("bvh").with_suffix(".log")
                                                   .read_text()).items() if "bvh_kernel" in k]
-    require(sorted(pt_regs) == ["f32", "f64"] and len(bvh_regs) == 1,
-            f"registers: render_pt {pt_regs}, bvh {bvh_regs}")
+    require(sorted(pt_regs) == ["f32", "f32_debug", "f64", "f64_debug"] and len(bvh_regs) == 1
+            and len(wbvh_regs) == 16, f"registers: render_pt {pt_regs}, bvh {bvh_regs}, "
+            f"wbvh {wbvh_regs}")
+    # The kernels that gained a debug instantiation keep the registers of
+    # the others (with --parent, the parent build's), and their SASS is
+    # reported beside the parent's.
+    same_regs, sass_vs_parent = {}, {}
+    for lib, new_regs in (("render_pt", pt_regs), ("wbvh", wbvh_regs), ("mesh_pt", mesh_regs)):
+        if lib in ab_names:
+            old_lib = next((parent / "build" / "ascendpathtracing_tpu_torch")
+                           .glob(f"lib{lib}-*.so"))
+            old_regs = keyed(lib, registers_by_kernel(old_lib.with_suffix(".log").read_text()))
+            same_regs[lib] = {k: [v, new_regs.get(k)] for k, v in old_regs.items()}
+            require(all(v == new_regs.get(k) for k, v in old_regs.items()),
+                    f"{lib}: registers differ from the parent's {same_regs[lib]}")
+            sass_vs_parent[lib] = same_sass(old_lib, build.library_path(lib), lib)
     # The reference kernels: registers of each instantiation the kernels
     # line times (float32, cornell8's S = 8), no spills in any of
     # render_ref.cu's functions (float64 too), and the bounce loop's SASS:
@@ -779,7 +879,9 @@ def main(argv=None) -> int:
     phase("build", seconds=build_s, gpu=gpu, torch=torch.__version__,
           cuda=torch.version.cuda, ptxas=regs, render_pt_registers=pt_regs,
           render_ref_registers=ref_regs, render_ref_sass=ref_sass, max_sm_clock_mhz=clock,
-          bvh_registers=bvh_regs[0], mesh_pt_registers=mesh_regs,
+          bvh_registers=bvh_regs[0], wbvh_registers=wbvh_regs, mesh_pt_registers=mesh_regs,
+          registers_vs_parent=same_regs or "not measured: no --parent",
+          same_sass_as_parent=sass_vs_parent or "not measured: no --parent",
           mesh_pt_blocks_per_sm=mesh_blocks,
           mesh_pt_queue_capacity=mpt.queue_overflows()["capacity"],
           parent=None if parent is None else str(parent), ab_kernels=ab_names,
@@ -1023,7 +1125,10 @@ def main(argv=None) -> int:
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc_self = cli.main(["selftest", "--backend", "cuda"])
-    require(rc_self == 0, f"cli selftest failed:\n{buf.getvalue()}")
+    self_line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    require(rc_self == 0 and self_line == {"selftest": "PASS", "passed": 8, "ran": 8,
+                                           "backend": "cuda"},
+            f"cli selftest failed:\n{buf.getvalue()}")
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc_bench = bench.main([])
@@ -1031,9 +1136,161 @@ def main(argv=None) -> int:
     require(rc_bench == 0 and bench_line["value"] > 0
             and bench_line["detail"]["launches_per_step"] == {"fwd_idx": 1.0, "bwd_replay": 1.0},
             f"bench: {bench_line}")
-    phase("entry_points", cli_render=stats, selftest="PASS", bench=bench_line)
+    phase("entry_points", cli_render=stats, selftest=self_line, bench=bench_line)
     del rp, idx, g1, calls
     torch.cuda.empty_cache()
+
+    # ---- 8b. the trainer: cli train at the main path's size ------------
+    # 1024 x 1024 pixels, one tent quad each (4,194,304 rays), 8 bounces of
+    # cornell8, f32: 40 steps, then --resume for 20, against a straight 60;
+    # the final parameters bitwise equal, the loss finite and lower than at
+    # step 1, and every step through render_ref.cu's fwd_idx and replay
+    # kernels (the target through its forward).  Then the step's time by
+    # CUDA events beside the main path's fwd+bwd (phase 7).
+    from ascendpathtracing_tpu_torch.parallel import sharded
+    from ascendpathtracing_tpu_torch.utils import checkpoint as ckpt
+
+    train_args = ["train", "--backend", "cuda", "--width", str(FULL_W), "--height",
+                  str(FULL_W), "--bounces", str(BOUNCES)]
+    train_lines = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        split, straight = f"{tmp}/split.npz", f"{tmp}/straight.npz"
+        for name, argv in (("first_40", ["--steps", "40", "--ckpt", split]),
+                           ("resume_20", ["--steps", "20", "--ckpt", split, "--resume"]),
+                           ("straight_60", ["--steps", "60", "--ckpt", straight])):
+            buf, err = io.StringIO(), io.StringIO()
+            for mod in kernel_mods:
+                mod.reset_launches()
+            t0 = time.time()
+            with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+                rc = cli.main([*train_args, *argv])
+            torch.cuda.synchronize()
+            require(rc == 0, f"cli train {name}: exit {rc}\n{err.getvalue()[-2000:]}")
+            train_lines[name] = {
+                "json": json.loads(buf.getvalue().strip().splitlines()[-1]),
+                "seconds": time.time() - t0,
+                "launches": {k: v for k, v in rk.LAUNCHES.items() if v},
+                "stderr": err.getvalue().strip().splitlines()}
+        (pa, sa, _), (pb, sb, _) = ckpt.load_checkpoint(split), ckpt.load_checkpoint(straight)
+    require(sa == sb == 60 and all(np.array_equal(pa[k], pb[k]) for k in sharded.PARAM_KEYS),
+            "cli train: 40 + resume 20 differs from a straight 60")
+    require(any("resumed from" in ln and "at step 40" in ln
+                for ln in train_lines["resume_20"]["stderr"]), "cli train: no resume line")
+    for name, n_steps in (("first_40", 40), ("resume_20", 20), ("straight_60", 60)):
+        want = {"fwd": 1, "fwd_idx": n_steps, "bwd_replay": n_steps}
+        require(train_lines[name]["launches"] == want,
+                f"cli train {name}: launches {train_lines[name]['launches']}, expected {want}")
+    from ascendpathtracing_tpu_torch.models import megakernel
+
+    t_rays, t_scene, t_target = cli.train_problem(FULL_W, FULL_W, BOUNCES, dev)
+    t_params, t_aux = sharded.split_scene_params(t_scene)
+    t_params = dict(t_params, albedo=t_params["albedo"] + 0.08)
+    train_step = sharded.make_train_step(None, bounces=BOUNCES, learning_rate=0.05)
+    loss1, _ = train_step(t_params, t_aux, t_rays, t_target)
+    loss60 = train_lines["straight_60"]["json"]["final_loss"]
+    require(np.isfinite(loss60) and loss60 < float(loss1),
+            f"cli train: loss {loss60} after 60 steps, {float(loss1)} at step 1")
+    require(train_lines["resume_20"]["json"]["final_loss"] == loss60,
+            "cli train: the resumed run's final loss differs from the straight run's")
+
+    def train_loop(k):
+        p = t_params
+        for _ in range(k):
+            _, p = train_step(p, t_aux, t_rays, t_target)
+        return p
+
+    train_loop(3)  # warm
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    train_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        ev0.record()
+        train_loop(20)
+        ev1.record()
+        torch.cuda.synchronize()
+        train_ms.append({"events_ms_per_step": ev0.elapsed_time(ev1) / 20,
+                         "host_ms_per_step": (time.time() - t0) * 1e3 / 20})
+    train_step_ms = statistics.median(r["events_ms_per_step"] for r in train_ms)
+    # where the step's time goes: device time by kernel, busy and idle
+    train_profile = bench.profile_steps(
+        lambda: train_step(t_params, t_aux, t_rays, t_target), iters=10, top=10)
+    phase("train_cli_4M_8bounce", gpu=gpu, rays=FULL_W * FULL_W * 4,
+          runs={k: {kk: v[kk] for kk in ("json", "seconds", "launches")}
+                for k, v in train_lines.items()},
+          resume_bitwise_vs_straight=True, loss_step1=float(loss1), loss_step60=loss60,
+          step_ms=train_step_ms, step_times=train_ms, step_profile=train_profile,
+          main_path_fwd_bwd_ms=steps["kernel_fwd+bwd"]["ms"])
+    del t_rays, t_target, t_params, train_step
+    torch.cuda.empty_cache()
+
+    # ---- 8c. post-processing and the oracle through the CLI ------------
+    # render --denoise 2 --tonemap aces --clamp 8 --aov gbuffer at 1024 x
+    # 1024 (reference mode, 8 bounces): the artifacts, final.ppm within one
+    # level of the same pipeline run on the CPU over a 256 x 256 render,
+    # and the pipeline's time on the card (host clock, synchronized).
+    from ascendpathtracing_tpu_torch import post
+    from ascendpathtracing_tpu_torch.utils import io as pio
+
+    post_args = ["--denoise", "2", "--tonemap", "aces", "--clamp", "8", "--aov", "gbuffer"]
+    with tempfile.TemporaryDirectory() as tmp:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["render", "--backend", "cuda", "--width", str(FULL_W), "--height",
+                           str(FULL_W), "--bounces", str(BOUNCES), *post_args, "--check-finite",
+                           "--out", tmp])
+        post_stats = json.loads(buf.getvalue().strip().splitlines()[-1])
+        require(rc == 0 and post_stats["final"].endswith("final.ppm"), f"cli post: {post_stats}")
+        names = ("color.ppm", "final.ppm", "depth.ppm", "normal.ppm", "albedo.ppm")
+        require(all((Path(tmp) / n).exists() for n in names), "cli post: missing artifacts")
+        final = pio.read_ppm(f"{tmp}/final.ppm")
+        require(final.shape == (FULL_W, FULL_W, 3) and final.max() > 0, "cli post: final.ppm")
+        colors_full = torch.tensor(pio.read_color_bin(f"{tmp}/color.bin"), device=dev)
+    p_rays = torch.tensor(camera.generate_rays_numpy(FULL_W, FULL_W, 1, seed=0)
+                          .astype(np.float32), device=dev)
+    p_gbuf = megakernel.render_gbuffer_impl(p_rays, megakernel.scene_to_device(scene, device=dev))
+    pkw = dict(clamp=8.0, denoise=2, tonemap="aces", exposure=1.0)
+    require(np.array_equal(cli.post_pipeline(colors_full, p_gbuf, FULL_W, FULL_W, 1, **pkw),
+                           final), "post pipeline: not the CLI's final.ppm")
+    post_ms = []  # host clock: the pipeline decodes on the host between device passes
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        cli.post_pipeline(colors_full, p_gbuf, FULL_W, FULL_W, 1, **pkw)
+        torch.cuda.synchronize()
+        post_ms.append((time.time() - t0) * 1e3)
+    hdr_rand = torch.rand((FULL_W, FULL_W, 3), device=dev)
+    denoise_ms = statistics.median(bench.time_steps(
+        lambda: post.atrous_denoise(hdr_rand, iterations=2), iters=5, warmup=1)[0])
+    w256 = 256
+    r256 = torch.tensor(camera.generate_rays_numpy(w256, w256, 1, seed=0).astype(np.float32))
+    c256 = rk.render_reference(r256.to(dev), planes(), light_index=light, bounces=BOUNCES)
+    g_cpu = megakernel.render_gbuffer_impl(r256, megakernel.scene_to_device(scene))
+    g_dev = megakernel.render_gbuffer_impl(r256.to(dev), megakernel.scene_to_device(
+        scene, device=dev))
+    f_dev = cli.post_pipeline(c256, g_dev, w256, w256, 1, **pkw)
+    f_cpu = cli.post_pipeline(c256.cpu(), g_cpu, w256, w256, 1, **pkw)
+    post_levels = int(np.abs(f_dev.astype(int) - f_cpu.astype(int)).max())
+    require(post_levels <= 1, f"post pipeline card vs CPU at 256x256: {post_levels} levels")
+    phase("post_cli_1024", gpu=gpu, cli=post_stats, pipeline_ms=statistics.median(post_ms),
+          pipeline_ms_runs=post_ms, atrous_2_levels_ms=denoise_ms,
+          card_vs_cpu_levels_256=post_levels,
+          tolerance="final.ppm within one level of the CPU's")
+    del colors_full, p_rays, p_gbuf, r256, c256, hdr_rand
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["oracle", "--width", "64", "--height", "64", "--bounces", "1",
+                           "--out", tmp])
+        oracle_line = json.loads(buf.getvalue().strip().splitlines()[-1])
+        o_colors = pio.read_color_bin(f"{tmp}/oracle_color.bin")
+    o_rays, o_rp = rays_planes(64)
+    o_ker = rk.render_reference_planes(o_rp, planes(), light_index=light, bounces=1)
+    require(rc == 0 and np.array_equal(o_ker.T.cpu().numpy(), o_colors),
+            f"cli oracle: {oracle_line}, not the kernel's colors at 1 bounce")
+    phase("oracle_cli", cli=oracle_line, bitwise_vs_kernel_1bounce=True)
 
     # ---- 9-13. the fused path tracer (csrc/render_pt.cu) ---------------
     def pt_inputs(name, dtype=torch.float32):
@@ -1467,10 +1724,11 @@ def main(argv=None) -> int:
     self_lines = [json.loads(x) for x in buf.getvalue().strip().splitlines()]
     # check 5 launches the chunk kernel once, check 6's bounce-loop render
     # once per bounce (4)
-    require(rc_self == 0 and self_lines[-1]["passed"] == 7 and self_lines[-1]["ran"] == 7
+    require(rc_self == 0 and self_lines[-1]["passed"] == 8 and self_lines[-1]["ran"] == 8
             and self_launches["wbvh"] == 5 and self_launches["segsum"] >= 1
             and self_lines[5]["check"] == "mesh_pt_fused_energy_vs_xla" and self_lines[5]["ok"]
-            and self_lines[6]["check"] == "mesh_fused_vjp_grads" and self_lines[6]["ok"],
+            and self_lines[6]["check"] == "mesh_fused_vjp_grads" and self_lines[6]["ok"]
+            and self_lines[7]["check"] == "checkify_float_guards" and self_lines[7]["ok"],
             f"cli selftest: {self_lines}, launches {self_launches}")
     phase("mesh_entry_points_counted", first_hit_mesh=launches["first_hit_mesh"],
           triangle_pixels=int(tri_px.sum()), mesh_step=launches["mesh_step"],
@@ -2374,6 +2632,114 @@ def main(argv=None) -> int:
         bounce1_root_entries=b1_roots,
         **{f"bounce1_{k}": v for k, v in bound(
             n_b * (24 + 8 + 44), walk_ops(b1_walk, n_b, m_grid, roots=b1_roots)).items()})
+
+    # ---- debug dumps ----------------------------------------------------
+    # Each kernel's debug instantiation prints, with device printf, the
+    # lines its plain twin prints from torch (both read back from fd 1),
+    # and leaves every output of the debug-off launch bit for bit:
+    # render_pt.cu at cornell8's 1024 x 1024 x 64 samples, wbvh.cu on the
+    # 4,194,304 camera rays against the s4 grid in tiles of 1,024 rays (the
+    # JAX test's tile: 4,096 lines), mesh_pt.cu at the s4 cell; cells of
+    # 2,048 pixels (the Pallas wrappers' tile) of sample layer 0.  Layer 0's
+    # paths do not depend on spp4 (Philox keys by pixel and layer), so the
+    # full frames' lines equal the twins' at 4 samples.
+    import ctypes
+
+    libc = ctypes.CDLL(None)
+    dump_labels = ("pt_pallas alive", "wbvh tile worklist k", "mesh_pt worklist k",
+                   "mesh_pt alive")
+
+    def dumped(fn):
+        """fn()'s result and the dump lines written to fd 1 meanwhile."""
+        sys.stdout.flush()
+        with tempfile.TemporaryFile() as f:
+            saved = os.dup(1)
+            os.dup2(f.fileno(), 1)
+            try:
+                out = fn()
+                torch.cuda.synchronize()
+                sys.stdout.flush()
+                libc.fflush(None)
+            finally:
+                os.dup2(saved, 1)
+                os.close(saved)
+            f.seek(0)
+            text = f.read().decode()
+        return out, [ln for ln in text.splitlines() if ln.partition(": ")[0] in dump_labels]
+
+    def dumped_ms(fn):
+        """Median ms of fn over 5 runs (their dump lines discarded)."""
+        return statistics.median(dumped(lambda: bench.time_steps(fn, iters=5, warmup=1)[0])[0])
+
+    dumps = {}
+    planes_c, mats_c = pt_inputs("cornell8")
+    d_pt = dict(width=FULL_W, height=FULL_W, bounces=BOUNCES, rr_depth=PT_RR)
+    off_pt = ptk.render_pt(planes_c, mats_c, spp4=PT_SPP4, **d_pt)
+    ptk.reset_launches()
+    on_pt, k_pt = dumped(lambda: ptk.render_pt(planes_c, mats_c, spp4=PT_SPP4, debug=True,
+                                               **d_pt))
+    require(ptk.LAUNCHES == {"pt": 1}, f"debug render_pt launches {ptk.LAUNCHES}")
+    _, k_pt4 = dumped(lambda: ptk.render_pt(planes_c, mats_c, spp4=4, debug=True, **d_pt))
+    _, t_pt4 = dumped(lambda: ptk.render_pt_plain(planes_c, mats_c, spp4=4, debug=True,
+                                                  **d_pt))
+    require(len(k_pt) == BOUNCES and k_pt == k_pt4 == t_pt4,
+            f"render_pt dump: kernel {k_pt} / {k_pt4}, twin {t_pt4}")
+    require(torch.equal(on_pt, off_pt), "render_pt: the debug image differs")
+    dumps["render_pt"] = {"lines": k_pt, "image_bitwise_vs_debug_off": True,
+                          "ms_debug_on": dumped_ms(lambda: ptk.render_pt(
+                              planes_c, mats_c, spp4=PT_SPP4, debug=True, **d_pt)),
+                          "ms_debug_off": dumped_ms(lambda: ptk.render_pt(
+                              planes_c, mats_c, spp4=PT_SPP4, **d_pt))}
+    del planes_c, mats_c, off_pt, on_pt
+
+    _, rp_d = rays_planes(FULL_W)
+    off_w = wk.intersect_chunks(rp_d, m_cb, m_sb, m_t24, attrs=True, **m_kw)
+    wk.reset_launches()
+    on_w, k_w = dumped(lambda: wk.intersect_chunks(rp_d, m_cb, m_sb, m_t24, attrs=True,
+                                                   debug=True, debug_tile=1024, **m_kw))
+    require(wk.LAUNCHES == {"wbvh": 1}, f"debug wbvh launches {wk.LAUNCHES}")
+    _, t_w = dumped(lambda: wk.intersect_chunks_plain(rp_d, m_cb, m_sb, m_t24, debug=True,
+                                                      debug_tile=1024, **m_kw))
+    require(len(k_w) == rp_d.shape[1] // 1024 and k_w == t_w,
+            f"wbvh dump: {len(k_w)} kernel lines, {len(t_w)} twin lines, equal {k_w == t_w}")
+    require(torch.equal(on_w[0], off_w[0]) and torch.equal(on_w[1], off_w[1])
+            and all(torch.equal(a, b) for a, b in zip(on_w[2], off_w[2])),
+            "wbvh: the debug outputs differ")
+    k_vals = [int(ln.partition(": ")[2]) for ln in k_w]
+    dumps["wbvh"] = {"lines": len(k_w), "first_lines": k_w[:4], "k_min": min(k_vals),
+                     "k_max": max(k_vals), "k_mean": statistics.mean(k_vals),
+                     "outputs_bitwise_vs_debug_off": True,
+                     "ms_debug_on": dumped_ms(lambda: wk.intersect_chunks(
+                         rp_d, m_cb, m_sb, m_t24, attrs=True, debug=True, debug_tile=1024,
+                         **m_kw)),
+                     "ms_debug_off": dumped_ms(lambda: wk.intersect_chunks(
+                         rp_d, m_cb, m_sb, m_t24, attrs=True, **m_kw))}
+    del rp_d, off_w, on_w
+
+    d_mesh = dict(materials=m_mats, width=FULL_W, height=FULL_W, bounces=BOUNCES,
+                  rr_depth=PT_RR, **m_kw)
+    off_m = mpt.render_pt_mesh(m_planes, m_cb, m_sb, m_t24, spp4=PT_SPP4, **d_mesh)
+    mpt.reset_launches()
+    on_m, k_m = dumped(lambda: mpt.render_pt_mesh(m_planes, m_cb, m_sb, m_t24, spp4=PT_SPP4,
+                                                  debug=True, **d_mesh))
+    require(mpt.LAUNCHES == {"mesh_pt": 1}, f"debug mesh_pt launches {mpt.LAUNCHES}")
+    _, k_m4 = dumped(lambda: mpt.render_pt_mesh(m_planes, m_cb, m_sb, m_t24, spp4=4,
+                                                debug=True, **d_mesh))
+    _, t_m4 = dumped(lambda: mpt.render_pt_mesh_plain(m_planes, m_cb, m_sb, m_t24, spp4=4,
+                                                      debug=True, **d_mesh))
+    require(len(k_m) == 2 * BOUNCES and k_m == k_m4 == t_m4,
+            f"mesh_pt dump: kernel {k_m} / {k_m4}, twin {t_m4}")
+    require(torch.equal(on_m, off_m), "mesh_pt: the debug image differs")
+    dumps["mesh_pt"] = {"lines": k_m, "image_bitwise_vs_debug_off": True,
+                        "ms_debug_on": dumped_ms(lambda: mpt.render_pt_mesh(
+                            m_planes, m_cb, m_sb, m_t24, spp4=PT_SPP4, debug=True, **d_mesh)),
+                        "ms_debug_off": dumped_ms(lambda: mpt.render_pt_mesh(
+                            m_planes, m_cb, m_sb, m_t24, spp4=PT_SPP4, **d_mesh))}
+    del off_m, on_m
+    torch.cuda.empty_cache()
+    phase("debug_dumps", gpu=gpu, debug_tile={"render_pt": 2048, "wbvh": 1024,
+                                             "mesh_pt": 2048}, **dumps,
+          tolerance="the kernel's lines equal the twin's; outputs bitwise vs debug off")
 
     # The A/B against --parent: AB_SCRIPT from each tree in turns (parent,
     # new, new, parent) on the inputs saved above; the means of each

@@ -202,7 +202,7 @@ def test_kstats_on_a_ragged_grid_with_pads_outside_their_super(monkeypatch):
         ray = (*o3, *inv)
         enter = mpt._slab_all(pg_cb, ray, gate)  # [M, C]
         sup = mpt._slab_all(pg_sb, ray, gate).repeat_interleave(per, dim=1)
-        assert bool((marks[0] == 0).all())  # one cell per layer
+        assert len(marks) == 1 and bool((marks[0][0] == 0).all())  # one cell per layer
         listed["pallas"].append(int((sup.any(0) & enter.any(0)).sum()))
         listed["port"].append(int((sup & enter).any(0).sum()))
         return walk(g, o3, d3, tmin, gate=gate, marks=marks, **kw)

@@ -996,3 +996,237 @@ def test_mesh_pt_boxes_near_the_shared_memory_limit(cuda, dtype):
     k = _mesh_options_vs_twin(tables, cuda, width=16, height=16, spp4=4, bounces=3,
                               rr_depth=2, stats_tile=256)
     assert int((k[1] >= tables[0].shape[1]).sum()) > 0
+
+
+# --------------------------------------------------------- debug dumps ----
+DUMP_LABELS = ("pt_pallas alive", "wbvh tile worklist k", "mesh_pt worklist k",
+               "mesh_pt alive")
+
+
+def _dump_lines(capfd) -> list:
+    """The debug dumps' lines in the captured output (device printf and
+    Python alike), as (label, value) in order."""
+    out = []
+    for ln in "".join(capfd.readouterr()).splitlines():
+        label, _, value = ln.partition(": ")
+        if label in DUMP_LABELS:
+            out.append((label, value))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("debug_tile", [300, 2048])
+@pytest.mark.parametrize("stream", ["philox", "buffer"])
+def test_pt_debug_dump_equals_twin(cuda, capfd, dtype, debug_tile, stream):
+    """render_pt.cu's debug instantiation prints, with device printf, the
+    twin's lines: the paths of pixels [0, debug_tile) of layer 0 alive
+    after each bounce, counting the paths with zero throughput (cornell8's
+    black front wall) that the kernel's exit would end; the image is the
+    debug-off kernel's and the twin's bit for bit."""
+    planes, mats = _pt_scene("cornell8", dtype, cuda)
+    u = None
+    if stream == "buffer":
+        u = torch.tensor(np.random.RandomState(3).uniform(0.0, 1.0, (8, ptk.n_uniforms(8), 561)),
+                         dtype=dtype, device=cuda)
+    kw = dict(width=33, height=17, spp4=8, bounces=8, rr_depth=2, uniforms=u)
+    off = ptk.render_pt(planes, mats, **kw)
+    _dump_lines(capfd)
+    ptk.reset_launches()
+    on = ptk.render_pt(planes, mats, debug=True, debug_tile=debug_tile, **kw)
+    kernel = _dump_lines(capfd)
+    assert ptk.LAUNCHES == {"pt": 1}
+    twin = ptk.render_pt_plain(planes, mats, debug=True, debug_tile=debug_tile, **kw)
+    assert _dump_lines(capfd) == kernel and len(kernel) == 8
+    counts = [float(v) for _, v in kernel]
+    assert counts[0] > counts[-1] > 0 and counts[0] <= min(debug_tile, 561)
+    assert _bits_equal(on, off) and _bits_equal(on, twin)
+
+
+def _wbvh_outputs_equal(k, p):
+    return (torch.equal(k[0], p[0]) and torch.equal(k[1], p[1]) and torch.equal(k[3], p[3])
+            and all(torch.equal(a, b) for a, b in zip(k[2], p[2])))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("sub,T,sp,sp2", TRAVERSALS)
+def test_wbvh_debug_dump_equals_twin(cuda, capfd, dtype, sub, T, sp, sp2):
+    """wbvh.cu's debug instantiation prints the twin's "wbvh tile worklist
+    k" line for every 1,000-ray tile (a ragged last one) in order, with
+    the stats and without; tmin, slot, attrs and counts are the debug-off
+    kernel's and the twin's bit for bit."""
+    cb, sb, ssb, rows = _wbvh_case(cuda, sub, T, sp, sp2, 24)
+    rays = torch.tensor(_sphere_rays(4500), dtype=dtype, device=cuda)
+    kw = dict(tris_per_chunk=T, supers_per=sp, supers2_per=sp2, attrs=True, stats=True)
+    off = wk.intersect_chunks(rays, cb, sb, rows, ssb, **kw)
+    _dump_lines(capfd)
+    wk.reset_launches()
+    on = wk.intersect_chunks(rays, cb, sb, rows, ssb, debug=True, debug_tile=1000, **kw)
+    kernel = _dump_lines(capfd)
+    assert wk.LAUNCHES == {"wbvh": 1}
+    twin = wk.intersect_chunks_plain(rays, cb, sb, rows, ssb, debug=True, debug_tile=1000, **kw)
+    assert _dump_lines(capfd) == kernel and len(kernel) == 5
+    assert _wbvh_outputs_equal(on, off) and _wbvh_outputs_equal(on, twin)
+    tmin, hit = wk.intersect_chunks(rays, cb, sb, rows, ssb, tris_per_chunk=T, supers_per=sp,
+                                    supers2_per=sp2, debug=True, debug_tile=1000)
+    assert _dump_lines(capfd) == kernel
+    assert torch.equal(tmin, off[0]) and torch.equal(hit, off[1])
+
+
+@pytest.mark.cuda
+def test_wbvh_debug_dump_past_one_print_batch(cuda, capfd):
+    """10,486 tiles of 100 rays: more lines than one print launch holds
+    (8,192); every tile's line comes out, in order, equal to the twin's."""
+    cb, sb, ssb, rows = _wbvh_case(cuda, 2, 8, 4, 0, 24)
+    rays = torch.tensor(_random_rays(1 << 20, seed=5), device=cuda)
+    kw = dict(tris_per_chunk=8, supers_per=4, debug=True, debug_tile=100)
+    _dump_lines(capfd)
+    wk.intersect_chunks(rays, cb, sb, rows, **kw)
+    kernel = _dump_lines(capfd)
+    wk.intersect_chunks_plain(rays, cb, sb, rows, **kw)
+    twin = _dump_lines(capfd)
+    assert len(kernel) == 10486 and kernel == twin
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("options", ["forward", "residuals_camera", "stats"])
+@pytest.mark.parametrize("debug_tile", [200, 512])
+def test_mesh_pt_debug_dump_equals_twin(cuda, capfd, dtype, options, debug_tile):
+    """mesh_pt.cu's debug instantiations print the twin's "mesh_pt
+    worklist k" and "mesh_pt alive" lines per bounce for pixels [0,
+    debug_tile) of layer 0 (path regeneration runs other layers in the
+    same warps), with every residual sink and with the stats; every
+    output is the debug-off kernel's and the twin's bit for bit."""
+    planes, cb, sb, t24, mats, grid = mpt.mesh_pt_tables(
+        _mixed_scene(2), device=cuda, dtype=dtype, tris_per_chunk=8, supers_per=4)
+    kw = dict(materials=mats, width=32, height=16, spp4=4, bounces=4, rr_depth=2,
+              **mpt.pt_tables_kwargs(grid, cuda))
+    kw.update({"forward": {}, "stats": dict(with_stats=True, stats_tile=128),
+               "residuals_camera": dict(with_residuals=True, with_camera=True)}[options])
+    off = mpt.render_pt_mesh(planes, cb, sb, t24, **kw)
+    _dump_lines(capfd)
+    mpt.reset_launches()
+    on = mpt.render_pt_mesh(planes, cb, sb, t24, debug=True, debug_tile=debug_tile, **kw)
+    kernel = _dump_lines(capfd)
+    assert mpt.LAUNCHES == {"mesh_pt": 1}
+    twin = mpt.render_pt_mesh_plain(planes, cb, sb, t24, debug=True, debug_tile=debug_tile,
+                                    **kw)
+    assert _dump_lines(capfd) == kernel
+    assert [lab for lab, _ in kernel] == ["mesh_pt worklist k", "mesh_pt alive"] * 4
+    assert max(int(v) for lab, v in kernel if lab == "mesh_pt worklist k") > 0
+    if options == "forward":
+        on, off, twin = (on,), (off,), (twin,)
+    assert all(torch.equal(a, b) for a, b in zip(on, off))
+    assert all(torch.equal(a, b) for a, b in zip(on, twin))
+
+
+# ------------------------------------------------------------- trainer ----
+@pytest.mark.cuda
+def test_train_step_on_the_card_equals_the_cpu_twin_step(cuda):
+    """parallel/sharded.make_train_step(None): 5 float64 SGD steps at 16 x
+    16 x 4 rays, 3 bounces, through render_ref.cu's forward with winners
+    and replay backward (one launch each a step) against the same steps on
+    the CPU through their twins; center and r2 do not move."""
+    from ascendpathtracing_tpu_torch.models import megakernel
+    from ascendpathtracing_tpu_torch.parallel import sharded
+
+    rays = camera.generate_rays_numpy(16, 16, 1, seed=0)
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        scene = megakernel.scene_to_device(scenes.cornell8(), device=dev, dtype=torch.float64)
+        r = torch.tensor(rays, dtype=torch.float64, device=dev)
+        target = rk.render_reference(r, sharded.params_to_planes(scene), light_index=LIGHT,
+                                     bounces=3)
+        params, aux = sharded.split_scene_params(scene)
+        params = dict(params, albedo=params["albedo"] + 0.08)
+        step = sharded.make_train_step(None, bounces=3, learning_rate=0.05)
+        rk.reset_launches()
+        losses = []
+        for _ in range(5):
+            loss, params = step(params, aux, r, target)
+            losses.append(float(loss))
+        out[dev.type] = (losses, {k: v.cpu() for k, v in params.items()}, dict(rk.LAUNCHES))
+    (lc, pc, _), (lg, pg, launches) = out["cpu"], out["cuda"]
+    assert launches == {"fwd": 0, "fwd_idx": 5, "bwd_replay": 5, "bwd_recompute": 0}
+    np.testing.assert_allclose(lg, lc, rtol=1e-9)
+    for k in pc:
+        torch.testing.assert_close(pg[k], pc[k], rtol=1e-9, atol=1e-12)
+    base = megakernel.scene_to_device(scenes.cornell8(), dtype=torch.float64)
+    assert torch.equal(pg["center"], base["center"]) and torch.equal(pg["r2"], base["r2"])
+    assert lg[-1] < lg[0]
+
+
+@pytest.mark.cuda
+def test_cli_train_resume_equals_a_straight_run_on_the_card(cuda, tmp_path, capsys):
+    """cli train --backend cuda: 10 steps, then --resume for 10, leave the
+    parameters of a straight 20 bit for bit."""
+    from ascendpathtracing_tpu_torch.utils import checkpoint as ckpt
+
+    args = ["train", "--backend", "cuda", "--width", "32", "--height", "32", "--bounces", "8"]
+    split, straight = str(tmp_path / "split.npz"), str(tmp_path / "straight.npz")
+    assert cli.main([*args, "--steps", "10", "--ckpt", split]) == 0
+    assert cli.main([*args, "--steps", "10", "--ckpt", split, "--resume"]) == 0
+    assert "resumed from" in capsys.readouterr().err
+    assert cli.main([*args, "--steps", "20", "--ckpt", straight]) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    (pa, sa, _), (pb, sb, _) = ckpt.load_checkpoint(split), ckpt.load_checkpoint(straight)
+    assert sa == sb == 20 and set(pa) == set(pb) == {"albedo", "emission", "center", "r2"}
+    assert all(np.array_equal(pa[k], pb[k]) for k in pa)
+    assert np.isfinite(line["final_loss"]) and line["steps"] == 20
+
+
+# --------------------------------------------------------------- post ----
+@pytest.mark.cuda
+def test_post_on_the_card_matches_the_cpu(cuda):
+    """Each post function on the card against the CPU on the same float32
+    inputs (rtol 1e-5; the 8-bit image within one level)."""
+    from ascendpathtracing_tpu_torch import post
+
+    rng = np.random.RandomState(0)
+    img = torch.tensor(rng.gamma(1.0, 0.6, (48, 40, 3)).astype(np.float32))
+    nrm = torch.tensor(rng.randn(48, 40, 3).astype(np.float32))
+    nrm = nrm / nrm.norm(dim=-1, keepdim=True)
+    depth = torch.tensor(rng.uniform(1, 2, (48, 40)).astype(np.float32))
+    alb = torch.tensor(rng.uniform(0, 1, (48, 40, 3)).astype(np.float32))
+    colors = torch.tensor(rng.gamma(1.0, 3.0, (500, 3)).astype(np.float32))
+    cases = [(post.firefly_clamp, (colors, 2.0)), (post.tonemap_reinhard, (img, 1.5)),
+             (post.tonemap_aces, (img, 0.7)), (post.gamma_encode, (img,)),
+             (lambda *a: post.atrous_denoise(*a, iterations=3), (img, nrm, depth, alb)),
+             (lambda x: post.atrous_denoise(x, iterations=2), (img,))]
+    for fn, args in cases:
+        c = fn(*args)
+        g = fn(*(a.to(cuda) if isinstance(a, torch.Tensor) else a for a in args))
+        assert g.device.type == "cuda"
+        torch.testing.assert_close(g.cpu(), c, rtol=1e-5, atol=1e-6)
+    u8c = post.to_u8(post.gamma_encode(post.tonemap_aces(img)))
+    u8g = post.to_u8(post.gamma_encode(post.tonemap_aces(img.to(cuda))))
+    assert np.abs(u8c.astype(int) - u8g.astype(int)).max() <= 1
+
+
+@pytest.mark.cuda
+def test_cli_post_pipeline_on_the_card(cuda, tmp_path):
+    """cli render with --denoise, --tonemap, --clamp and the G-buffer on
+    the card: the artifacts, and final.ppm within one level of the CPU
+    run's (the reference render is bitwise the same on both at 1 bounce)."""
+    from ascendpathtracing_tpu_torch.utils import io
+
+    args = ["render", "--width", "32", "--height", "32", "--bounces", "1", "--denoise", "2",
+            "--tonemap", "aces", "--clamp", "8", "--aov", "gbuffer", "--check-finite"]
+    for backend in ("cuda", "cpu"):
+        assert cli.main([*args, "--backend", backend, "--out", str(tmp_path / backend)]) == 0
+    for name in ("color.ppm", "final.ppm", "depth.ppm", "normal.ppm", "albedo.ppm"):
+        assert (tmp_path / "cuda" / name).exists(), name
+    assert (tmp_path / "cuda" / "color.bin").read_bytes() == \
+        (tmp_path / "cpu" / "color.bin").read_bytes()
+    a, b = (io.read_ppm(str(tmp_path / d / "final.ppm")).astype(int) for d in ("cuda", "cpu"))
+    assert a.shape == (32, 32, 3) and np.abs(a - b).max() <= 1
+
+
+@pytest.mark.cuda
+def test_selftest_passes_on_the_card(cuda, capsys):
+    assert cli.main(["selftest", "--backend", "cuda"]) == 0
+    lines = [json.loads(x) for x in capsys.readouterr().out.strip().splitlines()]
+    assert lines[-1] == {"selftest": "PASS", "passed": 8, "ran": 8, "backend": "cuda"}
+    assert lines[7]["check"] == "checkify_float_guards" and lines[7]["nan_caught"]

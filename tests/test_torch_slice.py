@@ -111,8 +111,9 @@ def test_importing_the_port_loads_no_jax():
     """Importing every module of the port, chip_smoke and the card-only
     tests (tests/test_torch_cuda.py), a CPU mesh render with its replay
     backward, a CPU bounce-loop mesh render with its autograd backward
-    (diff/mesh), and a CPU camera-gradient render (diff/camera_fused) load
-    no jax and no module of the JAX package."""
+    (diff/mesh), a CPU camera-gradient render (diff/camera_fused), and
+    the CLI's train (with --resume), oracle and post-processed render on
+    the CPU load no jax and no module of the JAX package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import ascendpathtracing_tpu_torch as p\n"
@@ -144,6 +145,17 @@ def test_importing_the_port_loads_no_jax():
         "    height=8, spp4=4, bounces=2, **mpt.pt_tables_kwargs(grid))\n"
         "g = torch.autograd.grad(depth.mean(), [cam['pos']])[0]\n"
         "assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0\n"
+        "import tempfile\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    small = ['--width', '8', '--height', '8']\n"
+        "    assert cli.main(['train', '--backend', 'cpu', *small, '--steps', '2',\n"
+        "                     '--ckpt', d + '/c.npz']) == 0\n"
+        "    assert cli.main(['train', '--backend', 'cpu', *small, '--steps', '1',\n"
+        "                     '--ckpt', d + '/c.npz', '--resume']) == 0\n"
+        "    assert cli.main(['oracle', *small, '--out', d]) == 0\n"
+        "    assert cli.main(['render', '--backend', 'cpu', *small, '--denoise', '1',\n"
+        "                     '--tonemap', 'aces', '--clamp', '4', '--aov', 'gbuffer',\n"
+        "                     '--check-finite', '--out', d]) == 0\n"
         "assert 'jax' not in sys.modules, sorted(k for k in sys.modules if 'jax' in k)\n"
         "ref = sorted(k for k in sys.modules if k == 'ascendpathtracing_tpu'\n"
         "             or k.startswith('ascendpathtracing_tpu.'))\n"
@@ -153,7 +165,8 @@ def test_importing_the_port_loads_no_jax():
         "       'ops.mesh_pt_kernels', 'ops.histogram_kernels', 'diff.mesh_fused',\n"
         "       'config', 'scenes', 'camera', 'oracle', 'utils.io', 'accel.meshes',\n"
         "       'accel.bvh', 'ops.bvh_kernels', 'ops.sort', 'diff.mesh', 'diff.camera',\n"
-        "       'diff.fd', 'diff.camera_fused'}\n"
+        "       'diff.fd', 'diff.camera_fused', 'post', 'utils.debug',\n"
+        "       'utils.checkpoint', 'parallel.sharded'}\n"
         "assert {p.__name__ + '.' + m for m in new} <= set(mods), mods\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -162,7 +175,7 @@ def test_importing_the_port_loads_no_jax():
         text=True, timeout=300, check=False,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 34
+    assert int(out.stdout.strip().splitlines()[-1]) >= 39
 
 
 def test_backend_cuda_exits_2_without_cuda(no_cuda, tmp_path, capsys):
@@ -183,9 +196,11 @@ def test_backend_cuda_exits_2_without_cuda(no_cuda, tmp_path, capsys):
         (["render", "--scene", "mesh-cube", "--mode", "reference"],
          "mesh scenes require --mode pt"),
         (["render", "--shard", "2"], "not yet ported"),
-        (["render", "--denoise", "1"], "not yet ported"),
-        (["train", "--steps", "1"], "not yet ported"),
-        (["oracle"], "not yet ported"),
+        # Post-processing is ported; the options that are not still refuse.
+        (["render", "--denoise", "1", "--renderer", "wavefront"], "not yet ported"),
+        (["render", "--tonemap", "aces", "--shard", "2"], "not yet ported"),
+        (["render", "--clamp", "8", "--mode", "pt", "--renderer", "wavefront"],
+         "not yet ported"),
         # The JAX CLI's own refusal for its kernel renderer (cli.py:253-256).
         (["render", "--mode", "pt", "--renderer", "kernel"],
          "supports --mode reference only"),
@@ -201,12 +216,14 @@ def test_unported_modes_exit_2(argv, message, tmp_path, capsys):
 def test_selftest_passes_on_cpu(capsys):
     assert cli.main(["selftest", "--backend", "cpu"]) == 0
     lines = [json.loads(x) for x in capsys.readouterr().out.strip().splitlines()]
-    assert lines[-1] == {"selftest": "PASS", "passed": 7, "ran": 7, "backend": "cpu"}
+    assert lines[-1] == {"selftest": "PASS", "passed": 8, "ran": 8, "backend": "cpu"}
     assert lines[3]["check"] == "pt_fused_energy_vs_plain" and lines[3]["rel_diff"] < 0.025
     assert lines[4]["check"] == "wbvh_chunks_vs_brute" and lines[4]["max_t_err"] < 1e-3
     assert lines[5]["check"] == "mesh_pt_fused_energy_vs_xla" and lines[5]["ok"]
     assert lines[5]["rel_diff"] < 0.03 and lines[5]["xla_mean"] > 0
     assert lines[6]["check"] == "mesh_fused_vjp_grads" and lines[6]["geom_rows_zero"]
+    assert lines[7] == {"check": "checkify_float_guards", "ok": True, "clean_pass": True,
+                        "nan_caught": True}
 
 
 def test_bench_profile_summary_on_the_host():
