@@ -19,6 +19,8 @@ card's name and power limit, and every step time.
     python -m ascendpathtracing_tpu_torch.bench --mode mesh --renderer xla  # bounce loop
     python -m ascendpathtracing_tpu_torch.bench --mode mesh --renderer xla --fwd-only \
         --traversal lockstep
+    python -m ascendpathtracing_tpu_torch.bench --mode pt --renderer wavefront
+    python -m ascendpathtracing_tpu_torch.bench --mode mesh --renderer wavefront
 
 ``--renderer kernel`` is the custom-VJP render on the hand-written CUDA
 kernels (replay backward); ``--renderer plain`` is the plain-torch
@@ -62,6 +64,18 @@ forward only: ``diff/mesh`` refuses the BVH's leaf order).
 vertices, face albedo and face emission by autograd (whose plane gathers
 sum their cotangents with the segment-sum kernel: 4 launches per bounce,
 less 2 at the last, whose hit distance no output reads).
+
+``--renderer wavefront`` is the JAX bench's ``wavefront`` cell with
+``--mode pt`` (``models/wavefront.render_wavefront``: cornell8 at 1024 x
+1024 pixels x ``--spp`` (64) samples, 8 bounces, RR from 5, a pool of
+``--pool`` (2**19) rays) and its ``wavefront-mesh`` cell with ``--mode
+mesh`` (``render_wavefront_mesh``: the mesh cell's scene and size on the
+chunk-grid tables, ``csrc/wbvh.cu`` once per iteration, the coherence
+sort and a compaction every iteration).  A new seed every step; forward
+only.  The value counts samples per second under the JAX bench's
+``Mrays/s`` key; ``detail.iterations_per_step`` is the pool's iterations
+(``models/wavefront.STATS``; one image scatter, ``csrc/segsum.cu``, each)
+and ``detail.ms_per_iteration`` the step's median over them.
 
 Each step is timed with CUDA events after a warm-up; the value is the
 median.  In every mode ``detail.launches_per_step`` maps each kernel that
@@ -307,6 +321,30 @@ def make_xla_mesh_step(ms, *, device, traversal, bounces, width=1024, height=102
     return step, mdev
 
 
+def make_wavefront_step(mode, *, device, bounces, width=1024, height=1024, spp4=64,
+                        pool=1 << 19, subdiv=4, tris_per_chunk=16):
+    """One frame of a wavefront cell -> a callable returning (per-pixel
+    means [W*H, 3], ()), a new seed every call.  pt: cornell8; mesh: the
+    mesh cell's scene (:func:`mesh_scene`) on chunk-grid tables."""
+    from ascendpathtracing_tpu_torch import scenes
+    from ascendpathtracing_tpu_torch.models import megakernel
+    from ascendpathtracing_tpu_torch.models import mesh as mesh_mod
+    from ascendpathtracing_tpu_torch.models import wavefront
+
+    kw = dict(width=width, height=height, spp4=spp4, pool=pool, bounces=bounces,
+              rr_depth=PT_RR_DEPTH)
+    seeds = iter(range(1 << 30))
+    if mode == "pt":
+        sc = megakernel.scene_to_device(scenes.get_scene(PT_SCENES["kernel"]), device=device)
+        return lambda: (wavefront.render_wavefront(next(seeds), sc, **kw), ())
+    if mode != "mesh":
+        raise ValueError(f"no wavefront cell for mode {mode!r}")
+    mdev = mesh_mod.mesh_scene_to_device(mesh_scene(subdiv), device=device,
+                                         pallas_bvh_kernel=True,
+                                         tris_per_chunk=tris_per_chunk)
+    return lambda: (wavefront.render_wavefront_mesh(next(seeds), mdev, **kw), ())
+
+
 def time_steps(step, *, iters, warmup):
     """Runs ``warmup`` untimed steps, then ``iters`` steps each between two
     CUDA events -> (step times in ms, the last step's result)."""
@@ -375,8 +413,10 @@ def main(argv=None) -> int:
     p.add_argument("--iters", type=int, default=10, help="timed steps (>= 10)")
     p.add_argument("--warmup", type=int, default=2)
     p.add_argument("--bounces", type=int, default=8)
-    p.add_argument("--renderer", choices=["kernel", "plain", "xla"], default="kernel",
-                   help="xla: the bounce-loop mesh renderer (--mode mesh only)")
+    p.add_argument("--renderer", choices=["kernel", "plain", "xla", "wavefront"],
+                   default="kernel",
+                   help="xla: the bounce-loop mesh renderer (--mode mesh only); "
+                   "wavefront: the pool streaming renderers (--mode pt or mesh)")
     p.add_argument("--traversal", choices=["chunks", "lockstep"], default="chunks",
                    help="--renderer xla: the traversal kernel")
     p.add_argument("--mode", choices=["reference", "pt", "mesh"], default="reference")
@@ -386,6 +426,7 @@ def main(argv=None) -> int:
                    help="mesh: icosphere subdivisions (tris = 20*4^s: 4 -> 5,120)")
     p.add_argument("--chunk-tris", type=int, default=16,
                    help="mesh: triangles per chunk")
+    p.add_argument("--pool", type=int, default=1 << 19, help="wavefront: rays in the pool")
     p.add_argument("--fwd-only", action="store_true")
     p.add_argument("--profile", action="store_true",
                    help="also run the steps under torch.profiler (detail.profile)")
@@ -394,6 +435,8 @@ def main(argv=None) -> int:
         p.error("--iters must be >= 10 for a median")
     if args.renderer == "xla" and args.mode != "mesh":
         p.error("--renderer xla needs --mode mesh")
+    if args.renderer == "wavefront" and args.mode == "reference":
+        p.error("--renderer wavefront needs --mode pt or mesh")
     if args.renderer == "xla" and args.traversal == "lockstep" and not args.fwd_only:
         print("error: --traversal lockstep is forward only: diff/mesh refuses the BVH's "
               "leaf order (pass --fwd-only)", file=sys.stderr)
@@ -421,7 +464,22 @@ def main(argv=None) -> int:
     n = w * h * 4
     rays = camera.generate_rays_numpy(w, h, 1, seed=0).astype(np.float32)
     extra = {}
-    if args.mode == "mesh" and args.renderer == "xla":
+    if args.renderer == "wavefront":
+        from ascendpathtracing_tpu_torch.ops import histogram_kernels, wbvh_kernels
+
+        fwd_only = True
+        step = make_wavefront_step(args.mode, device=device, bounces=args.bounces, width=w,
+                                   height=h, spp4=args.spp, pool=args.pool,
+                                   subdiv=args.subdiv, tris_per_chunk=args.chunk_tris)
+        n = w * h * args.spp
+        scene_name = (f"mesh-icosphere s{args.subdiv}" if args.mode == "mesh"
+                      else PT_SCENES["kernel"])
+        extra = {"mode": args.mode, "width": w, "height": h, "spp4": args.spp,
+                 "rr_depth": PT_RR_DEPTH, "pool": args.pool}
+        if args.mode == "mesh":
+            extra.update(traversal="chunks", tris_per_chunk=args.chunk_tris)
+        counted = [wbvh_kernels, histogram_kernels]
+    elif args.mode == "mesh" and args.renderer == "xla":
         from ascendpathtracing_tpu_torch.ops import bvh_kernels, histogram_kernels, wbvh_kernels
 
         fwd_only = args.fwd_only
@@ -486,13 +544,19 @@ def main(argv=None) -> int:
                                   for key, count in mod.LAUNCHES.items() if count}
     extra["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     med = statistics.median(times)
+    if args.renderer == "wavefront":
+        from ascendpathtracing_tpu_torch.models import wavefront
+
+        iters = wavefront.STATS["iterations"]  # the last step's; every step's alike
+        extra.update(iterations_per_step=iters, ms_per_iteration=med / max(iters, 1))
     profile = profile_steps(step, iters=args.iters) if args.profile else None
     tag = "fwd" if fwd_only else "fwd+bwd"
-    samples = args.mode == "mesh" or (args.mode == "pt" and args.renderer == "kernel")
+    samples = (args.mode == "mesh" or args.renderer == "wavefront"
+               or (args.mode == "pt" and args.renderer == "kernel"))
     what = "samples" if samples else "rays"
-    # The mesh cell's unit is named for what it counts; the pt cell keeps
-    # the JAX bench's Mrays/s key for its samples.
-    unit = "Msamples/s" if args.mode == "mesh" else "Mrays/s"
+    # The mesh cell's unit is named for what it counts; the pt and
+    # wavefront cells keep the JAX bench's Mrays/s key for their samples.
+    unit = "Msamples/s" if args.mode == "mesh" and args.renderer != "wavefront" else "Mrays/s"
     cell = f"{scene_name}, pt" if args.mode != "reference" else scene_name
     if args.renderer == "xla":
         cell += f", {args.traversal}"

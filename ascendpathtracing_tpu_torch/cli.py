@@ -27,14 +27,20 @@ match the JAX package's only statistically.
 Artifacts, in the JAX package's formats (shared ``utils/io``):
   <out>/rays.bin  <out>/spheres.bin  <out>/color.bin  <out>/color.ppm
   with --aov: <out>/depth.ppm  <out>/normal.ppm  <out>/albedo.ppm
-A fused mesh render's color.bin holds each pixel's mean repeated over
-its 4 * samples slots, as the JAX CLI's fused mesh render writes it; the
-bounce-loop renderer's holds one color per ray.
+A fused mesh render's and a wavefront render's color.bin hold each
+pixel's mean repeated over its 4 * samples slots, as the JAX CLI writes
+them; the bounce-loop renderers' hold one color per ray.
 
 Mesh scenes with ``--renderer plain`` go through the bounce-loop mesh
 renderer (``models/mesh.render_pt_mesh_impl``): the chunk-grid traversal
 kernel on a card, the per-ray BVH walk (``jnp`` mode) with ``--backend
 cpu``, as the JAX CLI's jit renderer picks its traversal.
+
+``--renderer wavefront`` (``--mode pt`` only, sphere and mesh scenes) is
+the pool streaming renderer (``models/wavefront``): a pool of
+min(2**18, total samples rounded up to 2,048) rays, the image scatter
+through the segment-sum kernel; on a card, mesh scenes take the
+chunk-grid traversal kernel, on the CPU the per-ray BVH walk.
 
 Post-processing, as the JAX CLI's (``post``, on the render's device):
 ``--clamp L`` bounds each sample's luminance, the image is decoded to
@@ -54,8 +60,7 @@ reference kernels' forward with winners and replay backward
 ``--ckpt-every`` steps and at the end, ``--resume`` from it.  ``oracle``
 runs only the NumPy oracle (oracle_color.bin, oracle_color.ppm).
 
-Not ported yet: the wavefront renderer and ``--shard``; both exit 2 with
-"not yet ported".
+Not ported yet: ``--shard``; it exits 2 with "not yet ported".
 """
 
 from __future__ import annotations
@@ -145,14 +150,6 @@ def _device(name: str):
         return None
 
 
-def _unported_render_option(args) -> str | None:
-    checks = [
-        (args.renderer == "wavefront", "--renderer wavefront"),
-        (args.shard > 0, "--shard"),
-    ]
-    return next((what for bad, what in checks if bad), None)
-
-
 def cmd_render(args) -> int:
     from ascendpathtracing_tpu_torch import config
 
@@ -164,12 +161,16 @@ def cmd_render(args) -> int:
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
-    what = _unported_render_option(args)
-    if what is not None:
-        return _not_ported(what)
+    if args.shard > 0:
+        return _not_ported("--shard")
     mesh = args.scene is not None and args.scene.startswith("mesh-")
     if mesh and args.mode != "pt":
         print("error: mesh scenes require --mode pt", file=sys.stderr)
+        return 2
+    if args.renderer == "wavefront" and args.mode != "pt":
+        # The JAX CLI's refusal (cli.py:183-186).
+        print("error: --renderer wavefront is a path-tracing renderer "
+              "(use --mode pt)", file=sys.stderr)
         return 2
     if not mesh and args.renderer == "kernel" and args.mode != "reference":
         # The JAX CLI's refusal for its kernel renderer (cli.py:253-256).
@@ -220,7 +221,22 @@ def cmd_render(args) -> int:
     t0 = time.time()
     rays_t = torch.tensor(rays, device=device)
     dev = megakernel.scene_to_device(scene, device=device)
-    if mesh_scene is not None and args.renderer == "plain":
+    if args.renderer == "wavefront":
+        from ascendpathtracing_tpu_torch.models import mesh as mesh_mod
+        from ascendpathtracing_tpu_torch.models import wavefront as wf_mod
+
+        # the JAX CLI's pool (cli.py:227-251)
+        pool = min(1 << 18, -(-w * h * 4 * s // 2048) * 2048)
+        kw = dict(width=w, height=h, spp4=4 * s, pool=pool, bounces=args.bounces)
+        if mesh_scene is not None:
+            mdev = mesh_mod.mesh_scene_to_device(
+                mesh_scene, device=device, pallas_bvh_kernel=device.type == "cuda")
+            img3 = wf_mod.render_wavefront_mesh(args.seed, mdev, **kw)
+        else:
+            img3 = wf_mod.render_wavefront(args.seed, dev, **kw)
+        # per-pixel means [W*H, 3] -> repeated over each pixel's 4*s slots
+        colors = img3.repeat_interleave(4 * s, dim=0)
+    elif mesh_scene is not None and args.renderer == "plain":
         from ascendpathtracing_tpu_torch.models import mesh as mesh_mod
 
         # the chunk-grid kernel on a card; the per-ray BVH walk on the CPU

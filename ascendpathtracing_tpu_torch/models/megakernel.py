@@ -71,8 +71,11 @@ def _scene_planes(scene, key):
 
 
 def select_by_id(gid, plane):
-    """``plane[gid]`` as a select chain over the small sphere axis; its
-    backward is a masked sum per sphere.  ``gid`` must be in range."""
+    """``plane[gid]``; where autograd records it, as a select chain over
+    the small sphere axis, whose backward is a masked sum per sphere.
+    ``gid`` must be in range."""
+    if not (torch.is_grad_enabled() and plane.requires_grad):
+        return plane[gid if gid.dtype == torch.int64 else gid.long()]
     acc = torch.zeros(gid.shape, dtype=plane.dtype, device=gid.device)
     for i in range(plane.shape[0]):
         acc = torch.where(gid == i, plane[i], acc)
@@ -240,6 +243,68 @@ def _first_hit_frame(o3, d3, tmin, hit, cx, cy, cz):
     return hp, nrm, into, nl
 
 
+def pt_scatter(o3, d3, tput, rad, live, u, frame, surface, eps, *, has_diff=True,
+               has_refr=True):
+    """The smallpt estimator's scattering at a hit, shared by the sphere
+    and mesh renderers and their wavefronts -> (o3, d3, tput, rad): the
+    next ray, the throughput before Russian roulette and the radiance,
+    each changed where ``live`` only.
+
+    ``frame`` = (hit point, unit normal, entering mask, normal oriented
+    against the ray); ``surface`` = (emission, albedo, is_diff, is_refr,
+    r2 of the winner, 0 for a triangle); ``u`` the bounce's [3, N]
+    uniforms.  BSDF branches switched off by ``has_diff``/``has_refr`` are
+    skipped."""
+    hp, nrm, into, nl = frame
+    emit, alb, is_diff, is_refr, r2w = surface
+    rad = shade.v3_where(
+        live,
+        shade.v3_add(rad, (tput[0] * emit[0], tput[1] * emit[1], tput[2] * emit[2])),
+        rad,
+    )
+    d_spec = shade.reflect(d3, nrm)
+    d_diff = shade.cosine_sample_hemisphere(nl, u[0], u[1]) if has_diff else d_spec
+    if has_refr:
+        d_refr, refr_scale = shade.refract_or_reflect(d3, nrm, into, u[0])
+    else:
+        d_refr, refr_scale = d_spec, 1.0
+    new_d = shade.v3_where(is_diff, d_diff, shade.v3_where(is_refr, d_refr, d_spec))
+    scale = torch.where(is_refr, refr_scale, 1.0) if has_refr else 1.0
+    tput = shade.v3_where(
+        live,
+        (tput[0] * alb[0] * scale, tput[1] * alb[1] * scale, tput[2] * alb[2] * scale),
+        tput,
+    )
+    # Next origin: offset along the oriented normal, scale-aware (see
+    # shade.scaled_origin_offset); refracted rays keep the hit point.
+    off = torch.where(is_refr, 0.0, shade.scaled_origin_offset(r2w, eps))
+    o3 = shade.v3_where(live, shade.v3_add(hp, shade.v3_scale(nl, off)), o3)
+    d3 = shade.v3_where(live, new_d, d3)
+    return o3, d3, tput, rad
+
+
+def pt_bounce(o3, d3, tput, rad, alive, u, scene: dict, eps, *, has_diff=True,
+              has_refr=True):
+    """One bounce of the smallpt estimator over spheres -> (o3, d3, tput,
+    rad, live): :func:`pt_scatter`'s results and the rays that were alive
+    and hit.  Russian roulette is the caller's."""
+    cx, cy, cz = _scene_planes(scene, "center")
+    tmin, hit, miss = default_hit_fn(o3, d3, scene, eps)
+    live = alive & ~miss
+    hit = torch.where(miss, 0, hit).long()  # clamp for gathers; masked by live
+    frame = _first_hit_frame(o3, d3, tmin, hit, cx, cy, cz)
+    mat = select_by_id(hit, scene["material"])
+    surface = (
+        tuple(select_by_id(hit, p) for p in _scene_planes(scene, "emission")),
+        tuple(select_by_id(hit, p) for p in _scene_planes(scene, "albedo")),
+        mat == scenes.DIFF,
+        mat == scenes.REFR,
+        select_by_id(hit, scene["r2"]),
+    )
+    return (*pt_scatter(o3, d3, tput, rad, live, u, frame, surface, eps,
+                        has_diff=has_diff, has_refr=has_refr), live)
+
+
 def render_pt_impl(
     rays,
     scene: dict,
@@ -266,11 +331,6 @@ def render_pt_impl(
     dtype, device = o3[0].dtype, o3[0].device
     _check_uniforms(uniforms, bounces, 3, n)
     ray_index = torch.arange(n, device=device) if uniforms is None else None
-
-    cx, cy, cz = _scene_planes(scene, "center")
-    ax, ay, az = _scene_planes(scene, "albedo")
-    ex, ey, ez = _scene_planes(scene, "emission")
-    material = scene["material"]
     has_diff = materials_static is None or scenes.DIFF in materials_static
     has_refr = materials_static is None or scenes.REFR in materials_static
 
@@ -282,51 +342,13 @@ def render_pt_impl(
 
     for depth in range(bounces):
         u = _bounce_uniforms(uniforms, seed, depth, 3, ray_index, dtype)
-        tmin, hit, miss = default_hit_fn(o3, d3, scene, eps)
-        live = alive & ~miss
-        hit = torch.where(miss, 0, hit)  # clamp for gathers; masked by live
-        hp, nrm, into, nl = _first_hit_frame(o3, d3, tmin, hit, cx, cy, cz)
-
-        emit = (select_by_id(hit, ex), select_by_id(hit, ey), select_by_id(hit, ez))
-        rad = shade.v3_where(
-            live,
-            shade.v3_add(rad, (tput[0] * emit[0], tput[1] * emit[1], tput[2] * emit[2])),
-            rad,
-        )
-
-        alb = (select_by_id(hit, ax), select_by_id(hit, ay), select_by_id(hit, az))
-        mat = select_by_id(hit, material)
-        is_diff = mat == scenes.DIFF
-        is_refr = mat == scenes.REFR
-
-        d_spec = shade.reflect(d3, nrm)
-        d_diff = (
-            shade.cosine_sample_hemisphere(nl, u[0], u[1]) if has_diff else d_spec
-        )
-        if has_refr:
-            d_refr, refr_scale = shade.refract_or_reflect(d3, nrm, into, u[0])
-        else:
-            d_refr, refr_scale = d_spec, 1.0
-        new_d = shade.v3_where(is_diff, d_diff, shade.v3_where(is_refr, d_refr, d_spec))
-        scale = torch.where(is_refr, refr_scale, 1.0) if has_refr else 1.0
-        tput = shade.v3_where(
-            live,
-            (tput[0] * alb[0] * scale, tput[1] * alb[1] * scale, tput[2] * alb[2] * scale),
-            tput,
-        )
-
+        o3, d3, tput, rad, live = pt_bounce(o3, d3, tput, rad, alive, u, scene, eps,
+                                            has_diff=has_diff, has_refr=has_refr)
         if depth >= rr_depth:  # Russian roulette (unbiased)
             tput, survive = shade.russian_roulette(tput, u[2])
             alive = live & survive
         else:
             alive = live
-
-        # Next origin: offset along the oriented normal, scale-aware (see
-        # shade.scaled_origin_offset); refracted rays keep the hit point.
-        r2w = select_by_id(hit, scene["r2"])
-        off = torch.where(is_refr, 0.0, shade.scaled_origin_offset(r2w, eps))
-        o3 = shade.v3_where(live, shade.v3_add(hp, shade.v3_scale(nl, off)), o3)
-        d3 = shade.v3_where(live, new_d, d3)
     return torch.stack(rad, dim=1)
 
 

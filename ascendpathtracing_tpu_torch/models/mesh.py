@@ -357,6 +357,59 @@ def first_hit_mesh_impl(rays, dev, *, eps=1e-4, static: StaticConf | None = None
     return torch.minimum(st, tt), kind, torch.where(tri_closer, th, sh)
 
 
+def pt_mesh_bounce(o3, d3, tput, rad, alive, u, dev, eps, static: StaticConf, *,
+                   sort=False, query=None):
+    """One bounce of the smallpt estimator over spheres + mesh ->
+    (o3, d3, tput, rad, live), as ``megakernel.pt_bounce``: a triangle
+    wins where strictly nearer.  ``query`` = (o3, d3) sends other rays to
+    the two nearest-hit queries (the wavefront's dead lanes parked on a
+    ray that misses at once); the shading reads ``o3``, ``d3``."""
+    qo3, qd3 = (o3, d3) if query is None else query
+    sph = dev["spheres"]
+    cx, cy, cz = (sph["center"][:, i] for i in range(3))
+    st, shit, smiss = megakernel.default_hit_fn(qo3, qd3, sph, eps)
+    tt, thit, tmiss, tattrs = _mesh_hit(qo3, qd3, dev, eps, static, sort=sort)
+    use_tri = tt < st
+    tmin = torch.where(use_tri, tt, st)
+    miss = smiss & tmiss
+    live = alive & ~miss
+    shit = torch.where(smiss, 0, shit).long()
+
+    hp = (o3[0] + d3[0] * tmin, o3[1] + d3[1] * tmin, o3[2] + d3[2] * tmin)
+    s_chit = (select_by_id(shit, cx), select_by_id(shit, cy), select_by_id(shit, cz))
+    s_nrm = shade.v3_normalize(shade.v3_sub(hp, s_chit))
+    if tattrs is not None:
+        # the chunk kernel carried the winner's shading planes out
+        t_nrm, t_alb, t_emi = tattrs[0:3], tattrs[3:6], tattrs[6:9]
+        t_is_diff = tattrs[9] > 0.5
+        t_is_refr = tattrs[10] > 0.5
+    else:
+        th = thit.long()
+        g = _gather((*dev["fnormal"], *dev["f_albedo"], *dev["f_emission"]), th)
+        t_nrm, t_alb, t_emi = g[0:3], g[3:6], g[6:9]
+        t_mat = dev["f_material"][th]
+        t_is_diff = t_mat == DIFF
+        t_is_refr = t_mat == REFR
+    nrm = shade.v3_where(use_tri, t_nrm, s_nrm)
+    into = shade.v3_dot(d3, nrm) < 0
+    nl = shade.v3_scale(nrm, shade.where_const(into, 1.0, -1.0, tmin))
+
+    s_mat = select_by_id(shit, sph["material"])
+    surface = (
+        shade.v3_where(use_tri, t_emi, tuple(select_by_id(shit, sph["emission"][:, i])
+                                             for i in range(3))),
+        shade.v3_where(use_tri, t_alb, tuple(select_by_id(shit, sph["albedo"][:, i])
+                                             for i in range(3))),
+        torch.where(use_tri, t_is_diff, s_mat == DIFF),
+        torch.where(use_tri, t_is_refr, s_mat == REFR),
+        # scale-aware offset for sphere winners; triangle winners are
+        # scene-scale and keep the eps floor (r2 = 0)
+        torch.where(use_tri, 0.0, select_by_id(shit, sph["r2"])),
+    )
+    return (*megakernel.pt_scatter(o3, d3, tput, rad, live, u, (hp, nrm, into, nl),
+                                   surface, eps), live)
+
+
 def render_pt_mesh_impl(
     rays, dev, *, bounces: int = 8, rr_depth: int = 5, eps: float = 1e-4,
     static: StaticConf | None = None, uniforms=None, seed: int = 0,
@@ -364,7 +417,7 @@ def render_pt_mesh_impl(
 ):
     """The smallpt estimator over spheres + mesh -> colors [N, 3]: the
     structure of ``megakernel.render_pt_impl`` with a two-way nearest-hit
-    combine (a triangle wins when strictly nearer).
+    combine (a triangle wins when strictly nearer; :func:`pt_mesh_bounce`).
 
     ``uniforms``: [bounces, 3, N] in [0, 1) (the JAX version's per-bounce
     draws), or None to draw from the estimator stream of ``ops/rng`` keyed
@@ -381,11 +434,6 @@ def render_pt_mesh_impl(
     static = dev["static"] if static is None else static
     megakernel._check_uniforms(uniforms, bounces, 3, n)
     ray_index = torch.arange(n, device=device) if uniforms is None else None
-    sph = dev["spheres"]
-    cx, cy, cz = (sph["center"][:, i] for i in range(3))
-    sax, say, saz = (sph["albedo"][:, i] for i in range(3))
-    sex, sey, sez = (sph["emission"][:, i] for i in range(3))
-    smat = sph["material"]
 
     zeros = torch.zeros((n,), dtype=dtype, device=device)
     ones = torch.ones((n,), dtype=dtype, device=device)
@@ -395,70 +443,13 @@ def render_pt_mesh_impl(
 
     for depth in range(bounces):
         u = megakernel._bounce_uniforms(uniforms, seed, depth, 3, ray_index, dtype).to(dtype)
-        st, shit, smiss = megakernel.default_hit_fn(o3, d3, sph, eps)
-        tt, thit, tmiss, tattrs = _mesh_hit(o3, d3, dev, eps, static, sort=sort_per_bounce)
-        use_tri = tt < st
-        tmin = torch.where(use_tri, tt, st)
-        miss = smiss & tmiss
-        live = alive & ~miss
-        shit = torch.where(smiss, 0, shit)
-
-        hp = (o3[0] + d3[0] * tmin, o3[1] + d3[1] * tmin, o3[2] + d3[2] * tmin)
-        s_chit = (select_by_id(shit, cx), select_by_id(shit, cy), select_by_id(shit, cz))
-        s_nrm = shade.v3_normalize(shade.v3_sub(hp, s_chit))
-        if tattrs is not None:
-            # the chunk kernel carried the winner's shading planes out
-            t_nrm, t_alb, t_emi = tattrs[0:3], tattrs[3:6], tattrs[6:9]
-            t_is_diff = tattrs[9] > 0.5
-            t_is_refr = tattrs[10] > 0.5
-        else:
-            th = thit.long()
-            g = _gather((*dev["fnormal"], *dev["f_albedo"], *dev["f_emission"]), th)
-            t_nrm, t_alb, t_emi = g[0:3], g[3:6], g[6:9]
-            t_mat = dev["f_material"][th]
-            t_is_diff = t_mat == DIFF
-            t_is_refr = t_mat == REFR
-        nrm = shade.v3_where(use_tri, t_nrm, s_nrm)
-        into = shade.v3_dot(d3, nrm) < 0
-        nl = shade.v3_scale(nrm, shade.where_const(into, 1.0, -1.0, tmin))
-
-        emit_s = (select_by_id(shit, sex), select_by_id(shit, sey), select_by_id(shit, sez))
-        emit = shade.v3_where(use_tri, t_emi, emit_s)
-        rad = shade.v3_where(
-            live,
-            shade.v3_add(rad, (tput[0] * emit[0], tput[1] * emit[1], tput[2] * emit[2])),
-            rad,
-        )
-
-        alb_s = (select_by_id(shit, sax), select_by_id(shit, say), select_by_id(shit, saz))
-        alb = shade.v3_where(use_tri, t_alb, alb_s)
-        s_mat = select_by_id(shit, smat)
-        is_diff = torch.where(use_tri, t_is_diff, s_mat == DIFF)
-        is_refr = torch.where(use_tri, t_is_refr, s_mat == REFR)
-
-        d_diff = shade.cosine_sample_hemisphere(nl, u[0], u[1])
-        d_spec = shade.reflect(d3, nrm)
-        d_refr, refr_scale = shade.refract_or_reflect(d3, nrm, into, u[0])
-        new_d = shade.v3_where(is_diff, d_diff, shade.v3_where(is_refr, d_refr, d_spec))
-        scale = torch.where(is_refr, refr_scale, 1.0)
-        tput2 = shade.v3_where(
-            live,
-            (tput[0] * alb[0] * scale, tput[1] * alb[1] * scale, tput[2] * alb[2] * scale),
-            tput,
-        )
+        o3, d3, tput, rad, live = pt_mesh_bounce(o3, d3, tput, rad, alive, u, dev, eps,
+                                                 static, sort=sort_per_bounce)
         if depth >= rr_depth:  # Russian roulette (unbiased)
-            tput2, survive = shade.russian_roulette(tput2, u[2])
+            tput, survive = shade.russian_roulette(tput, u[2])
             alive = live & survive
         else:
             alive = live
-
-        # scale-aware offset for sphere winners; triangle winners are
-        # scene-scale and keep the eps floor (r2 = 0)
-        r2w = torch.where(use_tri, 0.0, select_by_id(shit, sph["r2"]))
-        off = torch.where(is_refr, 0.0, shade.scaled_origin_offset(r2w, eps))
-        o3 = shade.v3_where(live, shade.v3_add(hp, shade.v3_scale(nl, off)), o3)
-        d3 = shade.v3_where(live, new_d, d3)
-        tput = tput2
     return torch.stack(rad, dim=1)
 
 

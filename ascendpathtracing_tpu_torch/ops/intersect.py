@@ -57,8 +57,9 @@ def intersect_spheres_soa(ox, oy, oz, dx, dy, dz, cx, cy, cz, r2, eps):
     sq = sqrt_rn(torch.where(valid, det, 0.0))
     t0 = b - sq
     t1 = b + sq
-    # eps is rounded to the compute dtype, as the oracle's f32(eps).
-    eps = torch.as_tensor(eps, dtype=t0.dtype, device=t0.device)
+    # eps is rounded to the compute dtype, as the oracle's f32(eps); made
+    # on the device (a tensor copied from the host would wait for it)
+    eps = torch.full((), eps, dtype=t0.dtype, device=t0.device)
     return torch.where(
         valid & (t0 > eps), t0, torch.where(valid & (t1 > eps), t1, MISS_T)
     )
@@ -71,7 +72,7 @@ def reduce_hit_soa(t):
     lowest-index tie-break."""
     hit = torch.argmin(t, dim=0).to(torch.int32)
     tmin = torch.amin(t, dim=0)
-    miss = tmin >= torch.as_tensor(MISS_T, dtype=t.dtype, device=t.device)
+    miss = tmin >= torch.full((), MISS_T, dtype=t.dtype, device=t.device)
     return tmin, hit, miss
 
 

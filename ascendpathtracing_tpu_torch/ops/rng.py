@@ -19,7 +19,11 @@ halves (each partial product < 2**48).
 
 Streams (the fourth counter word): 0 for the fused path tracer
 (counter = (pixel, sample layer, block, 0)), 1 for the plain estimators
-(counter = (ray, bounce, block, 1)).  The key is (seed, 0).
+(counter = (ray, bounce, block, 1)), 2 for the wavefront's camera jitter
+(counter = (global sample index, 0, block, 2)).  The key is (seed, 0).
+The wavefront draws its bounces from stream 1 at (global sample index,
+the sample's own bounce), so a sample's path is a pure function of its
+index, whatever the pool size, iteration or slot that traces it.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ WORD_SCALE = 2.0 ** -24
 
 STREAM_FUSED = 0
 STREAM_ESTIMATOR = 1
+STREAM_CAMERA = 2
 
 
 def _mulhilo(a, m: int):
@@ -65,11 +70,11 @@ def bits_to_uniform(bits, dtype):
     return (bits >> 8).to(dtype) * WORD_SCALE
 
 
-def uniforms(seed: int, index, c1: int, count: int, *, stream: int, dtype):
+def uniforms(seed: int, index, c1, count: int, *, stream: int, dtype):
     """``count`` uniforms for each element of ``index`` (an int64 [N]
     tensor, the first counter word) -> [count, N].  Uniform q comes from
     word q % 4 of Philox4x32-10 at counter (index, c1, q // 4, stream),
-    key (seed, 0)."""
+    key (seed, 0); ``c1`` is an int or an int64 [N] tensor."""
     blocks = -(-count // 4)
     c2 = torch.arange(blocks, dtype=torch.int64, device=index.device)[:, None]
     words = philox4x32(index[None, :], c1 & MASK, c2, stream & MASK, seed, 0)

@@ -33,7 +33,7 @@ def scaled_origin_offset(r2_winner, eps):
     differentiable surface."""
     r2 = r2_winner.detach()
     return torch.maximum(
-        torch.as_tensor(eps, dtype=r2.dtype, device=r2.device),
+        torch.full((), eps, dtype=r2.dtype, device=r2.device),
         rel_offset_for(r2.dtype) * torch.sqrt(r2),
     )
 
@@ -105,8 +105,9 @@ def specular_bounce(o, d, tmin, center_hit):
 
 def where_const(m, a: float, b: float, like):
     """``where(m, a, b)`` of two Python floats, in ``like``'s dtype (JAX's
-    weak-typed ``jnp.where(m, 1.0, -1.0)``)."""
-    t = lambda v: torch.tensor(v, dtype=like.dtype, device=like.device)  # noqa: E731
+    weak-typed ``jnp.where(m, 1.0, -1.0)``).  The constants are made on
+    the device: a tensor copied from the host would wait for it."""
+    t = lambda v: torch.full((), v, dtype=like.dtype, device=like.device)  # noqa: E731
     return torch.where(m, t(a), t(b))
 
 

@@ -35,7 +35,13 @@ main path's entry points come the trainer (``cli train`` at the main
 path's 4,194,304 rays: 40 steps, then ``--resume`` for 20, bitwise equal
 to a straight 60, every step counted through the forward with winners
 and the replay backward, and timed), the CLI's post pipeline at 1024 x
-1024 and ``cli oracle``; before the A/B, the ``debug`` dumps of
+1024 and ``cli oracle``, then the wavefront renderers (``models/wavefront``,
+phases ``wavefront_*``: float64 parity with the bounce loops, the
+mesh wavefront through wbvh.cu and bvh.cu bitwise against their twins
+and its scatter through segsum.cu against the plain one, the JAX
+bench's two wavefront cells at 1024 x 1024 x 64 samples beside the
+fused kernels' frames, and the CLI and bench routes); before the A/B,
+the ``debug`` dumps of
 render_pt.cu, wbvh.cu and mesh_pt.cu (device printf read back from fd 1,
 each equal to its twin's lines, every output bitwise the debug-off
 launch's).  Right after
@@ -728,6 +734,331 @@ def image_from_residuals(wid, resv, spp4, chunk):
             prev = live
         img += rad.sum(dim=1)
     return img / spp4
+
+
+WF_POOL = 1 << 19  # the JAX bench's wavefront pool (bench.py:82)
+WF_W, WF_SPP4 = 64, 16  # the wavefront's parity checks: 64 x 64 x 16 samples
+WF_PROFILE_SPP4 = 8  # the wavefront frame traced by torch.profiler: 1024 x 1024 x 8
+
+
+def wavefront_phases(dev, gpu, kernel_mods) -> dict:
+    """The wavefront renderers (models/wavefront) on the card, phases
+    ``wavefront_*``.  Each run is counted from zero -> {run: launches},
+    and the segment-sum's numbers at the wavefront's scatter for the
+    kernels line under ``"segsum"``.
+
+    - ``wavefront_f64_64x64_spp16``: float64, 64 x 64 x 16 samples, 8
+      bounces, RR from 5: ``render_wavefront`` (cornell8, smallpt9; a pool
+      of 8,192 and one of every sample without compaction) and
+      ``render_wavefront_mesh`` (the mesh-cube scene, brute force;
+      coherence sort on and off, sort_every 1 and 2) against the per-pixel
+      means of ``render_pt_impl`` / ``render_pt_mesh_impl`` on the
+      wavefront's own camera rays, rtol 1e-12.
+    - ``wavefront_kernels_vs_twins``: the mesh cell's scene (icosphere s4
+      in smallpt9) at 64 x 64 x 16, pool 16,384: the render through
+      ``wbvh.cu`` (chunks) and ``bvh.cu`` (lockstep) bitwise against the
+      same render with the kernel's twin swapped in, one traversal launch
+      and one ``segsum.cu`` launch an iteration, two runs bitwise; the
+      ``segsum.cu`` scatter against the plain scatter in float64, rtol
+      1e-12.
+    - ``wavefront_pt_1024x1024_spp64`` and ``wavefront_mesh_1024x1024_spp64``:
+      the JAX bench's two wavefront cells (pool 2**19): frame ms by CUDA
+      events (median of 3 after a warm-up), iterations, ms per iteration,
+      the segment-sum's launches and ms, the idle share under
+      torch.profiler, two runs bitwise, pool 2**18 against 2**19 (and
+      sort_every 2 against 1) within rtol 1e-6, and the mean within 4
+      standard errors of the fused kernel's frame (render_pt.cu,
+      mesh_pt.cu) at the same size, timed beside it.  The pt cell's
+      100th scatter (2**19 rows into 1,048,576 slots) is held against the
+      plain scatter, each into float64 zeros, at rtol 1e-12, and timed
+      beside it and ``index_add_``; its bound counts an add into an
+      existing accumulator (seg, the dying rows' values, and the slots
+      they touch read and written).  Iterations are
+      ``models/wavefront.STATS``'s, each with one ``segsum.cu`` launch.
+    - ``wavefront_entry_points``: ``cli render --renderer wavefront`` on a
+      sphere and a mesh scene (256 x 256 x 4 samples) and ``bench
+      --renderer wavefront`` in both modes (256 x 256 x 16, 12 frames),
+      counted.
+    """
+    import numpy as np
+    import torch
+
+    from ascendpathtracing_tpu_torch import bench, cli, convert, scenes
+    from ascendpathtracing_tpu_torch.camera import Camera
+    from ascendpathtracing_tpu_torch.models import megakernel
+    from ascendpathtracing_tpu_torch.models import mesh as mm
+    from ascendpathtracing_tpu_torch.models import wavefront as wf
+    from ascendpathtracing_tpu_torch.ops import bvh_kernels as bk
+    from ascendpathtracing_tpu_torch.ops import histogram_kernels as segk
+    from ascendpathtracing_tpu_torch.ops import mesh_pt_kernels as mpt
+    from ascendpathtracing_tpu_torch.ops import pt_kernels as ptk
+    from ascendpathtracing_tpu_torch.ops import wbvh_kernels as wk
+
+    t_begin = time.time()
+    launches = {}
+
+    def counted(run):
+        torch.cuda.synchronize()
+        for mod in kernel_mods:
+            mod.reset_launches()
+        out = run()
+        torch.cuda.synchronize()
+        return out, {k: v for mod in kernel_mods for k, v in mod.LAUNCHES.items() if v}
+
+    def max_rel(a, b):
+        nz = b != 0
+        return float(((a - b)[nz].abs() / b[nz].abs()).max()) if nz.any() else 0.0
+
+    def med_ms(step, iters=3, warmup=1):
+        return statistics.median(bench.time_steps(step, iters=iters, warmup=warmup)[0])
+
+    def z_score(a, b):
+        """Mean of the per-pixel difference [3, W*H] over its standard
+        error (of the pixel count, as phase 24's)."""
+        diff = (a - b).double()
+        return float(diff.mean()) / (float(diff.std()) / diff[0].numel() ** 0.5)
+
+    @contextlib.contextmanager
+    def swapped(mod, name, fn):
+        """mod.name replaced by fn inside the block (the twins, here only)."""
+        saved = getattr(mod, name)
+        setattr(mod, name, fn)
+        try:
+            yield
+        finally:
+            setattr(mod, name, saved)
+
+    # ---- wavefront_f64_64x64_spp16 -------------------------------------
+    w, spp4 = WF_W, WF_SPP4
+    total = w * w * spp4
+    kw = dict(width=w, height=w, spp4=spp4, bounces=BOUNCES, rr_depth=PT_RR)
+    o3, d3, _, _ = wf._sample_camera_rays(torch.arange(total, device=dev), w, w, spp4, 0,
+                                          Camera(), torch.float64)
+    rays64 = torch.stack([*o3, *d3], dim=1)
+
+    def pixel_means(colors):
+        return colors.reshape(w * w, spp4, 3).mean(dim=1)
+
+    f64 = {}
+    for name in ("cornell8", "smallpt9"):
+        sc = megakernel.scene_to_device(scenes.get_scene(name), device=dev, dtype=torch.float64)
+        ref = pixel_means(megakernel.render_pt_impl(rays64, sc, bounces=BOUNCES,
+                                                    rr_depth=PT_RR))
+        for pool, compact in ((8192, True), (total, False)):
+            img = wf.render_wavefront(0, sc, pool=pool, compact=compact, dtype=torch.float64,
+                                      **kw)
+            require(bool(torch.allclose(img, ref, rtol=1e-12, atol=0.0)),
+                    f"wavefront f64 {name} pool {pool}: vs render_pt_impl {max_rel(img, ref)}")
+            f64[f"{name}_pool{pool}"] = {"max_rel_err": max_rel(img, ref),
+                                         "bitwise": bool(torch.equal(img, ref))}
+    bdev = mm.mesh_scene_to_device(cli._mesh_scene("cube"), device=dev, dtype=torch.float64,
+                                   use_bvh=False)
+    ref = pixel_means(mm.render_pt_mesh(rays64, bdev, bounces=BOUNCES, rr_depth=PT_RR))
+    for coherence, every in ((True, 1), (False, 2)):
+        img = wf.render_wavefront_mesh(0, bdev, pool=8192, coherence_sort=coherence,
+                                       sort_every=every, dtype=torch.float64, **kw)
+        require(bool(torch.allclose(img, ref, rtol=1e-12, atol=0.0)),
+                f"wavefront mesh f64 sort {coherence}/{every}: {max_rel(img, ref)}")
+        f64[f"mesh_cube_brute_sort{int(coherence)}_every{every}"] = {
+            "max_rel_err": max_rel(img, ref), "bitwise": bool(torch.equal(img, ref))}
+    del rays64, bdev, ref, img
+    phase("wavefront_f64_64x64_spp16", tolerance="allclose rtol 1e-12 vs the bounce loop's "
+          "per-pixel means on the wavefront's camera rays", **f64)
+
+    # ---- wavefront_kernels_vs_twins ------------------------------------
+    ms4 = bench.mesh_scene(MESH_SUBDIV)
+    kw_t = dict(kw, pool=16384)
+    vs_twins = {}
+    for trav, mod, name, twin, kernel in (
+            ("chunks", wk, "intersect_chunks", wk.intersect_chunks_plain, "wbvh"),
+            ("lockstep", bk, "intersect_bvh", bk.intersect_bvh_plain, "bvh")):
+        mdev = mm.mesh_scene_to_device(ms4, device=dev, pallas_bvh_kernel=True,
+                                       pallas_kernel=trav, tris_per_chunk=16)
+        run = f"wavefront_mesh_{trav}_64x64"
+        img_k, launches[run] = counted(lambda: wf.render_wavefront_mesh(0, mdev, **kw_t))
+        it = wf.STATS["iterations"]
+        require(it > 0 and launches[run] == {kernel: it, "segsum": it},
+                f"{run}: launches {launches[run]}")
+        require(torch.equal(img_k, wf.render_wavefront_mesh(0, mdev, **kw_t)),
+                f"{run}: two runs differ")
+        with swapped(mod, name, twin):
+            img_t, l_t = counted(lambda: wf.render_wavefront_mesh(0, mdev, **kw_t))
+        require(l_t == {"segsum": it}, f"{run} with the {kernel} twin: launches {l_t}")
+        require(torch.equal(img_k, img_t), f"{run}: {kernel}.cu and its twin differ")
+        vs_twins[trav] = {"kernel": kernel, "launches": launches[run], "bitwise_vs_twin": True,
+                          "two_runs_bitwise": True, "mean": float(img_k.mean())}
+    # the scatter: segsum.cu against the plain segment-sum, float64 pool
+    mdev = mm.mesh_scene_to_device(ms4, device=dev, pallas_bvh_kernel=True, tris_per_chunk=16)
+
+    def plain_scatter(seg, vals, *, n_slots, out, **_):
+        return segk.segment_rows_plain(seg, vals, n_slots=n_slots, out=out)
+
+    img_k = wf.render_wavefront_mesh(0, mdev, dtype=torch.float64, **kw_t)
+    with swapped(segk, "segment_rows_matmul", plain_scatter):
+        img_p, l_p = counted(lambda: wf.render_wavefront_mesh(0, mdev, dtype=torch.float64,
+                                                               **kw_t))
+    require(set(l_p) == {"wbvh"}, f"plain scatter run: launches {l_p}")
+    require(bool(torch.allclose(img_k, img_p, rtol=1e-12, atol=0.0)),
+            f"wavefront scatter: segsum.cu vs plain {max_rel(img_k, img_p)}")
+    vs_twins["segsum_f64"] = {"max_rel_err": max_rel(img_k, img_p),
+                              "bitwise": bool(torch.equal(img_k, img_p))}
+    phase("wavefront_kernels_vs_twins", gpu=gpu, size=f"{w}x{w}x{spp4}", pool=16384,
+          tolerance="traversal bitwise vs twin; scatter rtol 1e-12 in float64", **vs_twins)
+    del mdev, img_k, img_t, img_p
+
+    # ---- the two cells at full size ------------------------------------
+    full = dict(width=FULL_W, height=FULL_W, spp4=PT_SPP4, bounces=BOUNCES, rr_depth=PT_RR)
+    n_samples = FULL_W * FULL_W * PT_SPP4
+    grabbed = {}
+    scatter = segk.segment_rows_matmul
+
+    def grab(seg, vals, **kwargs):  # keeps the 100th scatter's inputs (or the last)
+        grabbed["calls"] = grabbed.get("calls", 0) + 1
+        if grabbed["calls"] <= 100:
+            grabbed["args"] = (seg.clone(), vals.clone(), kwargs["n_slots"])
+        return scatter(seg, vals, **kwargs)
+
+    def cell(run, frame, fused_frame, fused_ms):
+        """Counts, times and checks one full-size cell -> its numbers."""
+        img, launches[run] = counted(frame)
+        it = wf.STATS["iterations"]
+        require(it > 0 and launches[run].get("segsum") == it and bool(torch.isfinite(img).all()) and float(img.min()) >= 0.0,
+                f"{run}: launches {launches[run]}, finite {bool(torch.isfinite(img).all())}")
+        times, img2 = bench.time_steps(frame, iters=3, warmup=0)  # warmed by the count
+        require(torch.equal(img, img2), f"{run}: two runs differ")
+        frame_ms = statistics.median(times)
+        z = z_score(img.T, fused_frame)
+        require(abs(z) < 4.0, f"{run}: mean vs the fused kernel's at {z} SE")
+        return img, {"launches": launches[run], "iterations": it, "frame_ms": frame_ms,
+                     "frame_ms_runs": times, "ms_per_iteration": frame_ms / it,
+                     "msamples_per_s": n_samples / (frame_ms * 1e-3) / 1e6,
+                     "two_runs_bitwise": True, "mean": float(img.mean()),
+                     "fused_frame_ms": fused_ms, "fused_mean": float(fused_frame.mean()),
+                     "z_vs_fused": z, "x_fused_ms": frame_ms / fused_ms}
+
+    def idle_share(frame):
+        """The profiler's summary of one frame of WF_PROFILE_SPP4 samples a
+        pixel (the cell's pool and iterations, fewer of them: the trace of
+        a full frame holds millions of events)."""
+        prof = bench.profile_steps(frame, iters=1, top=6)
+        return {"iterations": wf.STATS["iterations"], **{
+            k: prof[k] for k in ("wall_ms_per_step", "device_busy_ms_per_step", "idle_share",
+                                 "device_events_per_step", "top_device_ms_per_step")}}
+
+    planes, mats = (convert.scene_planes_from_numpy(scenes.cornell8().soa10(), device=dev),
+                    torch.tensor(scenes.cornell8().material, dtype=torch.int32, device=dev))
+    pt_frame = ptk.render_pt(planes, mats, **full)
+    pt_ms = med_ms(lambda: ptk.render_pt(planes, mats, **full), iters=10, warmup=2)
+    sc = megakernel.scene_to_device(scenes.cornell8(), device=dev)
+    with swapped(segk, "segment_rows_matmul", grab):
+        img, pt_cell = cell("wavefront_pt", lambda: wf.render_wavefront(
+            0, sc, pool=WF_POOL, **full), pt_frame, pt_ms)
+    img18 = wf.render_wavefront(0, sc, pool=WF_POOL >> 1, **full)
+    require(bool(torch.allclose(img18, img, rtol=1e-6, atol=0.0)),
+            f"wavefront pt: pool 2**18 vs 2**19 {max_rel(img18, img)}")
+    pt_cell.update(pool=WF_POOL, pool_2e18={"max_rel_err": max_rel(img18, img),
+                                            "bitwise": bool(torch.equal(img18, img))},
+                   profile=idle_share(lambda: wf.render_wavefront(
+                       0, sc, pool=WF_POOL, **dict(full, spp4=WF_PROFILE_SPP4))))
+    # the scatter at the cell's shapes: the 100th iteration's rows, held
+    # against the plain scatter (each into float64 zeros), then timed
+    seg, vals, n_slots = grabbed["args"]
+    got = segk.segment_rows_matmul(seg, vals, n_slots=n_slots, out=torch.zeros(
+        (n_slots, 3), dtype=torch.float64, device=dev))
+    want = segk.segment_rows_plain(seg, vals, n_slots=n_slots, out=torch.zeros(
+        (n_slots, 3), dtype=torch.float64, device=dev))
+    require(bool(torch.allclose(got, want, rtol=1e-12, atol=0.0)),
+            f"wavefront scatter at {seg.shape[0]} rows x {n_slots} slots: segsum.cu vs plain "
+            f"{max_rel(got, want)}")
+    seg_vs_plain = {"max_abs_err": float((got - want).abs().max()),
+                    "max_rel_err": max_rel(got, want), "bitwise": bool(torch.equal(got, want)),
+                    "tolerance": "allclose rtol 1e-12, float64 accumulators"}
+    touched = int((want != 0).any(dim=1).sum())
+    del got, want
+    acc = torch.zeros((n_slots, 3), dtype=torch.float64, device=dev)
+    seg_ms = med_ms(lambda: segk.segment_rows_matmul(seg, vals, n_slots=n_slots, out=acc),
+                    iters=10, warmup=2)
+    seg_plain_ms = med_ms(lambda: segk.segment_rows_plain(seg, vals, n_slots=n_slots, out=acc),
+                          iters=10, warmup=2)
+    keep = (seg >= 0).nonzero()[:, 0]
+    seg_lib_ms = med_ms(lambda: acc.index_add_(0, seg[keep].long(), vals[:, keep].T.double()),
+                        iters=10, warmup=2)
+    n_rows, dying = seg.shape[0], int(keep.shape[0])
+    # the bound of an add into an existing accumulator: seg read, the
+    # dying rows' values read, and the slots they touch read and written
+    segsum = {"rows": n_rows, "dying_rows": dying, "slots": n_slots, "touched_slots": touched,
+              "ms": seg_ms, "plain_ms": seg_plain_ms, "library_ms": seg_lib_ms,
+              "vs_plain": seg_vs_plain,
+              **bound(n_rows * 4 + dying * 3 * 4 + touched * 3 * 8 * 2, 3 * dying)}
+    pt_cell["segsum"] = segsum
+    pt_cell["segsum_share_of_frame"] = seg_ms * pt_cell["iterations"] / pt_cell["frame_ms"]
+    phase("wavefront_pt_1024x1024_spp64", gpu=gpu, scene="cornell8", **pt_cell,
+          render_pt_ms=pt_ms, tolerance="two runs bitwise; pool 2**18 vs 2**19 rtol 1e-6; "
+          "mean within 4 SE of render_pt.cu's frame")
+    del img, img18, pt_frame, seg, vals, acc, sc, grabbed
+    torch.cuda.empty_cache()
+
+    m_planes, m_cb, m_sb, m_t24, m_mats, m_grid = mpt.mesh_pt_tables(ms4, device=dev)
+    m_kw = dict(materials=m_mats, **full, **mpt.pt_tables_kwargs(m_grid, dev))
+    mesh_frame = mpt.render_pt_mesh(m_planes, m_cb, m_sb, m_t24, **m_kw)
+    mesh_ms = med_ms(lambda: mpt.render_pt_mesh(m_planes, m_cb, m_sb, m_t24, **m_kw))
+    mdev = mm.mesh_scene_to_device(ms4, device=dev, pallas_bvh_kernel=True, tris_per_chunk=16)
+    mesh_cells, imgs = {}, {}
+    for every in (1, 2):
+        run = f"wavefront_mesh_every{every}"
+
+        def frame(spp4=PT_SPP4):
+            return wf.render_wavefront_mesh(0, mdev, pool=WF_POOL, sort_every=every,
+                                            **dict(full, spp4=spp4))
+
+        imgs[every], mesh_cells[f"sort_every_{every}"] = cell(run, frame, mesh_frame, mesh_ms)
+        it = mesh_cells[f"sort_every_{every}"]["iterations"]
+        require(launches[run] == {"wbvh": it, "segsum": it}, f"{run}: {launches[run]}")
+        if every == 1:
+            mesh_cells["sort_every_1"]["profile"] = idle_share(lambda: frame(WF_PROFILE_SPP4))
+    require(bool(torch.allclose(imgs[2], imgs[1], rtol=1e-6, atol=0.0)),
+            f"wavefront mesh: sort_every 2 vs 1 {max_rel(imgs[2], imgs[1])}")
+    phase("wavefront_mesh_1024x1024_spp64", gpu=gpu, scene=f"icosphere s{MESH_SUBDIV} in "
+          "smallpt9, chunks", pool=WF_POOL, mesh_pt_ms=mesh_ms, **mesh_cells,
+          sort_every_2_vs_1={"max_rel_err": max_rel(imgs[2], imgs[1]),
+                             "bitwise": bool(torch.equal(imgs[2], imgs[1]))},
+          tolerance="two runs bitwise; sort_every 2 vs 1 rtol 1e-6; mean within 4 SE of "
+          "mesh_pt.cu's frame")
+    del imgs, mesh_frame, mdev, m_planes, m_cb, m_sb, m_t24
+    torch.cuda.empty_cache()
+
+    # ---- wavefront_entry_points ----------------------------------------
+    entry = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, scene_args, want in (("cli_sphere", [], {"segsum"}),
+                                        ("cli_mesh", ["--scene", "mesh-icosphere"],
+                                         {"wbvh", "segsum"})):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc, lc = counted(lambda: cli.main(
+                    ["render", "--renderer", "wavefront", "--mode", "pt", *scene_args,
+                     "--backend", "cuda", "--width", "256", "--height", "256", "--samples", "4",
+                     "--bounces", str(BOUNCES), "--clamp", "8", "--tonemap", "aces",
+                     "--check-finite", "--out", tmp]))
+            line = json.loads(buf.getvalue().strip().splitlines()[-1])
+            require(rc == 0 and set(lc) == want and len(set(lc.values())) == 1
+                    and (Path(tmp) / "final.ppm").exists(),
+                    f"cli render --renderer wavefront {scene_args}: {line}, launches {lc}")
+            entry[label] = {"json": line, "launches": lc}
+    for mode, want in (("pt", {"segsum"}), ("mesh", {"wbvh", "segsum"})):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = bench.main(["--mode", mode, "--renderer", "wavefront", "--rays", "262144",
+                             "--spp", "16"])
+        line = json.loads(buf.getvalue().strip().splitlines()[-1])
+        per = line["detail"]["launches_per_step"]
+        require(rc == 0 and line["value"] > 0 and set(per) == want
+                and line["detail"]["iterations_per_step"] > 0,
+                f"bench --mode {mode} --renderer wavefront: {line}")
+        entry[f"bench_{mode}"] = line
+    phase("wavefront_entry_points", gpu=gpu, **entry, seconds_all_wavefront_phases=time.time()
+          - t_begin)
+    return {"launches": launches, "segsum": segsum}
 
 
 def main(argv=None) -> int:
@@ -2632,6 +2963,19 @@ def main(argv=None) -> int:
         bounce1_root_entries=b1_roots,
         **{f"bounce1_{k}": v for k, v in bound(
             n_b * (24 + 8 + 44), walk_ops(b1_walk, n_b, m_grid, roots=b1_roots)).items()})
+
+    # ---- the wavefront renderers (models/wavefront) ---------------------
+    # Their runs' launches go into the rows of the kernels they launch
+    # (wavefront_launches), and the segment-sum's numbers at the image
+    # scatter's shapes into its row (wavefront_*).
+    torch.cuda.empty_cache()
+    wave = wavefront_phases(dev, gpu, kernel_mods)
+    for row in rows:
+        if row["name"] in ("wbvh", "bvh", "segsum"):
+            row["wavefront_launches"] = {run: n[row["name"]] for run, n in
+                                         wave["launches"].items() if row["name"] in n}
+    seg_row.update({f"wavefront_{k}": v for k, v in wave["segsum"].items()})
+    torch.cuda.empty_cache()
 
     # ---- debug dumps ----------------------------------------------------
     # Each kernel's debug instantiation prints, with device printf, the

@@ -22,7 +22,9 @@ from ascendpathtracing_tpu_torch.accel import bvh as bvh_mod
 from ascendpathtracing_tpu_torch.accel import meshes, tri
 from ascendpathtracing_tpu_torch.diff import camera_fused as dcf
 from ascendpathtracing_tpu_torch.diff.camera import CameraParams
+from ascendpathtracing_tpu_torch.models import megakernel
 from ascendpathtracing_tpu_torch.models import mesh as mm
+from ascendpathtracing_tpu_torch.models import wavefront as wf
 from ascendpathtracing_tpu_torch.ops import bvh_kernels as bk
 from ascendpathtracing_tpu_torch.ops import chunk_grid as cg
 from ascendpathtracing_tpu_torch.ops import histogram_kernels as hk
@@ -1230,3 +1232,63 @@ def test_selftest_passes_on_the_card(cuda, capsys):
     lines = [json.loads(x) for x in capsys.readouterr().out.strip().splitlines()]
     assert lines[-1] == {"selftest": "PASS", "passed": 8, "ran": 8, "backend": "cuda"}
     assert lines[7]["check"] == "checkify_float_guards" and lines[7]["nan_caught"]
+
+
+# ------------------------------------------------------- wavefront ----
+def _wavefront_mesh(cuda, traversal, dtype=torch.float32):
+    """A mesh wavefront render at 32x24 x 8 samples (pool 1,000, sort
+    every 2) of an icosphere s2 in smallpt9 on the card -> a callable."""
+    v, f = meshes.icosphere(center=(50, 40, 60), radius=14.0, subdivisions=2)
+    dev = mm.mesh_scene_to_device(mm.MeshScene.cornell_with_mesh(v, f), device=cuda,
+                                  pallas_bvh_kernel=True, pallas_kernel=traversal,
+                                  tris_per_chunk=8)
+    return lambda: wf.render_wavefront_mesh(3, dev, width=32, height=24, spp4=8, pool=1000,
+                                            bounces=8, sort_every=2, dtype=dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("traversal,mod,name,kernel", [
+    ("chunks", wk, "intersect_chunks", "wbvh"), ("lockstep", bk, "intersect_bvh", "bvh")])
+def test_wavefront_mesh_kernels_equal_their_twins(cuda, monkeypatch, traversal, mod, name,
+                                                   kernel):
+    """One traversal launch and one segsum.cu launch an iteration; the
+    image bitwise the render's with the traversal's twin swapped in, and
+    two runs bitwise."""
+    render = _wavefront_mesh(cuda, traversal)
+    for m in (wk, bk, hk):
+        m.reset_launches()
+    img = render()
+    it = wf.STATS["iterations"]
+    assert it > 0 and hk.LAUNCHES == {"segsum": it} and mod.LAUNCHES == {kernel: it}
+    assert torch.equal(img, render())
+    monkeypatch.setattr(mod, name, getattr(mod, f"{name}_plain"))
+    assert torch.equal(img, render())
+
+
+@pytest.mark.cuda
+def test_wavefront_scatter_equals_the_plain_scatter_f64(cuda, monkeypatch):
+    render = _wavefront_mesh(cuda, "chunks", torch.float64)
+    img = render()
+    monkeypatch.setattr(hk, "segment_rows_matmul", lambda seg, vals, *, n_slots, out, **_:
+                        hk.segment_rows_plain(seg, vals, n_slots=n_slots, out=out))
+    hk.reset_launches()
+    torch.testing.assert_close(render(), img, rtol=1e-12, atol=0)
+    assert hk.LAUNCHES == {"segsum": 0}
+
+
+@pytest.mark.cuda
+def test_wavefront_sphere_on_the_card(cuda):
+    """render_wavefront: float64 equal to the bounce loop's per-pixel
+    means on its camera rays, float32 twice bitwise."""
+    w, h, spp4 = 24, 16, 8
+    o3, d3, _, _ = wf._sample_camera_rays(torch.arange(w * h * spp4, device=cuda), w, h, spp4,
+                                          2, camera.Camera(), torch.float64)
+    sc = megakernel.scene_to_device(scenes.smallpt9(), device=cuda, dtype=torch.float64)
+    ref = megakernel.render_pt_impl(torch.stack([*o3, *d3], 1), sc, seed=2)
+    img = wf.render_wavefront(2, sc, width=w, height=h, spp4=spp4, pool=777,
+                              dtype=torch.float64)
+    torch.testing.assert_close(img, ref.reshape(w * h, spp4, 3).mean(1), rtol=1e-12, atol=0)
+    sc32 = megakernel.scene_to_device(scenes.smallpt9(), device=cuda)
+    a = wf.render_wavefront(2, sc32, width=w, height=h, spp4=spp4, pool=777)
+    assert a.device.type == "cuda" and torch.equal(a, wf.render_wavefront(
+        2, sc32, width=w, height=h, spp4=spp4, pool=777))

@@ -111,9 +111,10 @@ def test_importing_the_port_loads_no_jax():
     """Importing every module of the port, chip_smoke and the card-only
     tests (tests/test_torch_cuda.py), a CPU mesh render with its replay
     backward, a CPU bounce-loop mesh render with its autograd backward
-    (diff/mesh), a CPU camera-gradient render (diff/camera_fused), and
-    the CLI's train (with --resume), oracle and post-processed render on
-    the CPU load no jax and no module of the JAX package."""
+    (diff/mesh), a CPU camera-gradient render (diff/camera_fused), CPU
+    renders of both wavefronts, and the CLI's train (with --resume),
+    oracle and post-processed render on the CPU load no jax and no module
+    of the JAX package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import ascendpathtracing_tpu_torch as p\n"
@@ -145,6 +146,11 @@ def test_importing_the_port_loads_no_jax():
         "    height=8, spp4=4, bounces=2, **mpt.pt_tables_kwargs(grid))\n"
         "g = torch.autograd.grad(depth.mean(), [cam['pos']])[0]\n"
         "assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0\n"
+        "from ascendpathtracing_tpu_torch import scenes\n"
+        "from ascendpathtracing_tpu_torch.models import megakernel as mk, wavefront as wf\n"
+        "wkw = dict(width=4, height=4, spp4=4, pool=40, bounces=3)\n"
+        "assert wf.render_wavefront(0, mk.scene_to_device(scenes.cornell8()), **wkw).shape == (16, 3)\n"
+        "assert wf.render_wavefront_mesh(0, mm.mesh_scene_to_device(ms), **wkw).shape == (16, 3)\n"
         "import tempfile\n"
         "with tempfile.TemporaryDirectory() as d:\n"
         "    small = ['--width', '8', '--height', '8']\n"
@@ -166,7 +172,7 @@ def test_importing_the_port_loads_no_jax():
         "       'config', 'scenes', 'camera', 'oracle', 'utils.io', 'accel.meshes',\n"
         "       'accel.bvh', 'ops.bvh_kernels', 'ops.sort', 'diff.mesh', 'diff.camera',\n"
         "       'diff.fd', 'diff.camera_fused', 'post', 'utils.debug',\n"
-        "       'utils.checkpoint', 'parallel.sharded'}\n"
+        "       'utils.checkpoint', 'parallel.sharded', 'models.wavefront'}\n"
         "assert {p.__name__ + '.' + m for m in new} <= set(mods), mods\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -184,6 +190,9 @@ def test_backend_cuda_exits_2_without_cuda(no_cuda, tmp_path, capsys):
     assert bench.main([]) == 2
     assert bench.main(["--mode", "pt"]) == 2
     assert bench.main(["--mode", "mesh"]) == 2
+    assert bench.main(["--mode", "pt", "--renderer", "wavefront"]) == 2
+    assert cli.main(["render", "--renderer", "wavefront", "--mode", "pt", "--backend", "cuda",
+                     "--out", str(tmp_path)]) == 2
     assert "CUDA" in capsys.readouterr().err
     assert not (tmp_path / "color.bin").exists()
 
@@ -191,16 +200,12 @@ def test_backend_cuda_exits_2_without_cuda(no_cuda, tmp_path, capsys):
 @pytest.mark.parametrize(
     "argv,message",
     [
-        (["render", "--renderer", "wavefront"], "not yet ported"),
         # The JAX CLI's own refusal for mesh scenes outside pt mode.
         (["render", "--scene", "mesh-cube", "--mode", "reference"],
          "mesh scenes require --mode pt"),
         (["render", "--shard", "2"], "not yet ported"),
-        # Post-processing is ported; the options that are not still refuse.
-        (["render", "--denoise", "1", "--renderer", "wavefront"], "not yet ported"),
+        # Post-processing is ported; the option that is not still refuses.
         (["render", "--tonemap", "aces", "--shard", "2"], "not yet ported"),
-        (["render", "--clamp", "8", "--mode", "pt", "--renderer", "wavefront"],
-         "not yet ported"),
         # The JAX CLI's own refusal for its kernel renderer (cli.py:253-256).
         (["render", "--mode", "pt", "--renderer", "kernel"],
          "supports --mode reference only"),
