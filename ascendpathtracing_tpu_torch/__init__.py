@@ -43,8 +43,13 @@ that each module's counterpart is found under the same name:
 - ``models.mesh``       — mesh scenes, their device tables in four
   traversal modes, the first-hit query and the bounce-loop mesh path
   tracer.
-- ``parallel.sharded``  — the single-device training step
-  (``make_train_step(None)``: SGD through the reference kernels).
+- ``parallel``          — ``torch.distributed`` counterparts of the JAX
+  package's ``parallel/``: meshes of ranks, the data-parallel training
+  step (SGD through the reference kernels and one all-reduce), DP x TP
+  and mesh renders, the two rings, host-0 assembly, and the launcher of
+  local worlds (``distributed.run_local_world``).
+- ``graft_entry``       — ``entry()`` and the multi-rank dry run
+  ``dryrun_multichip(n)``.
 - ``post``              — firefly clamp, tone maps, the a-trous denoiser.
 - ``utils.debug``       — ``print_data``, ``assert_finite`` and the float
   guard ``checkify_render``.

@@ -60,7 +60,18 @@ reference kernels' forward with winners and replay backward
 ``--ckpt-every`` steps and at the end, ``--resume`` from it.  ``oracle``
 runs only the NumPy oracle (oracle_color.bin, oracle_color.ppm).
 
-Not ported yet: ``--shard``; it exits 2 with "not yet ported".
+``render --shard N`` (reference mode, the kernel renderer) renders the
+rays DP x TP over a mesh of N ranks (``parallel.make_mesh(N)``: (2, 2)
+for 4) and gathers the colors (``parallel.gather_colors``); the
+artifacts and the JSON line come from rank 0 alone.  Under torchrun with
+``WORLD_SIZE`` = N the command's processes are the ranks; run alone, it
+spawns N local ranks on ``--backend``'s device
+(``parallel/distributed.run_local_world``: several ranks on one card
+share it over gloo).  N must divide the ray count (4 a pixel and
+sample), or the command exits 2.
+
+    python -m ascendpathtracing_tpu_torch.cli render --shard 2 --backend cuda
+    torchrun --nproc-per-node 4 -m ascendpathtracing_tpu_torch.cli render --shard 4
 """
 
 from __future__ import annotations
@@ -70,8 +81,6 @@ import json
 import os
 import sys
 import time
-
-NOT_PORTED = 2
 
 
 def _parse_args(argv):
@@ -133,12 +142,6 @@ def _parse_args(argv):
     return p.parse_args(argv)
 
 
-def _not_ported(what: str) -> int:
-    print(f"error: {what} is not yet ported to ascendpathtracing_tpu_torch "
-          "(use ascendpathtracing_tpu)", file=sys.stderr)
-    return NOT_PORTED
-
-
 def _device(name: str):
     """The requested torch device, or None after printing why not."""
     from ascendpathtracing_tpu_torch.device import resolve_device
@@ -161,8 +164,6 @@ def cmd_render(args) -> int:
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
-    if args.shard > 0:
-        return _not_ported("--shard")
     mesh = args.scene is not None and args.scene.startswith("mesh-")
     if mesh and args.mode != "pt":
         print("error: mesh scenes require --mode pt", file=sys.stderr)
@@ -177,6 +178,11 @@ def cmd_render(args) -> int:
         print("error: --renderer kernel supports --mode reference only",
               file=sys.stderr)
         return 2
+    if args.shard > 0:
+        refusal = _shard_refusal(args, mesh)
+        if refusal:
+            print(f"error: {refusal}", file=sys.stderr)
+            return 2
     mesh_scene = None
     if mesh:
         try:
@@ -188,7 +194,18 @@ def cmd_render(args) -> int:
             print(f"error: unknown mesh scene {args.scene!r} "
                   "(mesh-cube, mesh-icosphere, mesh-obj:<path>)", file=sys.stderr)
             return 2
-    device = _device(args.backend)
+    torchrun_rank = None  # this process's rank when torchrun started the --shard world
+    if args.shard > 0 and int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        from ascendpathtracing_tpu_torch.parallel import distributed
+
+        try:
+            device = distributed.initialize(args.backend)
+        except RuntimeError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        torchrun_rank = int(os.environ["RANK"])
+    else:
+        device = _device(args.backend)
     if device is None:
         return 2
 
@@ -214,6 +231,9 @@ def cmd_render(args) -> int:
 
     t0 = time.time()
     rays = camera.generate_rays_numpy(w, h, s, seed=args.seed).astype(np.float32)
+    if torchrun_rank not in (None, 0):  # the other ranks render their shards; rank 0 writes
+        shard_render_rank(rays, scene, args.bounces)
+        return 0
     io.write_rays_bin(rays, f"{args.out}/rays.bin")
     io.write_spheres_bin(scene, f"{args.out}/spheres.bin")
     t_gen = time.time() - t0
@@ -255,6 +275,15 @@ def cmd_render(args) -> int:
         # per-pixel means -> repeated over each pixel's 4*s slots, so
         # color.bin keeps its layout (decode averages them back)
         colors = img3.T.repeat_interleave(4 * s, dim=0)
+    elif args.shard > 0:
+        if torchrun_rank is None:
+            from ascendpathtracing_tpu_torch.parallel.distributed import run_local_world
+
+            sharded = run_local_world(shard_render_rank, args.shard, device=args.backend,
+                                      args=(rays, scene, args.bounces))[0]
+        else:
+            sharded = shard_render_rank(rays, scene, args.bounces)
+        colors = torch.as_tensor(sharded["colors"], device=device)
     elif args.mode == "pt":
         fn = megakernel.render_pt_nee_impl if args.nee else megakernel.render_pt_impl
         colors = fn(rays_t, dev, bounces=args.bounces, seed=args.seed)
@@ -317,6 +346,8 @@ def cmd_render(args) -> int:
     }
     if post_active:
         stats["final"] = f"{args.out}/final.ppm"
+    if args.shard > 0:
+        stats.update(shard=args.shard, mesh=sharded["mesh"], dist_backend=sharded["backend"])
     if args.oracle and args.mode == "reference":
         exp = oracle.render_reference_numpy(rays, scene, bounces=args.bounces)
         img_o = io.decode_color(exp, w, h, s)
@@ -324,6 +355,45 @@ def cmd_render(args) -> int:
         stats["oracle_img_equal_pix"] = float((img_o == img).all(axis=-1).mean())
     print(json.dumps(stats))
     return 0
+
+
+def _shard_refusal(args, mesh: bool) -> str | None:
+    """Why ``render --shard N`` cannot run as asked, or None."""
+    if args.mode != "reference" or mesh or args.renderer != "kernel":
+        return "--shard renders --mode reference with --renderer kernel"
+    n_rays = args.width * args.height * args.samples * 4
+    if n_rays % args.shard:
+        return f"--shard N must divide the ray count ({n_rays} rays, N = {args.shard})"
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1 and world != args.shard:
+        return f"--shard {args.shard} under a launcher needs WORLD_SIZE = {args.shard}, not {world}"
+    return None
+
+
+def shard_render_rank(rays, scene, bounces: int):
+    """One rank of ``render --shard``: this rank's shard of the rays
+    [N, 6] (NumPy) through ``parallel.render_reference_sharded`` on the
+    default mesh, then the whole colors gathered to every rank -> on rank
+    0, {"colors": [N, 3] NumPy, "mesh": {axis: size}, "backend": the
+    process group's}; None on the others."""
+    import torch
+    import torch.distributed as dist
+
+    from ascendpathtracing_tpu_torch.models import megakernel
+    from ascendpathtracing_tpu_torch.parallel import (
+        gather_colors, make_mesh, render_reference_sharded, shard_rays)
+    from ascendpathtracing_tpu_torch.parallel.distributed import rank_device
+    from ascendpathtracing_tpu_torch.parallel.mesh import mesh_shape
+
+    dev = rank_device()
+    mesh = make_mesh()
+    colors = render_reference_sharded(
+        shard_rays(torch.as_tensor(rays), mesh).to(dev),
+        megakernel.scene_to_device(scene, device=dev), mesh, bounces=bounces)
+    full = gather_colors(colors)
+    if dist.get_rank() != 0:
+        return None
+    return {"colors": full, "mesh": mesh_shape(mesh), "backend": dist.get_backend()}
 
 
 def _mesh_scene(kind: str):

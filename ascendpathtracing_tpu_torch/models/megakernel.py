@@ -101,48 +101,59 @@ def scene_from_planes(scene_planes, light_index) -> dict:
     }
 
 
-def trace_reference(o3, d3, scene: dict, *, bounces, eps):
-    """The reference bounce loop over SoA ray state (see the oracle for
-    the semantics contract) -> (tput, idx): the throughput as three [N]
-    planes, and each bounce's winner, idx [bounces, N] int32 with S on a
-    miss.  This is the one plain loop: the colors, the hit trails and the
-    hand-written kernels' plain twins are all built from it."""
-    n = o3[0].shape[0]
+def reference_bounce(o3, d3, tput, alive, scene: dict, eps, hit_fn=default_hit_fn):
+    """One bounce of the reference loop over SoA ray state -> (o3, d3,
+    tput, alive, idx): the next rays, throughput and alive mask, and the
+    winner (int32, S on a miss).  ``hit_fn(o3, d3, scene, eps) -> (tmin,
+    hit, miss)`` is the nearest hit; the tensor-parallel render
+    (``parallel/sharded``) passes one that combines sphere shards across
+    ranks."""
     s = scene["r2"].shape[0]
     light = scene["light_index"]
     cx, cy, cz = _scene_planes(scene, "center")
     ax, ay, az = _scene_planes(scene, "albedo")
+    tmin, hit, miss = hit_fn(o3, d3, scene, eps)
+    idx = torch.where(miss, s, hit)
+    # A miss takes the last sphere's shading (the oracle's -1 index wraps
+    # to the last sphere).
+    gid = torch.where(miss, s - 1, hit)
+    center_hit = (
+        select_by_id(gid, cx),
+        select_by_id(gid, cy),
+        select_by_id(gid, cz),
+    )
+    o3, d3 = shade.specular_bounce(o3, d3, tmin, center_hit)
+    # The mask is updated BEFORE the throughput multiply, so the light's
+    # own albedo is never multiplied in.
+    alive = alive & ~((hit == light) & ~miss)
+    mult = (select_by_id(gid, ax), select_by_id(gid, ay), select_by_id(gid, az))
+    tput = shade.v3_where(
+        alive, (tput[0] * mult[0], tput[1] * mult[1], tput[2] * mult[2]), tput
+    )
+    return o3, d3, tput, alive, idx
 
+
+def trace_reference(o3, d3, scene: dict, *, bounces, eps, hit_fn=default_hit_fn):
+    """The reference bounce loop over SoA ray state (see the oracle for
+    the semantics contract) -> (tput, idx): the throughput as three [N]
+    planes, and each bounce's winner, idx [bounces, N] int32 with S on a
+    miss.  This is the one plain loop: the colors, the hit trails and the
+    hand-written kernels' plain twins are all built from it (``hit_fn``:
+    see :func:`reference_bounce`)."""
+    n = o3[0].shape[0]
     ones = torch.ones((n,), dtype=o3[0].dtype, device=o3[0].device)
     tput = (ones, ones, ones)
     alive = torch.ones((n,), dtype=torch.bool, device=o3[0].device)
     idx = torch.empty((bounces, n), dtype=torch.int32, device=o3[0].device)
     for k in range(bounces):
-        tmin, hit, miss = default_hit_fn(o3, d3, scene, eps)
-        idx[k] = torch.where(miss, s, hit)
-        # A miss takes the last sphere's shading (the oracle's -1 index
-        # wraps to the last sphere).
-        gid = torch.where(miss, s - 1, hit)
-        center_hit = (
-            select_by_id(gid, cx),
-            select_by_id(gid, cy),
-            select_by_id(gid, cz),
-        )
-        o3, d3 = shade.specular_bounce(o3, d3, tmin, center_hit)
-        # The mask is updated BEFORE the throughput multiply, so the
-        # light's own albedo is never multiplied in.
-        alive = alive & ~((hit == light) & ~miss)
-        mult = (select_by_id(gid, ax), select_by_id(gid, ay), select_by_id(gid, az))
-        tput = shade.v3_where(
-            alive, (tput[0] * mult[0], tput[1] * mult[1], tput[2] * mult[2]), tput
-        )
+        o3, d3, tput, alive, idx[k] = reference_bounce(o3, d3, tput, alive, scene, eps, hit_fn)
     return tput, idx
 
 
-def reference_bounce_loop(o3, d3, scene: dict, *, bounces, eps):
+def reference_bounce_loop(o3, d3, scene: dict, *, bounces, eps, hit_fn=default_hit_fn):
     """The reference bounce loop's colors, [N, 3] = throughput * light
-    emission."""
-    tput, _ = trace_reference(o3, d3, scene, bounces=bounces, eps=eps)
+    emission (``hit_fn``: see :func:`reference_bounce`)."""
+    tput, _ = trace_reference(o3, d3, scene, bounces=bounces, eps=eps, hit_fn=hit_fn)
     emi = scene["emission"][scene["light_index"]]
     return torch.stack(
         [tput[0] * emi[0], tput[1] * emi[1], tput[2] * emi[2]], dim=1
@@ -222,6 +233,16 @@ def _bounce_uniforms(uniforms, seed, depth, count, ray_index, dtype):
     return rng.uniforms(
         seed, ray_index, depth, count, stream=rng.STREAM_ESTIMATOR, dtype=dtype
     )
+
+
+def ray_indices(global_idx, n, device):
+    """The Philox stream's ray index: ``global_idx`` (int64, [n]) or
+    ``arange(n)``."""
+    if global_idx is None:
+        return torch.arange(n, device=device)
+    if tuple(global_idx.shape) != (n,):
+        raise ValueError(f"expected global_idx [{n}], got {tuple(global_idx.shape)}")
+    return global_idx.to(device=device, dtype=torch.int64)
 
 
 def _check_uniforms(uniforms, bounces, count, n):
@@ -315,6 +336,7 @@ def render_pt_impl(
     materials_static: tuple | None = None,
     uniforms=None,
     seed: int = 0,
+    global_idx=None,
 ):
     """The smallpt estimator: L = sum over bounces of throughput x
     emission(hit), with cosine-weighted diffuse, mirror and dielectric
@@ -323,14 +345,16 @@ def render_pt_impl(
     ``uniforms``: [bounces, 3, N] in [0, 1) (the JAX version's per-bounce
     ``jax.random.uniform(k1, (3, n))`` draws), or None to draw from the
     estimator stream of ``ops/rng`` keyed by (``seed``, ray index,
-    bounce).  ``materials_static``: the scene's material codes; BSDF
-    branches absent from it are skipped.
+    bounce).  The ray index is ``global_idx`` ([N] int64, the rays'
+    places in a larger batch, as a shard of a sharded render passes it),
+    else ``arange(N)``.  ``materials_static``: the scene's material
+    codes; BSDF branches absent from it are skipped.
     """
     o3, d3 = rays_to_soa(rays)
     n = o3[0].shape[0]
     dtype, device = o3[0].dtype, o3[0].device
     _check_uniforms(uniforms, bounces, 3, n)
-    ray_index = torch.arange(n, device=device) if uniforms is None else None
+    ray_index = ray_indices(global_idx, n, device) if uniforms is None else None
     has_diff = materials_static is None or scenes.DIFF in materials_static
     has_refr = materials_static is None or scenes.REFR in materials_static
 

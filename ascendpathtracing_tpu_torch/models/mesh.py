@@ -413,7 +413,7 @@ def pt_mesh_bounce(o3, d3, tput, rad, alive, u, dev, eps, static: StaticConf, *,
 def render_pt_mesh_impl(
     rays, dev, *, bounces: int = 8, rr_depth: int = 5, eps: float = 1e-4,
     static: StaticConf | None = None, uniforms=None, seed: int = 0,
-    sort_per_bounce: bool = False,
+    sort_per_bounce: bool = False, global_idx=None,
 ):
     """The smallpt estimator over spheres + mesh -> colors [N, 3]: the
     structure of ``megakernel.render_pt_impl`` with a two-way nearest-hit
@@ -421,9 +421,10 @@ def render_pt_mesh_impl(
 
     ``uniforms``: [bounces, 3, N] in [0, 1) (the JAX version's per-bounce
     draws), or None to draw from the estimator stream of ``ops/rng`` keyed
-    by (``seed``, ray index, bounce).  The JAX version's ``global_idx``
-    (its indexed stream for sharded renders) is not taken: the port's
-    stream is keyed by ray index already.  ``sort_per_bounce`` sorts the
+    by (``seed``, ray index, bounce).  The ray index is ``global_idx``
+    ([N] int64, the rays' places in the whole batch: the JAX version's
+    indexed stream for sharded renders, ``parallel/sharded``), else
+    ``arange(N)``.  ``sort_per_bounce`` sorts the
     rays before the traversal kernel of every bounce (see
     :func:`_mesh_hit`).  Gradients flow by autograd to the float tables of ``dev`` that require
     grad, through the shading and, in chunks mode with ``diff``, the
@@ -433,7 +434,7 @@ def render_pt_mesh_impl(
     dtype, device = o3[0].dtype, o3[0].device
     static = dev["static"] if static is None else static
     megakernel._check_uniforms(uniforms, bounces, 3, n)
-    ray_index = torch.arange(n, device=device) if uniforms is None else None
+    ray_index = megakernel.ray_indices(global_idx, n, device) if uniforms is None else None
 
     zeros = torch.zeros((n,), dtype=dtype, device=device)
     ones = torch.ones((n,), dtype=dtype, device=device)

@@ -34,6 +34,9 @@ NVCC_FLAGS = (
     "--resource-usage",
 )
 
+#: Every library of ``csrc/`` (one ``.cu`` each).
+LIBRARIES = ("render_ref", "render_pt", "wbvh", "mesh_pt", "segsum", "bvh")
+
 _LOCK = threading.Lock()
 _LOADED: dict[str, ctypes.CDLL] = {}
 

@@ -20,7 +20,8 @@ halves (each partial product < 2**48).
 Streams (the fourth counter word): 0 for the fused path tracer
 (counter = (pixel, sample layer, block, 0)), 1 for the plain estimators
 (counter = (ray, bounce, block, 1)), 2 for the wavefront's camera jitter
-(counter = (global sample index, 0, block, 2)).  The key is (seed, 0).
+(counter = (global sample index, 0, block, 2)), 3 for derived seeds
+(:func:`fold_in`: counter = (data, 0, 0, 3)).  The key is (seed, 0).
 The wavefront draws its bounces from stream 1 at (global sample index,
 the sample's own bounce), so a sample's path is a pure function of its
 index, whatever the pool size, iteration or slot that traces it.
@@ -39,6 +40,7 @@ WORD_SCALE = 2.0 ** -24
 STREAM_FUSED = 0
 STREAM_ESTIMATOR = 1
 STREAM_CAMERA = 2
+STREAM_FOLD = 3
 
 
 def _mulhilo(a, m: int):
@@ -80,3 +82,10 @@ def uniforms(seed: int, index, c1, count: int, *, stream: int, dtype):
     words = philox4x32(index[None, :], c1 & MASK, c2, stream & MASK, seed, 0)
     bits = torch.stack(words, dim=1).reshape(blocks * 4, index.shape[0])
     return bits_to_uniform(bits[:count], dtype)
+
+
+def fold_in(seed: int, data: int) -> int:
+    """A seed derived from ``seed`` and ``data`` (``jax.random.fold_in``'s
+    role, e.g. a shard's own stream): word 0 of Philox4x32-10 at counter
+    (data, 0, 0, 3), key (seed, 0)."""
+    return int(philox4x32(torch.tensor(data & MASK), 0, 0, STREAM_FOLD, seed, 0)[0])

@@ -41,7 +41,12 @@ mesh wavefront through wbvh.cu and bvh.cu bitwise against their twins
 and its scatter through segsum.cu against the plain one, the JAX
 bench's two wavefront cells at 1024 x 1024 x 64 samples beside the
 fused kernels' frames, and the CLI and bench routes); before the A/B,
-the ``debug`` dumps of
+the sharded port (``parallel/``, phases ``sharded_*``, ``ring_pipelines_f64``,
+``cli_shard``: worlds of 1, 2 and 4 ranks spawned on this card by
+``run_local_world``, sharing it over gloo; the data-parallel training
+step at the main path's 4,194,304 rays, the DP and DP x TP renders, the
+s4 mesh render through wbvh.cu, the three rings in float64, ``cli render
+--shard 2`` and the dry run), the ``debug`` dumps of
 render_pt.cu, wbvh.cu and mesh_pt.cu (device printf read back from fd 1,
 each equal to its twin's lines, every output bitwise the debug-off
 launch's).  Right after
@@ -763,7 +768,7 @@ def wavefront_phases(dev, gpu, kernel_mods) -> dict:
       1e-12.
     - ``wavefront_pt_1024x1024_spp64`` and ``wavefront_mesh_1024x1024_spp64``:
       the JAX bench's two wavefront cells (pool 2**19): frame ms by CUDA
-      events (median of 3 after a warm-up), iterations, ms per iteration,
+      events (median of 2 after the counted frame), iterations, ms per iteration,
       the segment-sum's launches and ms, the idle share under
       torch.profiler, two runs bitwise, pool 2**18 against 2**19 (and
       sort_every 2 against 1) within rtol 1e-6, and the mean within 4
@@ -924,7 +929,7 @@ def wavefront_phases(dev, gpu, kernel_mods) -> dict:
         it = wf.STATS["iterations"]
         require(it > 0 and launches[run].get("segsum") == it and bool(torch.isfinite(img).all()) and float(img.min()) >= 0.0,
                 f"{run}: launches {launches[run]}, finite {bool(torch.isfinite(img).all())}")
-        times, img2 = bench.time_steps(frame, iters=3, warmup=0)  # warmed by the count
+        times, img2 = bench.time_steps(frame, iters=2, warmup=0)  # warmed by the count
         require(torch.equal(img, img2), f"{run}: two runs differ")
         frame_ms = statistics.median(times)
         z = z_score(img.T, fused_frame)
@@ -1061,6 +1066,343 @@ def wavefront_phases(dev, gpu, kernel_mods) -> dict:
     return {"launches": launches, "segsum": segsum}
 
 
+# ---- the sharded port (parallel/): ranks spawned on this card ----------
+# Each world runs through parallel/distributed.run_local_world: its ranks
+# are processes of their own that import this file (spawn) and share the
+# one card, over gloo (NCCL refuses two ranks on one GPU; a world of one
+# rank takes NCCL).  Ranks on one card show no scaling, and gloo stages
+# what it sends through the host.
+PAR_PT = dict(bounces=BOUNCES, rr_depth=PT_RR)  # the rings' PT render: 8 bounces, RR from 5
+# The sharded train step against one rank's, float32: loss and parameters
+# within this relative difference (the loss's and the gradient's sums run
+# in another order; the colors are compared bit for bit).
+TRAIN_RTOL = 1e-5
+
+
+def par_ms(fn, iters=10, warmup=2) -> float:
+    """Median ms of ``fn()`` between CUDA events, after ``warmup`` calls."""
+    from ascendpathtracing_tpu_torch import bench
+
+    return statistics.median(bench.time_steps(fn, iters=iters, warmup=warmup)[0])
+
+
+def par_rank_info() -> dict:
+    import torch.distributed as dist
+
+    from ascendpathtracing_tpu_torch.parallel.distributed import rank_device
+
+    return {"rank": dist.get_rank(), "backend": dist.get_backend(), "device": str(rank_device())}
+
+
+def par_train_rank() -> dict:
+    """One rank of ``sharded_train_step_4M_8bounce``: the CLI trainer's
+    problem (cornell8, 4,194,304 rays, 8 bounces, albedo + 0.08, lr 0.05),
+    this rank's shard, one counted step with its colors, then the step,
+    the all-reduce of its [1 + 10 S] buffer and the two kernels timed."""
+    import torch
+    import torch.distributed as dist
+
+    from ascendpathtracing_tpu_torch import cli
+    from ascendpathtracing_tpu_torch.ops import render_kernels as rk
+    from ascendpathtracing_tpu_torch.parallel import make_mesh, make_train_step, shard_rays
+    from ascendpathtracing_tpu_torch.parallel.distributed import rank_device
+    from ascendpathtracing_tpu_torch.parallel.sharded import params_to_planes, split_scene_params
+
+    dev = rank_device()
+    rays, scene, target = cli.train_problem(FULL_W, FULL_W, BOUNCES, dev)
+    mesh = make_mesh()
+    rays = shard_rays(rays, mesh).T.contiguous().T  # the shard's planes, read in place
+    target = shard_rays(target, mesh).T.contiguous().T
+    params, aux = split_scene_params(scene)
+    params = dict(params, albedo=params["albedo"] + 0.08)
+    step = make_train_step(mesh, bounces=BOUNCES, learning_rate=0.05)
+    torch.cuda.synchronize()
+    rk.reset_launches()
+    loss, new, colors = step(params, aux, rays, target, return_colors=True)
+    torch.cuda.synchronize()
+    launches = dict(rk.LAUNCHES)
+    out = {**par_rank_info(), "rays": rays.shape[0], "launches": launches, "loss": float(loss),
+           "params": {k: v.cpu() for k, v in new.items()}, "colors": colors.cpu()}
+    out["step_ms"] = par_ms(lambda: step(params, aux, rays, target))
+    buf = torch.zeros(1 + 10 * scene["r2"].shape[0], device=dev)
+    out["allreduce_ms"] = par_ms(lambda: dist.all_reduce(buf))
+    planes, kw = params_to_planes(params), dict(light_index=aux["light_index"], bounces=BOUNCES)
+    rp = rays.T
+    out["fwd_idx_ms"] = par_ms(lambda: rk.render_reference_planes_with_idx(rp, planes, **kw))
+    _, idx = rk.render_reference_planes_with_idx(rp, planes, **kw)
+    g = torch.ones((3, rp.shape[1]), device=dev)
+    out["bwd_replay_ms"] = par_ms(lambda: rk.render_ref_bwd_replay(idx, planes, g, **kw))
+    return out
+
+
+def par_counted(mod, fn):
+    import torch
+
+    torch.cuda.synchronize()
+    mod.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v for k, v in mod.LAUNCHES.items() if v}
+
+
+def par_render_rank(with_train: bool) -> dict:
+    """The sharded renders of one world.  Two ranks: ``par_train_rank``
+    (with_train), the reference render on a (2, 1) mesh through
+    ``render_ref.cu``'s forward, the s4 mesh render in "indexed" mode
+    through ``wbvh.cu`` and the three rings in float64.  Four ranks: the
+    (2, 2) mesh's tensor-parallel render in float64 at 256 x 256 and in
+    float32 at full size.  Gathered colors come back from rank 0."""
+    import torch
+    import torch.distributed as dist
+
+    from ascendpathtracing_tpu_torch import bench, camera, scenes
+    from ascendpathtracing_tpu_torch.models import megakernel
+    from ascendpathtracing_tpu_torch.models import mesh as mm
+    from ascendpathtracing_tpu_torch.ops import render_kernels as rk
+    from ascendpathtracing_tpu_torch.ops import wbvh_kernels as wk
+    from ascendpathtracing_tpu_torch.parallel import (
+        gather_colors, make_mesh, render_pt_mesh_sharded, render_reference_sharded, shard_rays)
+    from ascendpathtracing_tpu_torch.parallel import pipeline
+    from ascendpathtracing_tpu_torch.parallel.distributed import rank_device
+
+    dev, n = rank_device(), dist.get_world_size()
+    out = {**par_rank_info(), "train": par_train_rank() if with_train else None}
+    mine = dist.get_rank() == 0
+
+    def rays(w, dtype):
+        return torch.tensor(camera.generate_rays_numpy(w, w, 1, seed=0), dtype=dtype)
+
+    def cornell(dtype):
+        return megakernel.scene_to_device(scenes.cornell8(), device=dev, dtype=dtype)
+
+    def keep(x):  # the gathered colors, on rank 0 only
+        full = gather_colors(x)
+        return full if mine else None
+
+    mesh = make_mesh()
+    out["mesh"] = list(mesh.shape)
+    if n == 4:
+        r64 = shard_rays(rays(256, torch.float64), mesh).to(dev)
+        out["tp_f64"] = keep(render_reference_sharded(r64, cornell(torch.float64), mesh,
+                                                      bounces=BOUNCES))
+        r32 = shard_rays(rays(FULL_W, torch.float32), mesh).to(dev)
+        c32 = cornell(torch.float32)
+        out["tp_f32_ms"] = par_ms(lambda: render_reference_sharded(r32, c32, mesh,
+                                                                   bounces=BOUNCES), 3, 1)
+        out["tp_f32"] = keep(render_reference_sharded(r32, c32, mesh, bounces=BOUNCES))
+        return out
+    r32 = shard_rays(rays(FULL_W, torch.float32), mesh).to(dev)
+    c32 = cornell(torch.float32)
+    colors, out["dp_launches"] = par_counted(rk, lambda: render_reference_sharded(
+        r32, c32, mesh, bounces=BOUNCES))
+    out["dp_ms"] = par_ms(lambda: render_reference_sharded(r32, c32, mesh, bounces=BOUNCES))
+    out["dp_f32"] = keep(colors)
+
+    mdev = mm.mesh_scene_to_device(bench.mesh_scene(MESH_SUBDIV), device=dev,
+                                   pallas_bvh_kernel=True, tris_per_chunk=16)
+    colors, out["mesh_launches"] = par_counted(wk, lambda: render_pt_mesh_sharded(
+        0, r32, mdev, mesh, bit_equal="indexed", **PAR_PT))
+    out["mesh_ms"] = par_ms(lambda: render_pt_mesh_sharded(0, r32, mdev, mesh,
+                                                           bit_equal="indexed", **PAR_PT), 3, 1)
+    out["mesh_colors"] = keep(colors)
+    del mdev, colors
+
+    ring = make_mesh(axis_names=("stage",))
+    r64 = shard_rays(rays(FULL_W, torch.float64), ring).to(dev)
+    c64 = cornell(torch.float64)
+    padded = megakernel.scene_to_device(scenes.smallpt9(), device=dev, dtype=torch.float64)
+    pad = -padded["r2"].shape[0] % n  # spheres no ray hits (r2 = -1), as test_pipeline.py pads
+    padded = {k: torch.cat([v, torch.full((pad, *v.shape[1:]), -1.0 if k == "r2" else 0,
+                                          dtype=v.dtype, device=dev)])
+              if k != "light_index" else v for k, v in padded.items()}
+    for name, fn in (("pipelined", lambda: pipeline.render_reference_pipelined(
+                          r64, c64, ring, bounces=BOUNCES)),
+                     ("ring_scene", lambda: pipeline.render_reference_ring_scene(
+                          r64, c64, ring, bounces=BOUNCES)),
+                     ("pt_ring", lambda: pipeline.render_pt_ring_scene(11, r64, padded, ring,
+                                                                       **PAR_PT))):
+        t0 = time.time()
+        out[name] = keep(fn())
+        out[f"{name}_s"] = time.time() - t0
+    return out
+
+
+def parallel_phases(dev, gpu) -> dict:
+    """The sharded port on the card, phases ``sharded_*``, ``ring_*`` and
+    ``cli_shard`` -> {kernel: {run: launches a rank}} for the kernels
+    line.
+
+    - ``sharded_train_step_4M_8bounce``: the main path at full width,
+      worlds of 1 and 2 ranks: each rank's colors bitwise the one-rank
+      colors' rows, one fwd_idx and one bwd_replay launch a rank, loss and
+      new parameters within TRAIN_RTOL of the one-rank step's; the step,
+      the all-reduce and the kernels timed in each rank.
+    - ``sharded_render_4M_8bounce``: the (2, 1) mesh through
+      ``render_ref.cu`` bitwise the unsharded kernel render; the (2, 2)
+      mesh's tensor-parallel render (plain torch) bitwise the unsharded
+      plain twin in float64 at 256 x 256 and in float32 at full size,
+      and against the kernel within phase 3's 1e-12 (float64) and with
+      the share of rays equal to the kernel's stated (float32: the kernel
+      and its twin part trails on < 1% of rays, phase
+      ``fwd_idx_f32_8bounce_4M``).
+    - ``sharded_mesh_render``: the xla-mesh cell's scene (icosphere s4,
+      16 triangles a chunk), 4,194,304 rays, 8 bounces, "indexed", 2 ranks
+      through ``wbvh.cu``, bitwise the one-device render.
+    - ``ring_pipelines_f64``: the three rings at 2 stages, 4,194,304 rays
+      in float64, bitwise the single-device renders (tests/test_pipeline.py).
+    - ``cli_shard``: ``cli render --shard 2`` byte-equal to ``--shard 0``
+      at full width (4,194,304 rays), and ``python -m
+      ascendpathtracing_tpu_torch.graft_entry 2`` exits 0."""
+    import numpy as np
+    import torch
+
+    from ascendpathtracing_tpu_torch import bench, camera, convert, scenes
+    from ascendpathtracing_tpu_torch.models import megakernel
+    from ascendpathtracing_tpu_torch.models import mesh as mm
+    from ascendpathtracing_tpu_torch.ops import render_kernels as rk
+    from ascendpathtracing_tpu_torch.ops import wbvh_kernels as wk
+    from ascendpathtracing_tpu_torch.parallel.distributed import choose_backend, run_local_world
+
+    t_begin = time.time()
+    note = ("ranks share one card (no scaling expected); gloo stages its sends "
+            "through the host; a one-rank world runs NCCL")
+    light = scenes.cornell8().light_index
+    sp32 = convert.scene_planes_from_numpy(scenes.cornell8().soa10(), device=dev)
+
+    def rays(w, dtype=torch.float32):
+        return torch.tensor(camera.generate_rays_numpy(w, w, 1, seed=0), dtype=dtype, device=dev)
+
+    t0 = time.time()
+    one = run_local_world(par_train_rank, 1, device="cuda", timeout=600)[0]
+    two = run_local_world(par_render_rank, 2, device="cuda", args=(True,), timeout=900)
+    four = run_local_world(par_render_rank, 4, device="cuda", args=(False,), timeout=600)
+    worlds_s = time.time() - t0
+
+    # ---- sharded_train_step_4M_8bounce ----------------------------------
+    m = one["rays"] // 2
+    want = {"fwd": 0, "fwd_idx": 1, "bwd_replay": 1, "bwd_recompute": 0}
+    trains = [one] + [r["train"] for r in two]
+    diffs = {"loss": 0.0, "params": 0.0}
+    for k, res in enumerate(two):
+        tr = res["train"]
+        require(torch.equal(tr["colors"], one["colors"][k * m:(k + 1) * m]),
+                f"sharded train step: rank {k}'s colors differ from the one-rank rows")
+        require(tr["launches"] == want, f"sharded train step rank {k}: launches {tr['launches']}")
+        diffs["loss"] = max(diffs["loss"], abs(tr["loss"] - one["loss"]) / abs(one["loss"]))
+        for p, v in tr["params"].items():
+            require(torch.equal(v, two[0]["train"]["params"][p]),
+                    f"sharded train step: parameters differ between ranks ({p})")
+            diffs["params"] = max(diffs["params"], float(((v - one["params"][p]).abs()
+                                  / one["params"][p].abs().clamp_min(1e-6)).max()))
+    require(one["launches"] == want and diffs["loss"] <= TRAIN_RTOL
+            and diffs["params"] <= TRAIN_RTOL, f"sharded train step vs one rank: {diffs}, "
+            f"one-rank launches {one['launches']}")
+    per_world = {n: [{k: r[k] for k in ("rank", "backend", "device", "step_ms", "allreduce_ms",
+                                        "fwd_idx_ms", "bwd_replay_ms")} for r in rs]
+                 for n, rs in ((1, [one]), (2, [r["train"] for r in two]))}
+    phase("sharded_train_step_4M_8bounce", gpu=gpu, rays=one["rays"], bounces=BOUNCES,
+          backend={1: one["backend"], 2: two[0]["backend"]}, rule=choose_backend("cuda", 2),
+          colors="bitwise the one-rank rows", launches_a_rank=want, max_rel_diff=diffs,
+          tolerance=f"loss and parameters rtol {TRAIN_RTOL} (float32: the sums run in "
+                    "another order)", ranks=per_world, note=note)
+
+    # ---- sharded_render_4M_8bounce ----------------------------------------
+    r32 = rays(FULL_W)
+    kernel = rk.render_reference(r32, sp32, light_index=light, bounces=BOUNCES).cpu().numpy()
+    require(np.array_equal(two[0]["dp_f32"], kernel),
+            "sharded render (2, 1): not bitwise the unsharded kernel render")
+    require(all(r["dp_launches"] == {"fwd": 1} for r in two),
+            f"sharded render (2, 1) launches {[r['dp_launches'] for r in two]}")
+    twin = rk.render_reference_planes_plain(r32.T.contiguous(), sp32, light_index=light,
+                                            bounces=BOUNCES).T.cpu().numpy()
+    require(np.array_equal(four[0]["tp_f32"], twin),
+            "sharded render (2, 2) f32: not bitwise the plain twin")
+    share = float((four[0]["tp_f32"] == kernel).all(axis=1).mean())
+    require(share >= 0.99, f"sharded render (2, 2) f32: {share:.4%} of rays equal the kernel's")
+    r256 = rays(256, torch.float64)
+    sp64 = convert.scene_planes_from_numpy(scenes.cornell8().soa10(np.float64), device=dev,
+                                           dtype=torch.float64)
+    k64 = rk.render_reference(r256, sp64, light_index=light, bounces=BOUNCES).cpu().numpy()
+    twin64 = rk.render_reference_planes_plain(r256.T.contiguous(), sp64, light_index=light,
+                                              bounces=BOUNCES).T.cpu().numpy()
+    err64 = float(np.abs(four[0]["tp_f64"] - k64).max())
+    require(np.array_equal(four[0]["tp_f64"], twin64) and np.allclose(
+        four[0]["tp_f64"], k64, rtol=1e-12, atol=1e-12), "sharded render (2, 2) f64 256x256: "
+            f"not bitwise the plain twin, or {err64} from the kernel")
+    phase("sharded_render_4M_8bounce", gpu=gpu, rays=kernel.shape[0],
+          backend={2: two[0]["backend"], 4: four[0]["backend"]},
+          dp_2x1={"mesh": two[0]["mesh"], "bitwise_vs_kernel": True,
+                  "launches_a_rank": two[0]["dp_launches"],
+                  "ms_a_rank": [r["dp_ms"] for r in two]},
+          tp_2x2={"mesh": four[0]["mesh"], "f64_256x256": "bitwise the plain twin",
+                  "f64_max_abs_err_vs_kernel": err64, "f32_full": "bitwise the plain twin",
+                  "f32_share_equal_kernel": share, "ms_a_rank": [r["tp_f32_ms"] for r in four]},
+          tolerance="(2, 1) bitwise the kernel; (2, 2), plain torch, bitwise the plain twin, "
+                    "and against the kernel f64 allclose 1e-12 (phase 3's), f32 share of rays "
+                    ">= 99% (phase 4's trail flips)", note=note)
+
+    # ---- sharded_mesh_render ----------------------------------------------
+    mdev = mm.mesh_scene_to_device(bench.mesh_scene(MESH_SUBDIV), device=dev,
+                                   pallas_bvh_kernel=True, tris_per_chunk=16)
+    wk.reset_launches()
+    ref = mm.render_pt_mesh(r32, mdev, seed=0, **PAR_PT)
+    torch.cuda.synchronize()
+    one_launches = dict(wk.LAUNCHES)
+    require(np.array_equal(two[0]["mesh_colors"], ref.cpu().numpy()),
+            "sharded mesh render: not bitwise the one-device render")
+    require(all(r["mesh_launches"] == {"wbvh": BOUNCES} for r in two),
+            f"sharded mesh render launches {[r['mesh_launches'] for r in two]}")
+    phase("sharded_mesh_render", gpu=gpu, scene=f"icosphere s{MESH_SUBDIV} in smallpt9, 16 "
+          "triangles a chunk", rays=ref.shape[0], bounces=BOUNCES, bit_equal="indexed",
+          backend=two[0]["backend"], bitwise_vs_one_device=True,
+          launches_a_rank=two[0]["mesh_launches"], one_device_launches=one_launches,
+          ms_a_rank=[r["mesh_ms"] for r in two], mean=float(ref.mean()), note=note)
+    del mdev, ref
+
+    # ---- ring_pipelines_f64 -----------------------------------------------
+    r64 = rays(FULL_W, torch.float64)
+    c64 = megakernel.scene_to_device(scenes.cornell8(), device=dev, dtype=torch.float64)
+    expect = megakernel.render_reference_impl(r64, c64, bounces=BOUNCES).cpu().numpy()
+    s64 = megakernel.scene_to_device(scenes.smallpt9(), device=dev, dtype=torch.float64)
+    expect_pt = megakernel.render_pt_impl(r64, s64, seed=11, **PAR_PT).cpu().numpy()
+    for name, ref in (("pipelined", expect), ("ring_scene", expect), ("pt_ring", expect_pt)):
+        require(np.array_equal(two[0][name], ref), f"ring {name}: not bitwise the single-device "
+                "render")
+    phase("ring_pipelines_f64", gpu=gpu, stages=2, rays=expect.shape[0], bounces=BOUNCES,
+          backend=two[0]["backend"], tolerance="bitwise (tests/test_pipeline.py)",
+          seconds_a_render={k: two[0][f"{k}_s"] for k in ("pipelined", "ring_scene", "pt_ring")},
+          pt_mean=float(expect_pt.mean()), note=note)
+
+    # ---- cli_shard ----------------------------------------------------------
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        base = [sys.executable, "-m", "ascendpathtracing_tpu_torch.cli", "render",
+                "--width", str(FULL_W), "--height", str(FULL_W), "--bounces", str(BOUNCES),
+                "--mode", "reference", "--backend", "cuda"]
+        lines = {}
+        for n in (0, 2):
+            proc = subprocess.run([*base, "--shard", str(n), "--out", f"{tmp}/s{n}"], cwd=REPO,
+                                  capture_output=True, text=True, timeout=600, check=False)
+            require(proc.returncode == 0, f"cli render --shard {n}: exit {proc.returncode}\n"
+                    f"{proc.stderr[-3000:]}")
+            lines[n] = json.loads(proc.stdout.strip().splitlines()[-1])
+        for name in ("color.ppm", "color.bin"):
+            require((Path(tmp) / "s0" / name).read_bytes() == (Path(tmp) / "s2" / name)
+                    .read_bytes(), f"cli render --shard 2: {name} differs from --shard 0")
+    dry = subprocess.run([sys.executable, "-m", "ascendpathtracing_tpu_torch.graft_entry", "2"],
+                         cwd=REPO, capture_output=True, text=True, timeout=600, check=False)
+    require(dry.returncode == 0, f"graft_entry 2: exit {dry.returncode}\n{dry.stderr[-3000:]}")
+    phase("cli_shard", gpu=gpu, shard2=lines[2], shard0_render_s=lines[0]["render_s"],
+          ppm_and_bin_byte_equal=True, graft_entry=dry.stdout.strip().splitlines()[-1],
+          seconds=time.time() - t0)
+    phase("parallel_seconds", gpu=gpu, worlds_s=worlds_s,
+          seconds_all_parallel_phases=time.time() - t_begin)
+    return {"fwd": {"sharded_render (2, 1)": two[0]["dp_launches"]["fwd"]},
+            "fwd_idx": {"sharded_train_step": two[0]["train"]["launches"]["fwd_idx"]},
+            "bwd_replay": {"sharded_train_step": two[0]["train"]["launches"]["bwd_replay"]},
+            "wbvh": {"sharded_mesh_render": two[0]["mesh_launches"]["wbvh"]}}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1120,7 +1462,7 @@ def main(argv=None) -> int:
 
     # ---- 1. build (all six libraries at once) --------------------------
     t0 = time.time()
-    libs = ("render_ref", "render_pt", "wbvh", "mesh_pt", "segsum", "bvh")
+    libs = build.LIBRARIES
     parent = None if args.parent is None else args.parent.resolve()
     ab_names, ab_untimed = ab_kernels(parent) if parent else ((), ())
     parent_build = None  # the other tree builds its kernels meanwhile
@@ -2975,6 +3317,15 @@ def main(argv=None) -> int:
             row["wavefront_launches"] = {run: n[row["name"]] for run, n in
                                          wave["launches"].items() if row["name"] in n}
     seg_row.update({f"wavefront_{k}": v for k, v in wave["segsum"].items()})
+    torch.cuda.empty_cache()
+
+    # ---- the sharded port (parallel/) -----------------------------------
+    # Worlds of 1, 2 and 4 ranks on this card; their launches a rank go
+    # into the rows of the kernels they run (sharded_launches).
+    sharded = parallel_phases(dev, gpu)
+    for row in rows:
+        if row["name"] in sharded:
+            row["sharded_launches"] = sharded[row["name"]]
     torch.cuda.empty_cache()
 
     # ---- debug dumps ----------------------------------------------------

@@ -1292,3 +1292,114 @@ def test_wavefront_sphere_on_the_card(cuda):
     a = wf.render_wavefront(2, sc32, width=w, height=h, spp4=spp4, pool=777)
     assert a.device.type == "cuda" and torch.equal(a, wf.render_wavefront(
         2, sc32, width=w, height=h, spp4=spp4, pool=777))
+
+
+# ------------------------------------------- parallel (gloo on one card) ----
+def gloo_collectives():
+    """all_reduce, all_gather and broadcast called by torch.distributed on
+    CUDA tensors as they are, and ``mesh.ppermute`` (staged through the
+    host) -> the results on the host."""
+    import torch.distributed as dist
+
+    from ascendpathtracing_tpu_torch.parallel import mesh as pmesh
+    from ascendpathtracing_tpu_torch.parallel.distributed import rank_device
+
+    dev, r, n = rank_device(), dist.get_rank(), dist.get_world_size()
+    x = torch.arange(5, dtype=torch.float64, device=dev) + 10 * r
+    red = x.clone()
+    dist.all_reduce(red)
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x)
+    b = x.clone()
+    dist.broadcast(b, 0)
+    ring = pmesh.ppermute((x, torch.full((3,), r, dtype=torch.int32, device=dev)), None)
+    return {"device": str(dev), "backend": dist.get_backend(), "all_reduce": red.cpu(),
+            "all_gather": torch.stack(parts).cpu(), "broadcast": b.cpu(),
+            "ppermute": [t.cpu() for t in ring], "ring_device": ring[0].device.type}
+
+
+def sharded_train(rays, target):
+    """The sharded training step on the card: this rank's shards of
+    ``rays``/``target`` -> (loss, new params, its colors, launches)."""
+    from ascendpathtracing_tpu_torch.parallel import make_mesh, make_train_step, shard_rays
+    from ascendpathtracing_tpu_torch.parallel.distributed import rank_device
+    from ascendpathtracing_tpu_torch.parallel.sharded import split_scene_params
+
+    dev = rank_device()
+    mesh = make_mesh()
+    scene = megakernel.scene_to_device(scenes.cornell8(), device=dev)
+    params, aux = split_scene_params(scene)
+    params = dict(params, albedo=params["albedo"] + 0.05)
+    step = make_train_step(mesh, bounces=8, learning_rate=0.02)
+    r = convert.rays_planes_from_numpy(shard_rays(rays, mesh), device=dev).T
+    t = torch.tensor(shard_rays(target, mesh).T.copy(), device=dev).T
+    rk.reset_launches()
+    loss, new, colors = step(params, aux, r, t, return_colors=True)
+    launches = dict(rk.LAUNCHES)
+    return (float(loss), {k: v.cpu() for k, v in new.items()}, colors.cpu(), launches)
+
+
+def two_ranks(rays, target):
+    """One rank of the two-rank gloo world the card tests share."""
+    return {"gloo": gloo_collectives(), "train": sharded_train(rays, target)}
+
+
+TRAIN_RAYS = camera.generate_rays_numpy(64, 64, 1, seed=0).astype(np.float32)
+TRAIN_TARGET = (np.random.RandomState(0).rand(TRAIN_RAYS.shape[0], 3) * 0.5).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def two_rank_world():
+    """One world of two ranks sharing the card (gloo), spawned once for
+    the tests below."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ascendpathtracing_tpu_torch.parallel.distributed import run_local_world
+
+    return run_local_world(two_ranks, 2, device="cuda", args=(TRAIN_RAYS, TRAIN_TARGET),
+                           timeout=300)
+
+
+@pytest.mark.cuda
+def test_gloo_collectives_take_cuda_tensors(cuda, two_rank_world):
+    """Two ranks sharing the card over gloo: all_reduce, all_gather and
+    broadcast give on CUDA tensors what they give on host copies, and
+    ppermute's host staging hands each rank its neighbour's tensors back
+    on the card."""
+    base = torch.arange(5, dtype=torch.float64)
+    for r, got in enumerate(res["gloo"] for res in two_rank_world):
+        assert got["backend"] == "gloo" and got["device"] == "cuda:0"
+        assert torch.equal(got["all_reduce"], 2 * base + 10)
+        assert torch.equal(got["all_gather"], torch.stack([base, base + 10]))
+        assert torch.equal(got["broadcast"], base)
+        assert torch.equal(got["ppermute"][0], base + 10 * (1 - r))
+        assert torch.equal(got["ppermute"][1], torch.full((3,), 1 - r, dtype=torch.int32))
+        assert got["ring_device"] == "cuda"
+
+
+@pytest.mark.cuda
+def test_sharded_train_step_two_ranks_on_the_card(cuda, two_rank_world):
+    """The data-parallel training step in a world of two ranks sharing the
+    card (gloo), at 64x64 camera rays x 8 bounces: each rank's colors are
+    the one-device step's rows bit for bit (the kernels work a ray a
+    thread), one fwd_idx and one bwd_replay launch a rank, the loss and
+    the new parameters within rtol 1e-6 of the one-device step's (float32;
+    only the order of the sums differs), equal on both ranks."""
+    from ascendpathtracing_tpu_torch.parallel import make_train_step
+    from ascendpathtracing_tpu_torch.parallel.sharded import split_scene_params
+
+    scene = megakernel.scene_to_device(scenes.cornell8(), device=cuda)
+    params, aux = split_scene_params(scene)
+    params = dict(params, albedo=params["albedo"] + 0.05)
+    loss1, new1, colors1 = make_train_step(None, bounces=8, learning_rate=0.02)(
+        params, aux, convert.rays_planes_from_numpy(TRAIN_RAYS, device=cuda).T,
+        torch.tensor(TRAIN_TARGET.T.copy(), device=cuda).T, return_colors=True)
+    res = [r["train"] for r in two_rank_world]
+    m = TRAIN_RAYS.shape[0] // 2
+    for r, (loss, new, colors, launches) in enumerate(res):
+        assert torch.equal(colors, colors1[r * m:(r + 1) * m].cpu())
+        assert launches == {"fwd": 0, "fwd_idx": 1, "bwd_replay": 1, "bwd_recompute": 0}
+        np.testing.assert_allclose(loss, float(loss1), rtol=1e-6)
+        for k in new:
+            torch.testing.assert_close(new[k], new1[k].cpu(), rtol=1e-6, atol=1e-7)
+            assert torch.equal(new[k], res[0][1][k])

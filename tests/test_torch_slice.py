@@ -108,8 +108,10 @@ def test_fwd_bwd_step_matches_jax_value_and_grad():
 
 
 def test_importing_the_port_loads_no_jax():
-    """Importing every module of the port, chip_smoke and the card-only
-    tests (tests/test_torch_cuda.py), a CPU mesh render with its replay
+    """Importing every module of the port (the sharded ``parallel.*`` and
+    ``graft_entry`` among them), chip_smoke, the card-only tests
+    (tests/test_torch_cuda.py) and the sharded tests' rank side
+    (tests/test_torch_parallel_ranks.py), a CPU mesh render with its replay
     backward, a CPU bounce-loop mesh render with its autograd backward
     (diff/mesh), a CPU camera-gradient render (diff/camera_fused), CPU
     renders of both wavefronts, and the CLI's train (with --resume),
@@ -121,7 +123,7 @@ def test_importing_the_port_loads_no_jax():
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "import chip_smoke\n"
-        "import tests.test_torch_cuda\n"
+        "import tests.test_torch_cuda, tests.test_torch_parallel_ranks\n"
         "from ascendpathtracing_tpu_torch import cli\n"
         "assert cli.mesh_vjp_check(__import__('torch').device('cpu'))['ok']\n"
         "import numpy, torch\n"
@@ -172,7 +174,8 @@ def test_importing_the_port_loads_no_jax():
         "       'config', 'scenes', 'camera', 'oracle', 'utils.io', 'accel.meshes',\n"
         "       'accel.bvh', 'ops.bvh_kernels', 'ops.sort', 'diff.mesh', 'diff.camera',\n"
         "       'diff.fd', 'diff.camera_fused', 'post', 'utils.debug',\n"
-        "       'utils.checkpoint', 'parallel.sharded', 'models.wavefront'}\n"
+        "       'utils.checkpoint', 'parallel.sharded', 'models.wavefront', 'parallel.mesh',\n"
+        "       'parallel.distributed', 'parallel.assembly', 'parallel.pipeline', 'graft_entry'}\n"
         "assert {p.__name__ + '.' + m for m in new} <= set(mods), mods\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -181,7 +184,7 @@ def test_importing_the_port_loads_no_jax():
         text=True, timeout=300, check=False,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 39
+    assert int(out.stdout.strip().splitlines()[-1]) >= 44
 
 
 def test_backend_cuda_exits_2_without_cuda(no_cuda, tmp_path, capsys):
@@ -203,9 +206,11 @@ def test_backend_cuda_exits_2_without_cuda(no_cuda, tmp_path, capsys):
         # The JAX CLI's own refusal for mesh scenes outside pt mode.
         (["render", "--scene", "mesh-cube", "--mode", "reference"],
          "mesh scenes require --mode pt"),
-        (["render", "--shard", "2"], "not yet ported"),
-        # Post-processing is ported; the option that is not still refuses.
-        (["render", "--tonemap", "aces", "--shard", "2"], "not yet ported"),
+        # --shard N must divide the ray count (16 x 16 x 4 = 1,024 here).
+        (["render", "--shard", "3"], "must divide the ray count"),
+        # --shard renders the reference mode through the kernel renderer.
+        (["render", "--mode", "pt", "--renderer", "plain", "--shard", "2"],
+         "--shard renders --mode reference"),
         # The JAX CLI's own refusal for its kernel renderer (cli.py:253-256).
         (["render", "--mode", "pt", "--renderer", "kernel"],
          "supports --mode reference only"),

@@ -17,7 +17,7 @@ from ascendpathtracing_tpu import scenes as jax_scenes
 from ascendpathtracing_tpu.models import megakernel as jax_mk
 from ascendpathtracing_tpu.parallel import sharded as jax_sharded
 from ascendpathtracing_tpu.utils import checkpoint as jax_ckpt
-from ascendpathtracing_tpu_torch import cli, scenes
+from ascendpathtracing_tpu_torch import camera, cli, scenes
 from ascendpathtracing_tpu_torch.models import megakernel
 from ascendpathtracing_tpu_torch.ops import render_kernels as rk
 from ascendpathtracing_tpu_torch.parallel import sharded
@@ -96,9 +96,34 @@ def test_train_problem_layout_reads_in_place_and_steps_alike():
     np.testing.assert_allclose(float(la), float(lb), rtol=1e-6)
 
 
-def test_make_train_step_over_a_mesh_is_not_ported():
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        sharded.make_train_step(object())
+def test_make_train_step_over_a_one_rank_mesh_equals_single_device():
+    """The mesh step is ported now (tests/test_torch_parallel.py holds it
+    against JAX's): over a one-rank mesh's stand-in it equals the
+    single-device step, the loss a global mean and one all-reduce of
+    loss and gradient (here over the one rank, a no-op)."""
+    scene = megakernel.scene_to_device(scenes.cornell8(), dtype=torch.float64)
+    rays = torch.tensor(camera.generate_rays_numpy(8, 8, 1, seed=0))
+    target = megakernel.render_reference_impl(rays, scene, bounces=3) * 0.9
+    params, aux = sharded.split_scene_params(scene)
+
+    class OneRank:  # DeviceMesh.size() of a one-rank mesh
+        def size(self):
+            return 1
+
+    summed = []
+
+    def all_reduce(t, group=None):
+        summed.append(t.clone())
+        return t
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(sharded.dist, "all_reduce", all_reduce)
+        la, pa = sharded.make_train_step(OneRank(), bounces=3)(params, aux, rays, target)
+    lb, pb = sharded.make_train_step(None, bounces=3)(params, aux, rays, target)
+    assert len(summed) == 1 and summed[0].shape == (1 + 10 * 8,)
+    np.testing.assert_allclose(float(la), float(lb), rtol=1e-12)
+    for k in pa:
+        np.testing.assert_allclose(pa[k].numpy(), pb[k].numpy(), rtol=1e-12, atol=1e-15)
 
 
 def test_params_planes_round_trip():
