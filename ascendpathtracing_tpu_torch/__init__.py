@@ -38,8 +38,13 @@ that each module's counterpart is found under the same name:
   (vertices and face attributes as leaves) and the stale-table guard.
 - ``accel.tri``         — brute-force ray-triangle intersection (the
   oracle).
-- ``accel.bvh``         — the binned-SAH BVH builder (NumPy) and the
-  per-ray stackless walk in plain torch.
+- ``accel.bvh``         — the binned-SAH BVH builder (native where its
+  library builds, else NumPy) and the per-ray stackless walk in plain
+  torch.
+- ``accel.native``      — the native (C++) host library: the BVH builder,
+  the fused PPM codec and the OBJ loader (``native/*.cpp``), built with
+  g++ at first use into ``build/ascendpathtracing_tpu_torch/`` and bound
+  with ctypes.
 - ``models.mesh``       — mesh scenes, their device tables in four
   traversal modes, the first-hit query and the bounce-loop mesh path
   tracer.
@@ -53,6 +58,10 @@ that each module's counterpart is found under the same name:
 - ``post``              — firefly clamp, tone maps, the a-trous denoiser.
 - ``utils.debug``       — ``print_data``, ``assert_finite`` and the float
   guard ``checkify_render``.
+- ``utils.profiling``   — ``trace`` (torch.profiler), fences, ``benchmark``
+  and the two-point fit ``benchmark_fit``.
+- ``utils.roofline``    — ``count_ops``: element ops of eager torch code
+  by class, the numerators of a kernel's bound (through its plain twin).
 - ``ops.build``         — builds ``csrc/*.cu`` with nvcc at first use.
 - ``cli``, ``bench``    — the user entry points.
 - ``config``, ``scenes``, ``camera``, ``oracle``, ``utils.io``,

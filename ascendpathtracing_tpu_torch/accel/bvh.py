@@ -8,10 +8,11 @@ child is next in DFS order) and to ``miss[ptr]`` everywhere else.
 
 - :func:`build_bvh_numpy` is a copy of the JAX package's NumPy builder
   (tests hold its arrays equal to the original's).
-- :func:`build_bvh` takes the NumPy builder.  The JAX package prefers
-  its native C++ builder (``accel/native.py``), whose tables differ from
-  the NumPy builder's; that builder is not ported yet, and
-  ``backend="native"`` raises NotImplementedError.
+- :func:`build_bvh` takes the native C++ builder (``accel/native.py``)
+  where its library builds, as the JAX package's does, else the NumPy
+  builder.  The two builders' tables differ (same contract, other
+  splits), so each package's default tables equal the other's only when
+  both take the same builder.
 - :func:`intersect_bvh` is the walk in plain torch, in the rays' dtype:
   the float64 oracle of the mesh renderer's ``jnp`` mode and the plain
   twin of the lockstep traversal kernel (``ops/bvh_kernels``).  Its
@@ -25,6 +26,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ascendpathtracing_tpu_torch.accel import native
 from ascendpathtracing_tpu_torch.accel import tri as tri_mod
 
 MISS_T = 1e20
@@ -165,15 +167,17 @@ def build_bvh_numpy(
 
 
 def build_bvh(vertices, faces, *, max_leaf: int = 4, backend: str = "auto") -> FlatBVH:
-    """The NumPy builder (``backend`` "auto" or "numpy").  "native", the
-    JAX package's C++ builder, is not yet ported."""
-    if backend == "native":
-        raise NotImplementedError(
-            "build_bvh(backend='native'): the C++ BVH builder (accel/native.py) "
-            "is not yet ported to ascendpathtracing_tpu_torch"
-        )
-    if backend not in ("auto", "numpy"):
+    """Build a BVH with the native C++ builder (``backend`` "native", or
+    "auto" where its library builds and loads), else NumPy ("numpy", or
+    "auto" when the library is unavailable)."""
+    if backend not in ("auto", "native", "numpy"):
         raise ValueError(f"unknown BVH builder backend {backend!r}")
+    if backend != "numpy":
+        try:
+            return native.build_bvh_native(vertices, faces, max_leaf=max_leaf)
+        except native.NativeUnavailable:
+            if backend == "native":
+                raise
     return build_bvh_numpy(vertices, faces, max_leaf=max_leaf)
 
 

@@ -4,6 +4,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from ascendpathtracing_tpu_torch.accel import native as native_mod
+
 
 def cube(center=(0.0, 0.0, 0.0), size=1.0):
     """Axis-aligned cube: 8 vertices, 12 triangles."""
@@ -114,7 +116,7 @@ def transform(v, *, scale=1.0, rotate_y=0.0, translate=(0.0, 0.0, 0.0)):
     return v + np.asarray(translate, np.float64)
 
 
-def load_obj(path):
+def load_obj(path, *, native: str = "auto"):
     """Minimal Wavefront OBJ reader -> (vertices [V,3] f64, faces [F,3] i64).
 
     Supports ``v`` and ``f`` records; polygon faces are fan-triangulated;
@@ -123,9 +125,17 @@ def load_obj(path):
     renderer from geometry, and there is no texture pipeline, matching the
     reference's untextured scenes).  Ignores vt/vn/materials/groups.
 
-    The JAX package's native (C++) loader parses the same way; the port
-    has only this Python parser.
+    ``native='auto'`` uses the C++ loader (native/obj_loader.cpp — same
+    parse semantics, tested identical) when its library builds, falling
+    back to this Python parser; 'never' forces Python, 'always' raises if
+    the native path is unavailable.
     """
+    if native != "never":
+        try:
+            return native_mod.load_obj_native(path)
+        except native_mod.NativeUnavailable:
+            if native == "always":
+                raise
     verts: list = []
     tris: list = []
     with open(path) as fh:

@@ -187,7 +187,8 @@ def cmd_render(args) -> int:
     if mesh:
         try:
             mesh_scene = _mesh_scene(args.scene[len("mesh-"):])
-        except (OSError, ValueError) as e:
+        # RuntimeError: the native OBJ loader's IO failure (a missing file)
+        except (OSError, ValueError, RuntimeError) as e:
             print(f"error: {e}", file=sys.stderr)
             return 2
         if mesh_scene is None:

@@ -126,11 +126,11 @@ def mesh_scene_to_device(
       defaults to 4.
     - ``use_bvh=False``: brute force over the planes in face order.
 
-    The BVH is ``accel/bvh.build_bvh``'s (the NumPy builder; the JAX
-    package builds with its C++ builder where it loads, whose tables
-    differ, so a BVH-mode result equals the JAX package's only over the
-    same tables: see ``convert.mesh_dev_from_jax``).  Planes are in
-    ``dtype``; the kernels' tables are float32.
+    The BVH is ``accel/bvh.build_bvh``'s: the C++ builder
+    (``accel/native.py``) where its library builds, as in the JAX package,
+    else the NumPy builder, whose tables differ; ``convert.mesh_dev_from_jax``
+    carries the JAX package's own tables.  Planes are in ``dtype``; the
+    kernels' tables are float32.
     """
     if pallas_kernel not in ("chunks", "lockstep"):
         raise ValueError(f"unknown pallas_kernel {pallas_kernel!r}")

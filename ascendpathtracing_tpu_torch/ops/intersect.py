@@ -16,12 +16,20 @@ import torch
 MISS_T = 1e20
 
 
+# The NumPy sqrt as the op ``aptport::sqrt_rn`` (CPU only), so that
+# dispatch-level tools (utils/roofline.count_ops, utils/debug's float
+# guard) see it as one op.
+_LIB = torch.library.Library("aptport", "DEF")
+_LIB.define("sqrt_rn(Tensor x) -> Tensor")
+_LIB.impl("sqrt_rn", lambda x: torch.from_numpy(np.asarray(np.sqrt(x.numpy()))), "CPU")
+
+
 class _SqrtRN(torch.autograd.Function):
     """Correctly rounded sqrt of a CPU tensor, through NumPy."""
 
     @staticmethod
     def forward(ctx, x):
-        y = torch.from_numpy(np.asarray(np.sqrt(x.detach().numpy())))  # 0-d too
+        y = torch.ops.aptport.sqrt_rn(x.detach())  # 0-d too
         ctx.save_for_backward(y)
         return y
 

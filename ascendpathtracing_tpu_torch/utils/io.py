@@ -27,6 +27,7 @@ import os
 
 import numpy as np
 
+from ascendpathtracing_tpu_torch.accel import native as native_mod
 from ascendpathtracing_tpu_torch.scenes import SphereScene
 
 RAY_PLANES = 6
@@ -172,13 +173,32 @@ def write_ppm(image_u8: np.ndarray, path: str) -> None:
 
 def write_render_ppm(
     colors: np.ndarray, width: int, height: int, samples: int, path: str,
+    *, native: str = "auto",
 ) -> np.ndarray:
-    """decode_color + write_ppm in one step.  Returns the decoded uint8
-    image.  The JAX package's native (C++) codec writes the same bytes;
-    the port has only this Python path."""
+    """decode_color + write_ppm in one step, using the native (C++) fused
+    codec (``accel/native.py``) when its library builds (``native='auto'``;
+    'never' forces Python, 'always' raises if the library is unavailable).
+    The native codec takes square images only, as in the JAX package.
+    Returns the decoded uint8 image either way.  Both paths write
+    the same bytes (the same float64 summation order)."""
+    if native not in ("auto", "never", "always"):
+        raise ValueError(f"bad native mode {native!r}")
     colors = np.asarray(colors)
     n = width * height * 4 * samples
     planes = colors.T if colors.shape == (n, COLOR_PLANES) else colors
+    if native != "never" and width == height:
+        try:
+            text = native_mod.encode_ppm_native(
+                np.ascontiguousarray(planes, np.float32), width, height, samples
+            )
+        except native_mod.NativeUnavailable:
+            if native == "always":
+                raise
+        else:
+            _ensure_dir(path)
+            with open(path, "w") as f:
+                f.write(text)
+            return decode_color(planes, width, height, samples)
     img = decode_color(planes, width, height, samples)
     write_ppm(img, path)
     return img

@@ -1,0 +1,219 @@
+"""Mechanical op accounting of eager torch code (roofline inputs).
+
+Counterpart of ``ascendpathtracing_tpu/utils/roofline.py``'s ``OpCounts``
+and ``count_ops``.  The JAX module walks the jaxpr that is compiled; here
+a ``TorchDispatchMode`` sees every aten op that ``fn(*args, **kwargs)``
+executes — the forward, and the backward when ``fn`` runs one — and
+classes it by its overload packet's name into the JAX module's classes:
+
+- ``flops``      — one-slot vector arithmetic (add/mul/sub/maximum/…),
+                   one per output element.
+- ``hard``       — multi-cycle ops (div, sqrt, exp, log, sin/cos, pow…),
+                   one per output element, also by name in
+                   ``hard_by_prim``.
+- ``vops``       — non-arithmetic element ops: compares, selects
+                   (``where``), boolean and bit algebra, dtype converts,
+                   random draws.
+- ``mxu_flops``  — matrix products (``mm``, ``bmm``, ``addmm``, ``matmul``
+                   and their kin): 2·B·M·N·K.
+- ``mem_elems``  — layout, copy, gather and scatter work and the tensors
+                   that factory ops fill, by output elements.  Unlike
+                   JAX's ``copy`` (an arithmetic op there), torch's
+                   ``clone``/``copy_`` are layout moves and land here.
+- reductions (sum, amax, argmin, cumsum, …) count their INPUT elements
+  as ``flops``, as in JAX.
+- in-place variants (``add_``) count like their out-of-place ops.
+- anything unclassified lands in ``other``, by name.
+
+What eager torch changes: every Python loop runs at its real trip count,
+so there is nothing to assign — JAX's ``while_trips``,
+``default_while_trips``, ``whiles``, ``dma_bytes`` and the ``pallas_call``
+grid multiplier have no counterpart here.  The count is that of these
+inputs: a twin that masks dead rays counts them, one that compacts them
+does not.
+
+The hand-written CUDA kernels launch through ctypes, so the mode sees
+only their torch glue.  A kernel's count is its plain twin's count at the
+kernel's inputs: count the ``*_plain`` function.  On the CPU,
+``ops.intersect.sqrt_rn`` runs NumPy behind the custom op
+``aptport::sqrt_rn``; it counts as one ``sqrt`` per element, as
+``torch.sqrt`` does on a card, so the count of a twin is the same on
+every device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable
+
+import torch
+from torch.utils import _pytree as pytree
+from torch.utils._python_dispatch import TorchDispatchMode
+
+# one-slot vector arithmetic: op -> flops per output element (a cross
+# product's component is two multiplies and a subtract)
+_FLOPS = dict.fromkeys((
+    "add", "sub", "rsub", "mul", "maximum", "minimum", "fmax", "fmin", "neg",
+    "abs", "sign", "sgn", "floor", "ceil", "round", "trunc", "frac",
+    "nextafter", "copysign"), 1) | {"linalg_cross": 3}
+# multi-cycle ops; the name each counts under in ``hard_by_prim``
+_HARD = {
+    "div": "div", "sqrt": "sqrt", "sqrt_rn": "sqrt", "rsqrt": "rsqrt",
+    "reciprocal": "reciprocal", "exp": "exp", "exp2": "exp2", "expm1": "expm1",
+    "log": "log", "log1p": "log1p", "log2": "log2", "log10": "log10", "sin": "sin",
+    "cos": "cos", "tan": "tan", "asin": "asin", "acos": "acos", "atan": "atan",
+    "atan2": "atan2", "sinh": "sinh", "cosh": "cosh", "tanh": "tanh", "erf": "erf",
+    "erfc": "erfc", "erfinv": "erfinv", "sigmoid": "logistic", "pow": "pow",
+    "remainder": "rem", "fmod": "rem", "floor_divide": "div", "lgamma": "lgamma",
+    "digamma": "digamma",
+}
+# non-arithmetic element ops
+_VOPS = {
+    "lt", "le", "gt", "ge", "eq", "ne", "logical_and", "logical_or",
+    "logical_not", "logical_xor", "bitwise_and", "bitwise_or", "bitwise_xor",
+    "bitwise_not", "bitwise_left_shift", "bitwise_right_shift", "__and__",
+    "__or__", "__xor__", "__lshift__", "__rshift__", "__ilshift__",
+    "__irshift__", "__iand__", "__ior__", "__ixor__", "where", "isfinite",
+    "isnan", "isinf", "signbit", "clamp", "clamp_min", "clamp_max",
+    "masked_fill", "rand", "randn", "randint", "rand_like", "randn_like",
+    "uniform", "normal", "bernoulli", "random",
+}
+# layout / memory movement / factories
+_MEM = {
+    "view", "_unsafe_view", "reshape", "_reshape_alias", "expand", "permute",
+    "transpose", "t", "slice", "select", "squeeze", "unsqueeze", "cat",
+    "stack", "constant_pad_nd", "flip", "arange", "linspace", "index",
+    "index_select", "gather", "scatter", "scatter_add", "scatter_reduce",
+    "index_put", "_index_put_impl", "index_add", "index_copy", "index_fill",
+    "masked_scatter", "masked_select", "nonzero", "take", "empty",
+    "empty_strided", "empty_like", "zeros", "zeros_like", "ones", "ones_like",
+    "full", "full_like", "fill", "zero", "new_zeros", "new_empty", "new_ones",
+    "new_full", "new_empty_strided", "as_strided", "split", "split_with_sizes",
+    "unbind", "narrow", "diagonal", "repeat", "repeat_interleave", "roll",
+    "unfold", "alias", "lift_fresh", "lift_fresh_copy", "clone", "copy",
+    "contiguous", "scalar_tensor", "view_as_real", "view_as_complex",
+    "slice_scatter", "select_scatter", "as_strided_scatter",
+    # autograd's backward of views: the gradient placed into zeros
+    "select_backward", "slice_backward", "index_select_backward",
+    "diagonal_backward", "unfold_backward",
+}
+# reductions: count input elements as flops (a tree of adds/compares)
+_REDUCE = {
+    "sum", "mean", "amax", "amin", "aminmax", "prod", "argmax", "argmin",
+    "cumsum", "cumprod", "cummax", "cummin", "logcumsumexp", "any", "all",
+    "logsumexp", "norm", "linalg_vector_norm", "var", "std", "var_mean",
+    "std_mean", "nansum", "count_nonzero",
+}
+# matrix products -> mxu_flops
+_MATMUL = {"mm", "bmm", "addmm", "baddbmm", "addbmm", "mv", "addmv", "dot",
+           "vdot", "matmul"}
+_ZERO_COST = {
+    "detach", "_local_scalar_dense", "item", "is_nonzero", "set", "resize",
+    "record_stream", "sym_size", "sym_stride", "sym_numel",
+    "sym_storage_offset", "_assert_async", "_assert_scalar",
+    "_functional_assert_async", "_has_compatible_shallow_copy_type",
+}
+
+
+@dataclasses.dataclass
+class OpCounts:
+    flops: float = 0.0
+    hard: float = 0.0
+    vops: float = 0.0
+    mxu_flops: float = 0.0
+    mem_elems: float = 0.0
+    hard_by_prim: dict = dataclasses.field(default_factory=dict)
+    other: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def vpu_slots(self) -> float:
+        """Element ops (flops + hard + vops; the JAX module's name, after
+        the TPU's vector unit).  ``hard`` costs more than one issue slot
+        on any device: weigh it when turning counts into time bounds."""
+        return self.flops + self.hard + self.vops
+
+    def as_dict(self):
+        return {
+            "flops": self.flops,
+            "hard": self.hard,
+            "vops": self.vops,
+            "vpu_slots": self.vpu_slots,
+            "mxu_flops": self.mxu_flops,
+            "mem_elems": self.mem_elems,
+            "hard_by_prim": dict(self.hard_by_prim),
+            "other": dict(self.other),
+        }
+
+
+def _numel(tree) -> int:
+    return sum(x.numel() for x in pytree.tree_leaves(tree) if isinstance(x, torch.Tensor))
+
+
+def _matmul_flops(name: str, args) -> float:
+    """2·B·M·N·K: twice the output's elements times the contracted size
+    (``addbmm`` also sums its B products into one [M, N])."""
+    a, b = (args[1], args[2]) if name in ("addmm", "baddbmm", "addbmm", "addmv") else args[:2]
+    m = a.shape[-2] if a.dim() >= 2 else 1
+    n = b.shape[-1] if b.dim() >= 2 else 1
+    batch = a.shape[0] if name == "addbmm" else math.prod(torch.broadcast_shapes(
+        a.shape[:-2], b.shape[:-2]))
+    return 2.0 * batch * m * n * a.shape[-1]
+
+
+def _classify(counts: OpCounts, func, args, kwargs, out) -> None:
+    name = func.overloadpacket.__name__
+    if name.endswith("_") and not name.endswith("__"):
+        name = name[:-1]  # in place: as its out-of-place op
+    if name in ("max", "min"):  # binary with another tensor, else a reduction
+        if func._overloadname == "other":
+            counts.flops += _numel(out)
+        else:
+            counts.flops += _numel((args, kwargs))
+    elif name == "_to_copy":  # a dtype convert, or a copy to a device
+        src = args[0]
+        converts = kwargs.get("dtype") not in (None, src.dtype)
+        if converts:
+            counts.vops += _numel(out)
+        else:
+            counts.mem_elems += _numel(out)
+    elif name in _MATMUL:
+        counts.mxu_flops += _matmul_flops(name, args)
+    elif name in _REDUCE:
+        counts.flops += _numel((args, kwargs))
+    elif name in _FLOPS:
+        counts.flops += _FLOPS[name] * _numel(out)
+    elif name in _HARD:
+        e = _numel(out)
+        key = _HARD[name]
+        counts.hard += e
+        counts.hard_by_prim[key] = counts.hard_by_prim.get(key, 0.0) + e
+    elif name in _VOPS:
+        counts.vops += _numel(out)
+    elif name in _MEM:
+        counts.mem_elems += _numel(out)
+    elif name not in _ZERO_COST:
+        counts.other[name] = counts.other.get(name, 0.0) + _numel(out)
+
+
+class _Counter(TorchDispatchMode):
+    def __init__(self, counts: OpCounts):
+        super().__init__()
+        self.counts = counts
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        _classify(self.counts, func, args, kwargs, out)
+        return out
+
+
+def count_ops(fn: Callable, *args, **kwargs) -> OpCounts:
+    """Count the element ops of ``fn(*args, **kwargs)`` as it runs (on
+    whatever device its tensors are; the backward too, where ``fn``
+    calls ``backward`` or ``torch.autograd.grad``: the autograd engine
+    carries the mode to the thread that runs a card's backward)."""
+    counts = OpCounts()
+    with _Counter(counts):
+        fn(*args, **kwargs)
+    return counts

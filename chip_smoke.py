@@ -39,8 +39,9 @@ and the replay backward, and timed), the CLI's post pipeline at 1024 x
 phases ``wavefront_*``: float64 parity with the bounce loops, the
 mesh wavefront through wbvh.cu and bvh.cu bitwise against their twins
 and its scatter through segsum.cu against the plain one, the JAX
-bench's two wavefront cells at 1024 x 1024 x 64 samples beside the
-fused kernels' frames, and the CLI and bench routes); before the A/B,
+bench's two wavefront cells at 1024 x 1024, cut to 8 samples a pixel,
+beside the fused kernels' frames, and the CLI and bench routes); before
+the A/B,
 the sharded port (``parallel/``, phases ``sharded_*``, ``ring_pipelines_f64``,
 ``cli_shard``: worlds of 1, 2 and 4 ranks spawned on this card by
 ``run_local_world``, sharing it over gloo; the data-parallel training
@@ -49,7 +50,18 @@ s4 mesh render through wbvh.cu, the three rings in float64, ``cli render
 --shard 2`` and the dry run), the ``debug`` dumps of
 render_pt.cu, wbvh.cu and mesh_pt.cu (device printf read back from fd 1,
 each equal to its twin's lines, every output bitwise the debug-off
-launch's).  Right after
+launch's).  After the fused path tracer's phases come ``profiling``
+(13c: ``utils/profiling.benchmark_fit`` of the main path's step beside
+its CUDA-event median, and a ``trace`` that must name the render_ref.cu
+kernels) and ``roofline_counts`` (13d: ``utils/roofline.count_ops`` of
+the twins of fwd_idx, the replay and render_pt.cu at the kernels'
+inputs, their bounds beside the hand model's and the kernels' ms).  The
+native host library (``accel/native``,
+g++) builds beside the CUDA libraries and is required; phase
+``native_host`` (1c) checks that ``build_bvh``'s default takes it and
+times it against the NumPy builder, and the PPM codec and OBJ loader
+against the Python ones; phase 23 times bvh.cu on the NumPy builder's
+tables too.  Right after
 the build it runs the card-only tests (tests/test_torch_cuda.py) in a
 pytest subprocess without the repository's conftest.  It proves
 through the launch counters, reset
@@ -97,6 +109,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from xml.etree import ElementTree
 
@@ -744,6 +757,10 @@ def image_from_residuals(wid, resv, spp4, chunk):
 WF_POOL = 1 << 19  # the JAX bench's wavefront pool (bench.py:82)
 WF_W, WF_SPP4 = 64, 16  # the wavefront's parity checks: 64 x 64 x 16 samples
 WF_PROFILE_SPP4 = 8  # the wavefront frame traced by torch.profiler: 1024 x 1024 x 8
+# The wavefront cells' samples a pixel: the JAX bench's cells at full
+# width, their depth cut from the bench's 64 samples to 8 to keep the
+# script inside its time limit.
+WF_CELL_SPP4 = 8
 
 
 def wavefront_phases(dev, gpu, kernel_mods) -> dict:
@@ -766,8 +783,9 @@ def wavefront_phases(dev, gpu, kernel_mods) -> dict:
       and one ``segsum.cu`` launch an iteration, two runs bitwise; the
       ``segsum.cu`` scatter against the plain scatter in float64, rtol
       1e-12.
-    - ``wavefront_pt_1024x1024_spp64`` and ``wavefront_mesh_1024x1024_spp64``:
-      the JAX bench's two wavefront cells (pool 2**19): frame ms by CUDA
+    - ``wavefront_pt_1024x1024_spp8`` and ``wavefront_mesh_1024x1024_spp8``:
+      the JAX bench's two wavefront cells at full width and 8 samples a
+      pixel (WF_CELL_SPP4; the bench's 64 cut), pool 2**19: frame ms by CUDA
       events (median of 2 after the counted frame), iterations, ms per iteration,
       the segment-sum's launches and ms, the idle share under
       torch.profiler, two runs bitwise, pool 2**18 against 2**19 (and
@@ -912,8 +930,9 @@ def wavefront_phases(dev, gpu, kernel_mods) -> dict:
     del mdev, img_k, img_t, img_p
 
     # ---- the two cells at full size ------------------------------------
-    full = dict(width=FULL_W, height=FULL_W, spp4=PT_SPP4, bounces=BOUNCES, rr_depth=PT_RR)
-    n_samples = FULL_W * FULL_W * PT_SPP4
+    full = dict(width=FULL_W, height=FULL_W, spp4=WF_CELL_SPP4, bounces=BOUNCES,
+                rr_depth=PT_RR)
+    n_samples = FULL_W * FULL_W * WF_CELL_SPP4
     grabbed = {}
     scatter = segk.segment_rows_matmul
 
@@ -997,7 +1016,7 @@ def wavefront_phases(dev, gpu, kernel_mods) -> dict:
               **bound(n_rows * 4 + dying * 3 * 4 + touched * 3 * 8 * 2, 3 * dying)}
     pt_cell["segsum"] = segsum
     pt_cell["segsum_share_of_frame"] = seg_ms * pt_cell["iterations"] / pt_cell["frame_ms"]
-    phase("wavefront_pt_1024x1024_spp64", gpu=gpu, scene="cornell8", **pt_cell,
+    phase(f"wavefront_pt_1024x1024_spp{WF_CELL_SPP4}", gpu=gpu, scene="cornell8", **pt_cell,
           render_pt_ms=pt_ms, tolerance="two runs bitwise; pool 2**18 vs 2**19 rtol 1e-6; "
           "mean within 4 SE of render_pt.cu's frame")
     del img, img18, pt_frame, seg, vals, acc, sc, grabbed
@@ -1012,7 +1031,7 @@ def wavefront_phases(dev, gpu, kernel_mods) -> dict:
     for every in (1, 2):
         run = f"wavefront_mesh_every{every}"
 
-        def frame(spp4=PT_SPP4):
+        def frame(spp4=WF_CELL_SPP4):
             return wf.render_wavefront_mesh(0, mdev, pool=WF_POOL, sort_every=every,
                                             **dict(full, spp4=spp4))
 
@@ -1023,7 +1042,7 @@ def wavefront_phases(dev, gpu, kernel_mods) -> dict:
             mesh_cells["sort_every_1"]["profile"] = idle_share(lambda: frame(WF_PROFILE_SPP4))
     require(bool(torch.allclose(imgs[2], imgs[1], rtol=1e-6, atol=0.0)),
             f"wavefront mesh: sort_every 2 vs 1 {max_rel(imgs[2], imgs[1])}")
-    phase("wavefront_mesh_1024x1024_spp64", gpu=gpu, scene=f"icosphere s{MESH_SUBDIV} in "
+    phase(f"wavefront_mesh_1024x1024_spp{WF_CELL_SPP4}", gpu=gpu, scene=f"icosphere s{MESH_SUBDIV} in "
           "smallpt9, chunks", pool=WF_POOL, mesh_pt_ms=mesh_ms, **mesh_cells,
           sort_every_2_vs_1={"max_rel_err": max_rel(imgs[2], imgs[1]),
                              "bitwise": bool(torch.equal(imgs[2], imgs[1]))},
@@ -1064,6 +1083,238 @@ def wavefront_phases(dev, gpu, kernel_mods) -> dict:
     phase("wavefront_entry_points", gpu=gpu, **entry, seconds_all_wavefront_phases=time.time()
           - t_begin)
     return {"launches": launches, "segsum": segsum}
+
+
+# ---- host utilities: the native library, profiling, op counts --------
+NATIVE_SUBDIVS = (4, 6)  # native BVH builds timed at s4 and s6 (NumPy at s4 only)
+
+
+def host_s(fn, runs=3):
+    """Median host seconds of fn() over ``runs`` runs, and its result."""
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        out = fn()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times), out
+
+
+def native_host_phase(gpu) -> None:
+    """Phase ``native_host``: the port's native library (accel/native.py,
+    built from native/*.cpp by this machine's g++) is required, and
+    ``build_bvh``'s default route must take it.  Host seconds of the BVH
+    builders (icosphere s4 and s6 at max_leaf 4 and 64, the NumPy builder
+    at s4 only), of ``write_render_ppm`` at 1024 x 1024 (native against
+    Python, files byte-equal) and of an OBJ round trip on both loaders
+    (equal arrays)."""
+    import numpy as np
+
+    from ascendpathtracing_tpu_torch.accel import bvh as bvh_mod
+    from ascendpathtracing_tpu_torch.accel import meshes, native
+    from ascendpathtracing_tpu_torch.utils import io as io_mod
+
+    t0 = time.time()
+    fields = ("bmin", "bmax", "first", "count", "miss", "tri_order")
+    lib = native.build()  # raises NativeUnavailable: no silent NumPy
+    builds = {}
+    for sub in NATIVE_SUBDIVS:
+        v, f = meshes.icosphere(subdivisions=sub)
+        v = np.asarray(v, np.float32)
+        for max_leaf in (4, 64):
+            key = f"s{sub}_max_leaf{max_leaf}"
+            auto = bvh_mod.build_bvh(v, f, max_leaf=max_leaf)
+            nat_s, nat = host_s(lambda: native.build_bvh_native(v, f, max_leaf=max_leaf))
+            # the NumPy builder's tables differ (tri_order_differs below)
+            require(all(np.array_equal(getattr(auto, k), getattr(nat, k)) for k in fields),
+                    f"build_bvh(backend='auto') did not take the native builder at {key}")
+            row = {"triangles": int(f.shape[0]), "nodes": int(nat.n_nodes), "native_s": nat_s}
+            if sub == NATIVE_SUBDIVS[0]:
+                np_s, ref = host_s(lambda: bvh_mod.build_bvh_numpy(v, f, max_leaf=max_leaf),
+                                   runs=1)
+                row.update(numpy_s=np_s, numpy_nodes=int(ref.n_nodes),
+                           tri_order_differs=int((ref.tri_order != nat.tri_order).sum()))
+            builds[key] = row
+    rng = np.random.RandomState(0)
+    colors = (rng.rand(FULL_W * FULL_W * 4, 3) * 1.4 - 0.2).astype(np.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {m: str(Path(tmp) / f"{m}.ppm") for m in ("always", "never")}
+        ppm = {}
+        for mode, path in paths.items():
+            ppm[f"{'native' if mode == 'always' else 'python'}_s"], img = host_s(
+                lambda: io_mod.write_render_ppm(colors, FULL_W, FULL_W, 1, path, native=mode),
+                runs=1 if mode == "never" else 3)
+            ppm[mode] = img
+        same = Path(paths["always"]).read_bytes() == Path(paths["never"]).read_bytes()
+        require(same and np.array_equal(ppm.pop("always"), ppm.pop("never")),
+                "write_render_ppm 1024x1024: the native and Python files differ")
+        v, f = meshes.icosphere(subdivisions=NATIVE_SUBDIVS[0])
+        obj = Path(tmp) / "s4.obj"
+        meshes.save_obj(obj, v, f)
+        obj_s = {}
+        loaded = {}
+        for mode in ("always", "never"):
+            obj_s[f"{'native' if mode == 'always' else 'python'}_s"], loaded[mode] = host_s(
+                lambda: meshes.load_obj(obj, native=mode))
+        require(all(np.array_equal(a, b) for a, b in zip(loaded["always"], loaded["never"]))
+                and np.array_equal(loaded["always"][1], f),
+                "OBJ round trip: the native and Python loaders differ")
+    phase("native_host", gpu=gpu, library=str(lib.relative_to(REPO)),
+          build_bvh_auto_took_native=True, bvh_builds=builds,
+          write_render_ppm_1024x1024={**ppm, "byte_equal": True},
+          obj_round_trip_s4={**obj_s, "equal": True, "vertices": int(v.shape[0])},
+          seconds=time.time() - t0)
+
+
+# One main-path step traced by utils/profiling.trace in a process of its
+# own; argv[1] is the trace's directory.
+TRACE_SCRIPT = r"""
+import sys
+import numpy as np, torch
+from ascendpathtracing_tpu_torch import bench, camera, convert, scenes
+from ascendpathtracing_tpu_torch.utils import profiling
+rays = camera.generate_rays_numpy(1024, 1024, 1, seed=0).astype(np.float32)
+rp = convert.rays_planes_from_numpy(rays, device=torch.device("cuda"))
+step = bench.make_step("kernel", False, rp, scenes.cornell8(), bounces=8)
+step()
+torch.cuda.synchronize()
+with profiling.trace(sys.argv[1]):
+    step()
+"""
+
+
+def profiling_phase(dev, gpu) -> None:
+    """Phase ``profiling``: ``utils/profiling.benchmark_fit`` of the main
+    path's step (RenderReference fwd + replay bwd, 4,194,304 cornell8
+    rays x 8 bounces) beside the CUDA-event median of the same step in
+    this run (fit_ok required), and ``trace(dir)`` around one step in a
+    process of its own (TRACE_SCRIPT): the Chrome trace must name the
+    render_ref.cu kernels of the step.  The device kernels of the same
+    trace taken in this process, after the run's other profiler
+    sessions, are reported beside it."""
+    import numpy as np
+    import torch
+
+    from ascendpathtracing_tpu_torch import bench, camera, convert, scenes
+    from ascendpathtracing_tpu_torch.utils import profiling
+
+    t0 = time.time()
+    scene = scenes.cornell8()
+    rp = convert.rays_planes_from_numpy(
+        camera.generate_rays_numpy(FULL_W, FULL_W, 1, seed=0).astype(np.float32), device=dev)
+    step = bench.make_step("kernel", False, rp, scene, bounces=BOUNCES)
+    events, _ = bench.time_steps(step, iters=20, warmup=2)
+    # batches of 32 and 96 steps (~27 and ~80 ms), each pair doubling on
+    # disagreement, up to six rounds: a few ms of host jitter a batch
+    # stays inside the 5% agreement
+    fit = profiling.benchmark_fit(lambda i: step(), iters=32, max_rounds=6)
+    event_ms = statistics.median(events)
+    require(fit["fit_ok"], f"benchmark_fit of the main path's step: {fit}")
+
+    def traced_kernels(trace_dir):
+        """{kernel: ms} of the Chrome trace in ``trace_dir``, and its bytes."""
+        trace_file = Path(trace_dir) / "trace.json"
+        kernels = {}
+        for e in json.loads(trace_file.read_text())["traceEvents"]:
+            if e.get("cat") == "kernel":
+                # "void (anonymous namespace)::render_ref_fwd_kernel<float, true, 8>(...)"
+                name = (e["name"].replace("(anonymous namespace)::", "").removeprefix("void ")
+                        .split("(")[0])
+                kernels[name] = kernels.get(name, 0.0) + e.get("dur", 0.0) / 1e3
+        return kernels, trace_file.stat().st_size
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # in this process, after the run's other profiler sessions (reported)
+        with profiling.trace(str(Path(tmp) / "here")):
+            step()
+        here, _ = traced_kernels(Path(tmp) / "here")
+        # in a process of its own, as a user traces a step
+        run_in_tree(REPO, TRACE_SCRIPT, [str(Path(tmp) / "own")], 600)
+        kernels, trace_bytes = traced_kernels(Path(tmp) / "own")
+    ref = {k: v for k, v in kernels.items() if k.startswith(("render_ref_", "reduce_partials"))}
+    require(any("render_ref_fwd_kernel" in k for k in ref)
+            and any("render_ref_bwd_replay_kernel" in k for k in ref),
+            f"trace: no render_ref.cu kernels among {sorted(kernels)}")
+    phase("profiling", gpu=gpu, rays=rp.shape[1], bounces=BOUNCES,
+          benchmark_fit={**{k: v for k, v in fit.items() if k != "fenced_batches"},
+                         "step_ms": fit["step_s"] * 1e3,
+                         "fenced_batches": [[k, s] for k, s in fit["fenced_batches"]]},
+          event_ms_median=event_ms, event_ms=events,
+          fit_over_events=fit["step_s"] * 1e3 / event_ms,
+          trace={"bytes": trace_bytes, "render_ref_kernels_ms": ref,
+                 "device_kernels": len(kernels),
+                 "device_kernels_traced_in_this_process": len(here)},
+          seconds=time.time() - t0)
+
+
+def roofline_phase(dev, gpu, rows) -> dict:
+    """Phase ``roofline_counts``: ``utils/roofline.count_ops`` of the plain
+    twins of three kernels at the kernels' inputs on the card:
+    ``_render_ref_fwd_idx_kernel`` and ``_render_ref_bwd_replay_kernel``
+    (4,194,304 cornell8 camera rays x 8 bounces; the replay on the
+    forward's winners with a cotangent of ones) and ``render_pt.cu``
+    (cornell8 at 1024 x 1024 x 4 samples, ``pt_path_stats``' size).
+    ``other`` must be empty.  Each count's bound (its element ops over
+    FP32_OPS) beside the hand model's bound of the kernels line and the
+    kernel's ms at the same inputs, timed here -> {kernel: numbers}."""
+    import numpy as np
+    import torch
+
+    from ascendpathtracing_tpu_torch import bench, camera, convert, scenes
+    from ascendpathtracing_tpu_torch.ops import pt_kernels as ptk
+    from ascendpathtracing_tpu_torch.ops import render_kernels as rk
+    from ascendpathtracing_tpu_torch.utils import roofline
+
+    t0 = time.time()
+    scene = scenes.cornell8()
+    kw = dict(light_index=scene.light_index, bounces=BOUNCES)
+    rp = convert.rays_planes_from_numpy(
+        camera.generate_rays_numpy(FULL_W, FULL_W, 1, seed=0).astype(np.float32), device=dev)
+    sp = convert.scene_planes_from_numpy(scene.soa10(), device=dev)
+    _, idx = rk.render_reference_planes_with_idx(rp, sp, **kw)
+    g = torch.ones((3, rp.shape[1]), device=dev)
+    planes = convert.scene_planes_from_numpy(scene.soa10(np.float64), device=dev,
+                                             dtype=torch.float32)
+    mats = torch.tensor(scene.material, dtype=torch.int32, device=dev)
+    pt_kw = dict(width=FULL_W, height=FULL_W, spp4=4, bounces=BOUNCES, rr_depth=PT_RR)
+    cases = {
+        "fwd_idx": (lambda: rk.render_reference_planes_with_idx_plain(rp, sp, **kw),
+                    lambda: rk.render_reference_planes_with_idx(rp, sp, **kw),
+                    f"{FULL_W}x{FULL_W}x4 rays x {BOUNCES} bounces"),
+        "bwd_replay": (lambda: rk.render_ref_bwd_replay_plain(idx, sp, g, **kw),
+                       lambda: rk.render_ref_bwd_replay(idx, sp, g, **kw),
+                       f"{FULL_W}x{FULL_W}x4 rays x {BOUNCES} bounces"),
+        "pt": (lambda: ptk.render_pt_plain(planes, mats, **pt_kw),
+               lambda: ptk.render_pt(planes, mats, **pt_kw),
+               f"{FULL_W}x{FULL_W}x4 samples, {BOUNCES} bounces, RR from {PT_RR}"),
+    }
+    hand = {r["name"]: r for r in rows}
+    out = {}
+    for name, (twin, kernel, size) in cases.items():
+        torch.cuda.synchronize()
+        c0 = time.time()
+        counts = roofline.count_ops(twin)
+        torch.cuda.synchronize()
+        count_s = time.time() - c0
+        require(not counts.other, f"count_ops of {name}'s twin: unclassified {counts.other}")
+        kernel_ms = statistics.median(bench.time_steps(kernel, iters=10, warmup=2)[0])
+        ops_ms = counts.vpu_slots / FP32_OPS * 1e3
+        out[name] = {
+            "size": size, "counts": counts.as_dict(), "count_seconds": count_s,
+            "bound_count_ms": ops_ms, "kernel_ms": kernel_ms,
+            "kernel_over_count_bound": kernel_ms / ops_ms,
+            "hand_bound_ops_ms": hand[name]["bound_ops_ms"],
+            "hand_bound_at": "the kernels line's inputs" + (
+                " (64 samples: x16 this size)" if name == "pt" else "")}
+        hand[name]["bound_count_ops_ms"] = ops_ms * (PT_SPP4 // 4 if name == "pt" else 1)
+        hand[name]["bound_count_from"] = (
+            f"utils/roofline.count_ops of the twin at {size}, element ops (flops + hard + "
+            "vops) over 67 TFLOP/s" + (f", x {PT_SPP4 // 4} for 64 samples" if name == "pt"
+                                       else ""))
+    del idx, g, rp
+    torch.cuda.empty_cache()
+    phase("roofline_counts", gpu=gpu, **out, seconds=time.time() - t0,
+          tolerance="other empty")
+    return out
 
 
 # ---- the sharded port (parallel/): ranks spawned on this card ----------
@@ -1431,7 +1682,7 @@ def main(argv=None) -> int:
     from ascendpathtracing_tpu_torch import camera, oracle, scenes
     from ascendpathtracing_tpu_torch.accel import meshes
     from ascendpathtracing_tpu_torch.accel import bvh as bvh_mod
-    from ascendpathtracing_tpu_torch.accel import tri
+    from ascendpathtracing_tpu_torch.accel import native, tri
     from ascendpathtracing_tpu_torch.diff import camera as dcam
     from ascendpathtracing_tpu_torch.diff import camera_fused as dcf
     from ascendpathtracing_tpu_torch.diff import mesh as dmesh
@@ -1473,7 +1724,11 @@ def main(argv=None) -> int:
              "build\nbuild.build_all(sys.argv[1:])", *ab_names], cwd=parent,
             env={**os.environ, "PYTHONPATH": str(parent)}, stdout=subprocess.DEVNULL,
             stderr=subprocess.PIPE, text=True)
-    build.build_all(libs)
+    # the native host library (g++) builds beside the CUDA libraries
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        native_build = pool.submit(native.build)
+        build.build_all(libs)
+        native_lib = native_build.result()  # NativeUnavailable fails the run
     kernel_mods = (rk, ptk, wk, mpt, segk, bk)
     for mod in kernel_mods:
         mod.load_library()
@@ -1557,6 +1812,7 @@ def main(argv=None) -> int:
           same_sass_as_parent=sass_vs_parent or "not measured: no --parent",
           mesh_pt_blocks_per_sm=mesh_blocks,
           mesh_pt_queue_capacity=mpt.queue_overflows()["capacity"],
+          native_library=str(native_lib.relative_to(REPO)),
           parent=None if parent is None else str(parent), ab_kernels=ab_names,
           f64_spill_bytes={k: v for k, v in f64_spills.items() if v != (0, 0)})
     print(gpu, flush=True)
@@ -1586,6 +1842,9 @@ def main(argv=None) -> int:
     phase("card_only_tests", command=" ".join(["python3", *cmd[1:]]), passed=passed,
           failed=tally["failures"] + tally["errors"], skipped=tally["skipped"],
           seconds=time.time() - t0, slowest=slowest)
+
+    # ---- 1c. the native host library: required, and build_bvh's default -
+    native_host_phase(gpu)
 
     # ---- 2. fwd f32, 1 bounce, 64x64x1: bitwise vs oracle and plain ----
     r64, rp = rays_planes(64)
@@ -2124,6 +2383,14 @@ def main(argv=None) -> int:
     del img_rec, queried, live, zero, per_path
 
     del planes, mats, rays4m
+    torch.cuda.empty_cache()
+
+    # ---- 13c-13d. profiling and op counts (utils/profiling,
+    # utils/roofline), while the card and host are as quiet as at phase 7:
+    # at the end of the run the main step's events read ~25% slower than
+    # at phase 7 and benchmark_fit's rounds spread past its 5%.
+    profiling_phase(dev, gpu)
+    roofline_phase(dev, gpu, rows)
     torch.cuda.empty_cache()
 
     # ---- 14-18. the mesh path (csrc/wbvh.cu, csrc/mesh_pt.cu) ----------
@@ -3025,8 +3292,20 @@ def main(argv=None) -> int:
                                        pallas_kernel="lockstep")
     b_tabs = dev_lock["pallas_bvh"]
     max_leaf = dev_lock["static"].max_leaf
-    tri_order = torch.tensor(bvh_mod.build_bvh(v_s4, ms.faces, max_leaf=max_leaf).tri_order,
-                             device=dev).long()
+
+    def lockstep_tables(tree):  # models/mesh's lockstep tables of a FlatBVH
+        planes = tuple(tuple(c[tree.tri_order] for c in t)
+                       for t in tri.triangle_planes(v_s4, ms.faces, dtype=np.float32))
+        return bk.pack_bvh(tree, planes, dev)
+
+    # The default route's tables are the native builder's; bvh.cu is also
+    # timed on the NumPy builder's tree of the same mesh and leaf size.
+    nat_tree = native.build_bvh_native(v_s4, ms.faces, max_leaf=max_leaf)
+    require(all(torch.equal(a, b) for a, b in zip(lockstep_tables(nat_tree), b_tabs)),
+            "bvh: the lockstep tables are not the native builder's")
+    np_tree = bvh_mod.build_bvh(v_s4, ms.faces, max_leaf=max_leaf, backend="numpy")
+    np_tabs = lockstep_tables(np_tree)
+    tri_order = torch.tensor(nat_tree.tri_order, device=dev).long()
     rp_cam = convert.rays_planes_from_numpy(rays_np, device=dev)
     grabbed = []
     mesh_hit = mm._mesh_hit
@@ -3075,6 +3354,18 @@ def main(argv=None) -> int:
             iters=1, warmup=0)
         require(torch.equal(tk[:BVH_SLICE], tp) and torch.equal(hk[:BVH_SLICE], hp),
                 f"bvh {name}: kernel and twin differ on the first {BVH_SLICE} rays")
+        tn, hn = bk.intersect_bvh(rp, *np_tabs, max_leaf=max_leaf)
+        walk_n = torch.zeros((2, BVH_SLICE), dtype=torch.int64, device=dev)
+        tpn, hpn = bk.intersect_bvh_plain(sl, *np_tabs, max_leaf=max_leaf, counts=walk_n)
+        require(torch.equal(tn[:BVH_SLICE], tpn) and torch.equal(hn[:BVH_SLICE], hpn),
+                f"bvh {name}, NumPy tables: kernel and twin differ on the first "
+                f"{BVH_SLICE} rays")
+        numpy_tables = {
+            "kernel_ms": med_ms(lambda: bk.intersect_bvh(rp, *np_tabs, max_leaf=max_leaf)),
+            "walk_slice": {"nodes": int(walk_n[0].sum()), "triangles": int(walk_n[1].sum()),
+                           "nodes_max": int(walk_n[0].max())},
+            "same_t_as_native_share": float((tn == tk).float().mean())}
+        del tn, hn, tpn, hpn, walk_n
         bt, bf = (bt_cam, bf_cam) if name == "camera" else brute_first_hit(rp, v_s4, ms.faces)
         wk.queue_overflows()
         tw, sw = wk.intersect_chunks(rp, m_cb, m_sb, m_t24, **m_kw)
@@ -3096,13 +3387,16 @@ def main(argv=None) -> int:
             "wbvh_queue_overflows_per_launch": wbvh_overflows,
             "twin_ms_slice": twin_times[0],
             "walk_slice": {"nodes": int(walk_b[0].sum()), "triangles": int(walk_b[1].sum()),
-                           "nodes_max": int(walk_b[0].max())}}
+                           "nodes_max": int(walk_b[0].max())},
+            "numpy_tables": numpy_tables}
         del tk, hk, tp, hp, tw, sw, bt, bf, walk_b
     n_b = rp_cam.shape[1]
     del rp, rp_cam, rp_bounce1, bt_cam, bf_cam
     torch.cuda.empty_cache()
     phase("bvh_kernel_vs_twin_and_brute", gpu=gpu, rays=n_b, slice=BVH_SLICE,
-          nodes=dev_lock["pallas_bvh"][0].shape[0], max_leaf=max_leaf,
+          nodes=dev_lock["pallas_bvh"][0].shape[0], max_leaf=max_leaf, builder="native",
+          numpy_tree_nodes=np_tree.n_nodes,
+          tri_order_differs=int((np_tree.tri_order != nat_tree.tri_order).sum()),
           tolerance="bitwise vs twin on the slice; vs brute and wbvh: same hit set; same "
           "face and t within 1e-3 on >= 99.99% of hit rays", **bvh_sets)
 
@@ -3290,6 +3584,8 @@ def main(argv=None) -> int:
         "run": RUN_OF["bvh"], "launches": launches[RUN_OF["bvh"]]["bvh"],
         "max_abs_err": 0.0, "ms": bvh_sets["bounce1"]["kernel_ms"],
         "ms_camera_rays": bvh_sets["camera"]["kernel_ms"],
+        "ms_numpy_tables": {k: bvh_sets[k]["numpy_tables"]["kernel_ms"]
+                            for k in ("bounce1", "camera")},
         "plain_ms": bvh_sets["bounce1"]["twin_ms_slice"], "plain_rays": BVH_SLICE,
         **bound(n_b * (24 + 8) + 36 * (n_nodes + n_tris),
                 (walk_b1["nodes"] * BOX_OPS + walk_b1["triangles"] * TRI_OPS) * n_b / BVH_SLICE),

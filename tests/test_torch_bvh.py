@@ -93,14 +93,24 @@ def test_bvh_structure_valid(kind, sub):
 
 
 def test_build_bvh_backends():
+    """"numpy" takes the NumPy builder; "native" and "auto" the port's C++
+    builder (accel/native.py), as the JAX package's build_bvh does where
+    its library builds; an unknown backend raises ValueError."""
+    from ascendpathtracing_tpu_torch.accel import native
+
     v, f = meshes.icosphere(subdivisions=1)
-    auto = bvh_mod.build_bvh(v, f, max_leaf=8)
+    numpy = bvh_mod.build_bvh(v, f, max_leaf=8, backend="numpy")
     ref = bvh_mod.build_bvh_numpy(v, f, max_leaf=8)
-    assert all(np.array_equal(getattr(auto, k), getattr(ref, k)) for k in FIELDS)
-    with pytest.raises(NotImplementedError, match="C\\+\\+ BVH builder"):
-        bvh_mod.build_bvh(v, f, backend="native")
+    assert all(np.array_equal(getattr(numpy, k), getattr(ref, k)) for k in FIELDS)
     with pytest.raises(ValueError):
         bvh_mod.build_bvh(v, f, backend="gpu")
+    if not native.is_available():
+        pytest.skip("native toolchain unavailable")
+    want = native.build_bvh_native(v, f, max_leaf=8)
+    for backend in ("native", "auto"):
+        got = bvh_mod.build_bvh(v, f, max_leaf=8, backend=backend)
+        assert type(got) is bvh_mod.FlatBVH and got.max_leaf == 8
+        assert all(np.array_equal(getattr(got, k), getattr(want, k)) for k in FIELDS), backend
 
 
 def test_flat_bvh_from_jax_carries_the_native_tables():

@@ -1403,3 +1403,52 @@ def test_sharded_train_step_two_ranks_on_the_card(cuda, two_rank_world):
         for k in new:
             torch.testing.assert_close(new[k], new1[k].cpu(), rtol=1e-6, atol=1e-7)
             assert torch.equal(new[k], res[0][1][k])
+
+
+# ------------------------------------------- profiling and op counts ----
+@pytest.mark.cuda
+def test_benchmark_fit_matches_cuda_events(cuda):
+    """utils/profiling.benchmark_fit of a step that sleeps on the card
+    (torch.cuda._sleep, ~2 ms) within 10% of the step's time by CUDA
+    events (20 steps between two events)."""
+    from ascendpathtracing_tpu_torch.utils import profiling
+
+    x = torch.ones(8, device=cuda)
+
+    def step(i=0):
+        torch.cuda._sleep(2_000_000)
+        return x
+
+    step()
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(20):
+        step()
+    e1.record()
+    e1.synchronize()
+    event_s = e0.elapsed_time(e1) / 20 / 1e3
+    fit = profiling.benchmark_fit(step)
+    assert fit["fit_ok"], fit
+    assert abs(fit["step_s"] - event_s) <= 0.1 * event_s, (fit["step_s"], event_s)
+    assert profiling.fetch_rtt() > 0.0
+    assert profiling.benchmark(step, iters=4)["mean_s"] > 0.5 * event_s
+
+
+@pytest.mark.cuda
+def test_count_ops_of_the_reference_fwd_bwd_equal_on_card_and_cpu(cuda):
+    """utils/roofline.count_ops of the plain reference step (forward and
+    autograd's backward, which runs on another thread on a card) counts
+    the same ops on the card as on the CPU (sqrt_rn as one sqrt on
+    both)."""
+    from ascendpathtracing_tpu_torch import bench
+    from ascendpathtracing_tpu_torch.utils import roofline
+
+    rays = camera.generate_rays_numpy(32, 32, 1, seed=0).astype(np.float32)
+    counts = {}
+    for device in (cuda, torch.device("cpu")):
+        step = bench.make_step("plain", False, convert.rays_planes_from_numpy(rays, device=device),
+                               scenes.cornell8(), bounces=8)
+        counts[device.type] = roofline.count_ops(step).as_dict()
+    assert counts["cuda"] == counts["cpu"]
+    assert not counts["cuda"]["other"] and counts["cuda"]["hard_by_prim"]["sqrt"] > 0

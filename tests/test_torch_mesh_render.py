@@ -4,12 +4,14 @@ first-hit query and ``render_pt_mesh_impl`` against the JAX versions with
 the same uniforms, the Morton sort before a kernel, and the CLI's mesh
 ``--renderer plain`` against the JAX CLI.
 
-The JAX package builds its BVH with its C++ builder where it loads, whose
-tables differ from the NumPy builder's; so BVH-mode results are compared
-over JAX's own tables carried by ``convert.mesh_dev_from_jax``, and the
-tables themselves with JAX's ``build_bvh`` pointed at its NumPy builder
-inside the test.  Pallas kernels run in interpret mode."""
+Both packages build their BVH with their C++ builder where its library
+loads, whose tables differ from the NumPy builder's; the tables are
+compared with both packages' defaults, and once more with both pointed
+at their NumPy builders.  BVH-mode results are compared over JAX's own
+tables carried by ``convert.mesh_dev_from_jax``.  Pallas kernels run in
+interpret mode."""
 
+import functools
 import json
 
 import jax
@@ -84,10 +86,17 @@ def _assert_same(got, ref, key=""):
         np.testing.assert_array_equal(a, b, err_msg=key)
 
 
+@pytest.mark.parametrize("builder", ["default", "numpy"])
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("mode", list(MODES) + ["chunks_diff"])
-def test_tables_equal_jax(numpy_builder, mode, dtype):
-    """Every table of mesh_scene_to_device equals JAX's, key for key."""
+def test_tables_equal_jax(request, monkeypatch, mode, dtype, builder):
+    """Every table of mesh_scene_to_device equals JAX's, key for key: with
+    each package's default BVH builder (the C++ one where it builds), and
+    with both on their NumPy builders (the port's ``backend="numpy"``)."""
+    if builder == "numpy":
+        request.getfixturevalue("numpy_builder")
+        monkeypatch.setattr(mm.bvh_mod, "build_bvh", functools.partial(
+            mm.bvh_mod.build_bvh, backend="numpy"))
     kw = dict(MODES.get(mode, MODES["chunks"]), diff=mode == "chunks_diff")
     got = mm.mesh_scene_to_device(_mixed_scene(mm), dtype=getattr(torch, dtype), **kw)
     ref = jax_mesh.mesh_scene_to_device(_mixed_scene(jax_mesh), dtype=jnp.dtype(dtype), **kw)

@@ -115,8 +115,9 @@ def test_importing_the_port_loads_no_jax():
     backward, a CPU bounce-loop mesh render with its autograd backward
     (diff/mesh), a CPU camera-gradient render (diff/camera_fused), CPU
     renders of both wavefronts, and the CLI's train (with --resume),
-    oracle and post-processed render on the CPU load no jax and no module
-    of the JAX package."""
+    oracle and post-processed render on the CPU, the native host library
+    (a BVH build, an OBJ round trip), a profiling trace around a fit and
+    an op count load no jax and no module of the JAX package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import ascendpathtracing_tpu_torch as p\n"
@@ -164,6 +165,16 @@ def test_importing_the_port_loads_no_jax():
         "    assert cli.main(['render', '--backend', 'cpu', *small, '--denoise', '1',\n"
         "                     '--tonemap', 'aces', '--clamp', '4', '--aov', 'gbuffer',\n"
         "                     '--check-finite', '--out', d]) == 0\n"
+        "from ascendpathtracing_tpu_torch.accel import bvh as pb, meshes as pm, native as pn\n"
+        "from ascendpathtracing_tpu_torch.utils import profiling as pp, roofline as pr\n"
+        "v, f = pm.icosphere(subdivisions=2)\n"
+        "assert pb.build_bvh(v, f).n_nodes > 0 and pn.is_available()\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    pm.save_obj(d + '/m.obj', v, f)\n"
+        "    assert (pm.load_obj(d + '/m.obj')[1] == f).all()\n"
+        "    with pp.trace(d + '/t'):\n"
+        "        pp.benchmark_fit(lambda i: torch.ones(8) * i, iters=2, max_rounds=1)\n"
+        "assert not pr.count_ops(lambda: rays * 2.0 + 1.0).other\n"
         "assert 'jax' not in sys.modules, sorted(k for k in sys.modules if 'jax' in k)\n"
         "ref = sorted(k for k in sys.modules if k == 'ascendpathtracing_tpu'\n"
         "             or k.startswith('ascendpathtracing_tpu.'))\n"
@@ -175,7 +186,8 @@ def test_importing_the_port_loads_no_jax():
         "       'accel.bvh', 'ops.bvh_kernels', 'ops.sort', 'diff.mesh', 'diff.camera',\n"
         "       'diff.fd', 'diff.camera_fused', 'post', 'utils.debug',\n"
         "       'utils.checkpoint', 'parallel.sharded', 'models.wavefront', 'parallel.mesh',\n"
-        "       'parallel.distributed', 'parallel.assembly', 'parallel.pipeline', 'graft_entry'}\n"
+        "       'parallel.distributed', 'parallel.assembly', 'parallel.pipeline', 'graft_entry',\n"
+        "       'accel.native', 'utils.profiling', 'utils.roofline'}\n"
         "assert {p.__name__ + '.' + m for m in new} <= set(mods), mods\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -184,7 +196,7 @@ def test_importing_the_port_loads_no_jax():
         text=True, timeout=300, check=False,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 44
+    assert int(out.stdout.strip().splitlines()[-1]) >= 47
 
 
 def test_backend_cuda_exits_2_without_cuda(no_cuda, tmp_path, capsys):
