@@ -311,8 +311,10 @@ def cmd_render(args) -> int:
             return 1
 
     io.write_color_bin(colors, f"{args.out}/color.bin")
-    img = io.decode_color(colors, w, h, s)
-    io.write_ppm(img, f"{args.out}/color.ppm")
+    # the native (C++) decode + encode where it builds, as the JAX CLI; in
+    # float32, which the native codec reads, so the file and img agree
+    img = io.write_render_ppm(colors.astype(np.float32, copy=False), w, h, s,
+                              f"{args.out}/color.ppm")
     # the first-hit G-buffer of sphere scenes: AOVs and denoiser guides
     want_gbuf = (args.aov in ("normal", "albedo", "gbuffer")
                  or args.denoise > 0) and mesh_scene is None

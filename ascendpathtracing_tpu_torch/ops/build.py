@@ -35,7 +35,7 @@ NVCC_FLAGS = (
 )
 
 #: Every library of ``csrc/`` (one ``.cu`` each).
-LIBRARIES = ("render_ref", "render_pt", "wbvh", "mesh_pt", "segsum", "bvh")
+LIBRARIES = ("render_ref", "render_pt", "wbvh", "mesh_pt", "segsum", "bvh", "ceiling")
 
 _LOCK = threading.Lock()
 _LOADED: dict[str, ctypes.CDLL] = {}

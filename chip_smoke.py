@@ -3,7 +3,7 @@ one CUDA card.
 
     python3 chip_smoke.py [--parent DIR]
 
-Builds the port's CUDA kernels from the sources in this checkout (all six
+Builds the port's CUDA kernels from the sources in this checkout (all seven
 libraries at once), checks each against its plain PyTorch twin (and the
 NumPy oracle) on the card, drives the main path once through the user
 entry points (the differentiable render at 4,194,304 rays x 8 bounces of
@@ -55,13 +55,24 @@ launch's).  After the fused path tracer's phases come ``profiling``
 its CUDA-event median, and a ``trace`` that must name the render_ref.cu
 kernels) and ``roofline_counts`` (13d: ``utils/roofline.count_ops`` of
 the twins of fwd_idx, the replay and render_pt.cu at the kernels'
-inputs, their bounds beside the hand model's and the kernels' ms).  The
+inputs, their bounds beside the hand model's and the kernels' ms, and
+``utils/roofline.bound`` of each count at the measured ceilings).  The
 native host library (``accel/native``,
 g++) builds beside the CUDA libraries and is required; phase
 ``native_host`` (1c) checks that ``build_bvh``'s default takes it and
 times it against the NumPy builder, and the PPM codec and OBJ loader
 against the Python ones; phase 23 times bvh.cu on the NumPy builder's
-tables too.  Right after
+tables too.  Phase ``ceilings`` (1d, right after ``native_host``) holds
+the roofline probes of csrc/ceiling.cu (the op chains, the 256 MB copy
+and read that replace benchmarks/roofline.py's Pallas probes) against
+their twins on the JAX probes' inputs and on seeded random inputs at
+the shapes it times (every chain at the elements that fill the card, the
+256 MB copy bit for bit, the read within float32 summation error), runs
+``utils/roofline.measure_ceilings`` (every row's ``fit_ok``), counts the
+SASS of one chain step per op and reads the SM clock; ``ceilings_late``,
+before the last lines, times the fma chain and the copy again beside
+that phase's reading of them.
+Right after
 the build it runs the card-only tests (tests/test_torch_cuda.py) in a
 pytest subprocess without the repository's conftest.  It proves
 through the launch counters, reset
@@ -90,7 +101,12 @@ Before the last line it prints the card's name and power limit
 (nvidia-smi) and one JSON object with a row per kernel (its ``launches``
 are counted in the run its ``run`` field names; ``bound_ms`` is the
 larger of its bytes over 3.35 TB/s and its operations over 67 TFLOP/s,
-reckoned from this run's inputs); the last line is
+reckoned from this run's inputs; ``bound_measured_ms`` the same bytes
+and operations over the copy bandwidth and ``r_issue`` that phase
+``ceilings`` measured: neither is a plain peak, since ``r_issue`` counts
+JAX's nominal slots, above the card's instruction rate (the model's
+``r_insn_ginsns``), and the copy row's measured bound is its own fit time
+by construction); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device, or run alone (a directory that holds this script
 and not the package beside it), it prints no result and exits 1.
@@ -102,6 +118,7 @@ import contextlib
 import hashlib
 import io
 import json
+import math
 import os
 import re
 import statistics
@@ -272,6 +289,9 @@ SOURCE = {  # launch counter -> its CUDA source
     "mesh_pt": f"{CSRC}/mesh_pt.cu",
     "segsum": f"{CSRC}/segsum.cu",
     "bvh": f"{CSRC}/bvh.cu",
+    "chain": f"{CSRC}/ceiling.cu",
+    "copy": f"{CSRC}/ceiling.cu",
+    "read": f"{CSRC}/ceiling.cu",
 }
 REPLACES = {  # launch counter -> the TPU kernel it replaces
     "fwd": f"{PALLAS}:41",
@@ -285,6 +305,9 @@ REPLACES = {  # launch counter -> the TPU kernel it replaces
     "segsum": "ascendpathtracing_tpu/ops/pallas_histogram.py:127, "
               "ascendpathtracing_tpu/ops/pallas_histogram.py:46",
     "bvh": "ascendpathtracing_tpu/ops/pallas_bvh.py:39",
+    "chain": "benchmarks/roofline.py:76",
+    "copy": "benchmarks/roofline.py:185",
+    "read": "benchmarks/roofline.py:201",
 }
 # The user-facing runs, each counted from zero, and the launches each
 # must make.  ``train_step`` is the main path (fwd + replay bwd); the
@@ -508,23 +531,22 @@ def sass_target(text: str, labels: dict):
     return int(m.group(1), 16) if m.group(1).startswith("0x") else labels.get(m.group(1))
 
 
-def sass_slow_stubs(texts) -> set:
-    """Indices of the instructions that call a slow path (sqrt's,
-    division's) and return from it: from the conditional branch that
-    guards the call (not included) to the unconditional branch after it
-    (included).  A fast-path trip does not issue them."""
+def sass_skipped_calls(insns, labels) -> set:
+    """Indices of the instructions that sqrt's and division's fast path
+    jumps over: for each CALL of a slow path, from the nearest conditional
+    branch before it whose target lies after it (the branch not
+    included) to that target (not included)."""
+    index = {pc: i for i, (pc, _) in enumerate(insns)}
     out = set()
-    for i, t in enumerate(texts):
+    for i, (pc, t) in enumerate(insns):
         if not sass_opcode(t).startswith("CALL"):
             continue
-        j = i
-        while j > 0 and not (texts[j - 1].startswith("@") and sass_opcode(texts[j - 1]) == "BRA"):
-            j -= 1
-        k = i
-        while k + 1 < len(texts) and not (sass_opcode(texts[k]) == "BRA"
-                                          and not texts[k].startswith("@")):
-            k += 1
-        out.update(range(j, k + 1))
+        for j in range(i - 1, -1, -1):
+            tj = insns[j][1]
+            to = sass_target(tj, labels) if tj.startswith("@") else None
+            if sass_opcode(tj) == "BRA" and to is not None and to > pc and to in index:
+                out.update(range(j + 1, index[to]))
+                break
     return out
 
 
@@ -536,11 +558,11 @@ def sass_bounce_loop(insns, labels, spheres: int) -> dict:
     its trips, a nested loop with k ``MUFU.RSQ`` (k spheres unrolled)
     running as many trips of the ``spheres`` as it can (largest k first).
     The calls of the slow paths of sqrt and division and the
-    instructions around them (``sass_slow_stubs``) are not counted, nor
+    instructions around them (``sass_skipped_calls``) are not counted, nor
     the called code, which lies outside the loop."""
     loops = sorted({(to, pc) for pc, t in insns
                     if (to := sass_target(t, labels)) is not None and to <= pc})
-    stubs = sass_slow_stubs([t for _, t in insns])
+    stubs = sass_skipped_calls(insns, labels)
     ops = [(pc, sass_opcode(t)) for i, (pc, t) in enumerate(insns) if i not in stubs]
 
     def body(lo, hi):
@@ -661,13 +683,6 @@ def ref_sass_report(lib: Path, n_rays: int, bounces: int, spheres: int, clock_mh
     return out
 
 
-def max_sm_clock_mhz() -> float:
-    """The card's highest SM clock (nvidia-smi clocks.max.sm), in MHz."""
-    return float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
-
-
 def kernel_sources(root: Path, name: str) -> dict:
     """{file name: bytes} of csrc/<name>.cu in the tree at ``root`` and
     of every csrc header it includes, directly or not."""
@@ -703,11 +718,12 @@ def run_in_tree(root: Path, code: str, args, timeout: int) -> str:
 
 def bound(nbytes, ops) -> dict:
     """The least time the card could take: the larger of the bytes over
-    HBM_BPS and the operations over FP32_OPS, each also given."""
+    HBM_BPS and the operations over FP32_OPS, each also given, and the
+    bytes and operations themselves."""
     b_ms, o_ms = nbytes / HBM_BPS * 1e3, ops / FP32_OPS * 1e3
     return ({"bound_ms": b_ms, "bound_by": "bytes"} if b_ms >= o_ms
             else {"bound_ms": o_ms, "bound_by": "operations"}) | {
-        "bound_bytes_ms": b_ms, "bound_ops_ms": o_ms}
+        "bound_bytes_ms": b_ms, "bound_ops_ms": o_ms, "bound_bytes": nbytes, "bound_ops": ops}
 
 
 def walk_ops(counts, n_rays, grid, roots=None) -> int:
@@ -1165,6 +1181,302 @@ def native_host_phase(gpu) -> None:
           seconds=time.time() - t0)
 
 
+# ---- the roofline ceiling probes (csrc/ceiling.cu, utils/roofline) ---
+CEIL_RETIME_LAUNCHES = 40  # fma chains queued while nvidia-smi reads the clock (~0.5 s)
+CEIL_SEED = 0  # the probes' random inputs: CEIL_SEED + the op's index, the copy/read's 7
+CEIL_SHAPE = (128, 8, 65536)  # the copy's and the read's input, 256 MB (roofline.py:182)
+
+
+def sm_clocks() -> dict:
+    """The first card's SM clock now and its highest (nvidia-smi), in
+    MHz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.splitlines()[0].split(",")
+    return {"clocks_sm_mhz": float(out[0]), "clocks_max_sm_mhz": float(out[1])}
+
+
+def chain_sass_report(lib: Path) -> dict:
+    """Per chain kernel of ceiling.cu (``cuobjdump -sass``): the SASS of
+    one chain step, i.e. the instructions of the rolled trip loop (the
+    back edge to the lowest address) over its STREAMS x UNROLL steps, with
+    and without the calls of sqrt's and division's slow paths and the
+    instructions around them (``sass_skipped_calls``, not issued on the
+    fast path), and the opcodes per step.  {"cuobjdump": "not found"}
+    without the tool."""
+    from ascendpathtracing_tpu_torch.ops import build
+    from ascendpathtracing_tpu_torch.ops import ceiling_kernels as ck
+
+    tool = Path(build.find_nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        return {"cuobjdump": "not found"}
+    funcs = sass_functions(subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                                          text=True, check=True, timeout=300).stdout)
+    steps = ck.STREAMS * ck.UNROLL
+    out = {}
+    for code, op in enumerate(ck.OPS):
+        fn = next((f for f in funcs if f"chain_kernelILi{code}E" in f), None)
+        if fn is None:
+            out[op] = {"function": None}
+            continue
+        insns, labels = funcs[fn]
+        back = [(to, pc) for pc, t in insns if (to := sass_target(t, labels)) is not None
+                and to <= pc]
+        if not back:
+            out[op] = {"function": fn, "loop": None}
+            continue
+        lo, hi = min(back, key=lambda lp: (lp[0], -lp[1]))
+        stubs = sass_skipped_calls(insns, labels)
+        loop = [(i, sass_opcode(t)) for i, (pc, t) in enumerate(insns) if lo <= pc <= hi]
+        fast = [o for i, o in loop if i not in stubs]
+        by_op = {}
+        for o in fast:
+            by_op[o] = by_op.get(o, 0) + 1
+        out[op] = {"function": fn, "loop_instructions": len(loop),
+                   "per_step": len(loop) / steps, "fast_path_per_step": len(fast) / steps,
+                   "opcodes_per_step": {o: n / steps for o, n in sorted(by_op.items())
+                                        if n >= steps / 4}}
+    return out
+
+
+def chain_random_input(op: str, n: int, dev, seed: int):
+    """The chain's input [34, n] (``chain_inputs``: row 32 c, row 33 d)
+    with its 32 streams drawn uniform in [1, 2) from ``seed`` on the card,
+    where sqrt's, div's and fma's fixed points are in reach."""
+    import torch
+
+    from ascendpathtracing_tpu_torch.ops import ceiling_kernels as ck
+
+    x = ck.chain_inputs(op, (n,), dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x[:ck.STREAMS] = 1.0 + torch.rand((ck.STREAMS, n), generator=g, device=dev)
+    return x
+
+
+def ceiling_big_input(dev):
+    """The copy's and the read's input: CEIL_SHAPE float32, standard
+    normal from seed CEIL_SEED + 7 on the card."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(CEIL_SEED + 7)
+    return torch.randn(CEIL_SHAPE, generator=g, device=dev)
+
+
+def events_ms(fn, iters=10) -> float:
+    """The median of ``iters`` launches of ``fn``, each between two CUDA
+    events, after two untimed ones."""
+    from ascendpathtracing_tpu_torch import bench
+
+    return statistics.median(bench.time_steps(fn, iters=iters, warmup=2)[0])
+
+
+def ceiling_point(fma_ms: float, copy_ms: float, x) -> dict:
+    """One reading of the clock-sensitive probes: the fma chain of ``x``
+    ([34, n], LOOP trips) and the copy of CEIL_SHAPE, with their rates and
+    the SM clock read while CEIL_RETIME_LAUNCHES fma chains of ``x`` run."""
+    import torch
+
+    from ascendpathtracing_tpu_torch.ops import ceiling_kernels as ck
+
+    for _ in range(CEIL_RETIME_LAUNCHES):
+        ck.chain("fma", x)
+    clocks = sm_clocks()  # read while the queued chains run
+    torch.cuda.synchronize()
+    n = x.shape[1]
+    return {"fma_chain_ms": fma_ms, "copy_ms": copy_ms,
+            "copy_gb_per_s": 2 * math.prod(CEIL_SHAPE) * 4 / (copy_ms * 1e-3) / 1e9,
+            "fma_chain_gflops": 2 * ck.STREAMS * ck.LOOP * ck.UNROLL * n / (fma_ms * 1e-3)
+            / 1e9, **clocks}
+
+
+def ceiling_retime(dev, n_fma: int) -> dict:
+    """The fma chain (phase ``ceilings``' input: ``n_fma`` elements,
+    LOOP trips) and the 256 MB copy timed again as that phase times them
+    (``events_ms``, medians of 5 and 10 launches): ``ceiling_point``."""
+    from ascendpathtracing_tpu_torch.ops import ceiling_kernels as ck
+
+    x = chain_random_input("fma", n_fma, dev, CEIL_SEED + ck.OPS.index("fma"))
+    big = ceiling_big_input(dev)
+    fma_ms = events_ms(lambda: ck.chain("fma", x), iters=5)
+    copy_ms = events_ms(lambda: ck.copy_scale(big))
+    return ceiling_point(fma_ms, copy_ms, x)
+
+
+def read_bound_check(out, x, adds: int, what: str) -> None:
+    """Requires the read ``out`` [8, 128] of ``x`` within float32
+    summation error of the float64 sum: ``adds`` x 2^-24 x the sum of |x|
+    (``adds`` the additions on an output's path)."""
+    folded = x.double().view(x.shape[0], 8, x.shape[2] // 128, 128)
+    want, mag = folded.sum((0, 2)), folded.abs().sum((0, 2))
+    excess = float(((out.double() - want).abs() - adds * 2.0 ** -24 * mag).max())
+    require(excess <= 0.0, f"{what}: past the float32 summation bound of the f64 sum by {excess}")
+
+
+def ceilings_phase(dev, gpu) -> tuple:
+    """Phase ``ceilings`` (1d).  Each probe kernel of csrc/ceiling.cu
+    against its twin, on the JAX probes' inputs (the chains at [34, 8,
+    128] x 4,096 trips and the copy bit for bit, the read of the 256 MB
+    array of ones exactly 65,536 everywhere) and on seeded random inputs
+    at the shapes the kernels line times: every chain bit for bit at the
+    elements that fill the card (streams uniform in [1, 2), 4,096 trips),
+    the copy of a random CEIL_SHAPE bit for bit, and the read of it and
+    the read's twin each within float32 summation error of the float64
+    sum (``read_bound_check``, the card tests' bound; ``max_abs_err`` is
+    the kernel's distance from the twin).
+    Then ``utils/roofline.measure_ceilings`` on the card, its launches
+    counted from zero, every row with its ``fit_ok``; the SASS of one
+    chain step per op (``chain_sass_report``); the SM clock; the kernels',
+    the twins' and the library calls' ms at those shapes by CUDA events
+    (the fma chain's twin once, the run compared; the copy's
+    ``torch.mul(x, c, out=y)``, the read's ``x.view(128, 8, 512,
+    128).sum((0, 2))``), and the early ``ceiling_point`` of those
+    launches, to hold against ``ceiling_retime`` at the run's end.  ->
+    (the kernels line's rows chain, copy and read; the measured ceilings'
+    model; the fma chain's elements; the early point)."""
+    import torch
+
+    from ascendpathtracing_tpu_torch import bench
+    from ascendpathtracing_tpu_torch.ops import build
+    from ascendpathtracing_tpu_torch.ops import ceiling_kernels as ck
+    from ascendpathtracing_tpu_torch.utils import roofline
+
+    t0 = time.time()
+    chains = {}
+    for op in ck.OPS:
+        x = ck.chain_inputs(op, device=dev)
+        k = ck.chain(op, x)
+        require(torch.equal(k, ck.chain_plain(op, x)),
+                f"chain {op}: the kernel differs from its twin on the JAX inputs")
+        chains[op] = float(k[0, 0])
+    ones = torch.ones(CEIL_SHAPE, device=dev)
+    require(torch.equal(ck.copy_scale(ones), ck.copy_scale_plain(ones)),
+            "copy: the kernel differs from its twin on ones")
+    rows_folded = CEIL_SHAPE[0] * CEIL_SHAPE[2] // 128  # 65,536 rows of 128 lanes
+    require(bool((ck.read_sum(ones) == rows_folded).all()), "read: not 65,536 everywhere")
+    del ones
+    jax_inputs_s = time.time() - t0
+
+    torch.cuda.synchronize()
+    ck.reset_launches()
+    t1 = time.time()
+    ceil = roofline.measure_ceilings(dev)
+    torch.cuda.synchronize()
+    measure_s = time.time() - t1
+    launches = dict(ck.LAUNCHES)
+    require(all(launches.values()), f"measure_ceilings launches {launches}")
+    fits = {k: v["fit_ok"] for k, v in ceil.items() if isinstance(v, dict) and "fit_ok" in v}
+    clocks = sm_clocks()
+    sass = chain_sass_report(build.library_path("ceiling"))
+    # the chains' instructions a second (SASS per step on the fast path x
+    # steps a second), beside the card's lane-issue peak at its highest
+    # clock: 4 schedulers x 32 lanes an SM a cycle
+    peak = ceil["device"]["sms"] * 128 * clocks["clocks_max_sm_mhz"] * 1e6
+    issue = {op: {"ginsns_per_s": sass[op]["fast_path_per_step"] * row["chain_elem_iters"]
+                  / (row["step_ms"] * 1e-3) / 1e9}
+             for op in ck.OPS if (row := ceil[f"vpu_{op}"])
+             and sass.get(op, {}).get("fast_path_per_step")}
+    for v in issue.values():
+        v["share_of_issue_peak"] = v["ginsns_per_s"] * 1e9 / peak
+
+    # Every chain against its twin on random streams at the elements that
+    # fill the card; the fma chain (what the port's a * b + c issue) is
+    # the kernels line's row, timed here on the same input, and its twin's
+    # one run is both timed and compared.  Every ms by CUDA events, a
+    # launch between two events, as the other rows' (measure_ceilings'
+    # fits time launches back to back).
+    t2 = time.time()
+    chain_err = {}
+    for i, op in enumerate(ck.OPS):
+        x = chain_random_input(op, ceil[f"vpu_{op}"]["elements"], dev, CEIL_SEED + i)
+        k = ck.chain(op, x)
+        if op == "fma":
+            xf = x
+            chain_ms = events_ms(lambda: ck.chain("fma", xf), iters=5)
+            times, p = bench.time_steps(lambda: ck.chain_plain("fma", xf), iters=1, warmup=0)
+            plain_chain_ms = times[0]
+        else:
+            p = ck.chain_plain(op, x)
+        chain_err[op] = float((k - p).abs().max())
+        require(torch.equal(k, p), f"chain {op}: the kernel differs from its twin at "
+                f"{tuple(x.shape)} on random streams (max |diff| {chain_err[op]})")
+        del x, k, p
+    n = xf.shape[1]
+
+    big = ceiling_big_input(dev)
+    y, y_plain = ck.copy_scale(big), ck.copy_scale_plain(big)
+    copy_err = float((y - y_plain).abs().max())
+    require(torch.equal(y, y_plain), f"copy: the kernel differs from its twin on random "
+            f"{CEIL_SHAPE} (max |diff| {copy_err})")
+    del y_plain
+    r, r_plain = ck.read_sum(big), ck.read_sum_plain(big)
+    adds = {"kernel": rows_folded // ck.read_ctas(big) + 8 + ck.read_ctas(big),
+            "twin": rows_folded + 1}
+    read_bound_check(r, big, adds["kernel"], "read")
+    read_bound_check(r_plain, big, adds["twin"], "read's twin")
+    read_err = float((r - r_plain).abs().max())
+    del r, r_plain
+    random_s = time.time() - t2
+
+    scale = torch.full((), float(ck.COPY_SCALE), dtype=torch.float32, device=dev)
+    copy_ms, read_ms = events_ms(lambda: ck.copy_scale(big)), events_ms(lambda: ck.read_sum(big))
+    copy_plain_ms = events_ms(lambda: ck.copy_scale_plain(big))
+    copy_lib_ms = events_ms(lambda: torch.mul(big, scale, out=y))
+    read_plain_ms = events_ms(lambda: ck.read_sum_plain(big))
+    read_lib_ms = events_ms(lambda: big.view(*CEIL_SHAPE[:2], -1, 128).sum((0, 2)))
+    nbytes, elems = big.numel() * 4, big.numel()
+    del big, y
+    torch.cuda.empty_cache()
+    early = ceiling_point(chain_ms, copy_ms, xf)
+    del xf
+    steps = ck.STREAMS * ck.LOOP * ck.UNROLL
+    rows = [
+        {"name": "chain", "route": "cuda", "source": SOURCE["chain"], "replaces": REPLACES["chain"],
+         "run": "measure_ceilings", "launches": launches["chain"],
+         "max_abs_err": max(chain_err.values()), "max_abs_err_by_op": chain_err,
+         "op": "fma", "elements": n, "ms": chain_ms, "fit_ms": ceil["vpu_fma"]["step_ms"],
+         "fit_ms_by_op": {op: ceil[f"vpu_{op}"]["step_ms"] for op in ck.OPS},
+         "plain_ms": plain_chain_ms,
+         **bound(35 * 4 * n, 2 * steps * n + (ck.STREAMS - 1) * n),
+         "library_ms": None, "library": "none: no single PyTorch call runs an op chain"},
+        {"name": "copy", "route": "cuda", "source": SOURCE["copy"], "replaces": REPLACES["copy"],
+         "run": "measure_ceilings", "launches": launches["copy"], "max_abs_err": copy_err,
+         "ms": copy_ms, "fit_ms": ceil["hbm_copy"]["step_ms"], "plain_ms": copy_plain_ms,
+         **bound(2 * nbytes, elems), "library_ms": copy_lib_ms,
+         "library": "torch.mul(x, c, out=y)"},
+        {"name": "read", "route": "cuda", "source": SOURCE["read"], "replaces": REPLACES["read"],
+         "run": "measure_ceilings", "launches": launches["read"], "max_abs_err": read_err,
+         "ms": read_ms, "fit_ms": ceil["hbm_read"]["step_ms"], "plain_ms": read_plain_ms,
+         **bound(nbytes + 4 * 8 * 128, elems), "library_ms": read_lib_ms,
+         "library": "x.view(128, 8, 512, 128).sum((0, 2))"},
+    ]
+    phase("ceilings", gpu=gpu, chains_on_jax_inputs=chains, read_of_ones=65536.0,
+          random_inputs={"chains": "streams uniform in [1, 2) at the elements that fill the "
+                                   "card, 4,096 trips", "copy_read": f"randn {CEIL_SHAPE}",
+                         "seed": CEIL_SEED},
+          tolerance={"chains": "bitwise", "copy": "bitwise",
+                     "read": "kernel and twin each within adds x 2^-24 x sum |x| of the "
+                             "float64 sum", "read_adds": adds},
+          max_abs_err={"chain": chain_err, "copy": copy_err, "read": read_err},
+          ceilings=ceil, fit_ok=fits, launches=launches,
+          chain_sass=sass, chain_issue=issue, issue_peak_ginsns_per_s=peak / 1e9,
+          clocks_after=clocks, early=early,
+          event_ms={"chain_fma": chain_ms, "copy": copy_ms, "read": read_ms},
+          plain_ms={"chain_fma": plain_chain_ms, "copy": copy_plain_ms, "read": read_plain_ms},
+          library_ms={"copy": copy_lib_ms, "read": read_lib_ms},
+          seconds={"jax_inputs": jax_inputs_s, "measure_ceilings": measure_s,
+                   "random_inputs": random_s, "phase": time.time() - t0})
+    return rows, ceil["model"], n, early
+
+
+def bound_measured(row, model) -> dict:
+    """A kernels-line row's bytes and operations (``bound``'s) at the
+    measured ceilings: the copy's bandwidth and ``r_issue``."""
+    b_ms = row["bound_bytes"] / (model["bw_gb_per_s"] * 1e9) * 1e3
+    o_ms = row["bound_ops"] / (model["r_issue_gslots"] * 1e9) * 1e3
+    return {"bound_measured_ms": max(b_ms, o_ms),
+            "bound_measured_by": "bytes" if b_ms >= o_ms else "operations"}
+
+
 # One main-path step traced by utils/profiling.trace in a process of its
 # own; argv[1] is the trace's directory.
 TRACE_SCRIPT = r"""
@@ -1246,7 +1558,7 @@ def profiling_phase(dev, gpu) -> None:
           seconds=time.time() - t0)
 
 
-def roofline_phase(dev, gpu, rows) -> dict:
+def roofline_phase(dev, gpu, rows, model) -> dict:
     """Phase ``roofline_counts``: ``utils/roofline.count_ops`` of the plain
     twins of three kernels at the kernels' inputs on the card:
     ``_render_ref_fwd_idx_kernel`` and ``_render_ref_bwd_replay_kernel``
@@ -1255,7 +1567,10 @@ def roofline_phase(dev, gpu, rows) -> dict:
     (cornell8 at 1024 x 1024 x 4 samples, ``pt_path_stats``' size).
     ``other`` must be empty.  Each count's bound (its element ops over
     FP32_OPS) beside the hand model's bound of the kernels line and the
-    kernel's ms at the same inputs, timed here -> {kernel: numbers}."""
+    kernel's ms at the same inputs, timed here; and ``utils/roofline.bound``
+    of the count and the row's bytes at the measured ceilings ``model``
+    (phase ``ceilings``: r_issue, the sqrt and division weights, the copy's
+    bandwidth) -> {kernel: numbers}."""
     import numpy as np
     import torch
 
@@ -1298,14 +1613,20 @@ def roofline_phase(dev, gpu, rows) -> dict:
         require(not counts.other, f"count_ops of {name}'s twin: unclassified {counts.other}")
         kernel_ms = statistics.median(bench.time_steps(kernel, iters=10, warmup=2)[0])
         ops_ms = counts.vpu_slots / FP32_OPS * 1e3
+        # the bytes at the kernels line's inputs
+        measured = roofline.bound(counts, hand[name]["bound_bytes"], model)
         out[name] = {
             "size": size, "counts": counts.as_dict(), "count_seconds": count_s,
             "bound_count_ms": ops_ms, "kernel_ms": kernel_ms,
             "kernel_over_count_bound": kernel_ms / ops_ms,
+            "bound_count_measured": measured,
+            "kernel_over_count_measured_bound": kernel_ms / measured["bound_ms"],
             "hand_bound_ops_ms": hand[name]["bound_ops_ms"],
             "hand_bound_at": "the kernels line's inputs" + (
                 " (64 samples: x16 this size)" if name == "pt" else "")}
         hand[name]["bound_count_ops_ms"] = ops_ms * (PT_SPP4 // 4 if name == "pt" else 1)
+        hand[name]["bound_count_measured_ms"] = max(
+            measured["vpu"] * (PT_SPP4 // 4 if name == "pt" else 1), measured["hbm"])
         hand[name]["bound_count_from"] = (
             f"utils/roofline.count_ops of the twin at {size}, element ops (flops + hard + "
             "vops) over 67 TFLOP/s" + (f", x {PT_SPP4 // 4} for 64 samples" if name == "pt"
@@ -1690,6 +2011,7 @@ def main(argv=None) -> int:
     from ascendpathtracing_tpu_torch.models import mesh as mm
     from ascendpathtracing_tpu_torch.ops import build, chunk_grid
     from ascendpathtracing_tpu_torch.ops import bvh_kernels as bk
+    from ascendpathtracing_tpu_torch.ops import ceiling_kernels as ck
     from ascendpathtracing_tpu_torch.ops import histogram_kernels as segk
     from ascendpathtracing_tpu_torch.ops import mesh_pt_kernels as mpt
     from ascendpathtracing_tpu_torch.ops import pt_kernels as ptk
@@ -1711,7 +2033,7 @@ def main(argv=None) -> int:
         t = torch.float64 if dtype == np.float64 else torch.float32
         return convert.scene_planes_from_numpy(scene.soa10(dtype), device=dev, dtype=t)
 
-    # ---- 1. build (all six libraries at once) --------------------------
+    # ---- 1. build (all seven libraries at once) ------------------------
     t0 = time.time()
     libs = build.LIBRARIES
     parent = None if args.parent is None else args.parent.resolve()
@@ -1729,7 +2051,7 @@ def main(argv=None) -> int:
         native_build = pool.submit(native.build)
         build.build_all(libs)
         native_lib = native_build.result()  # NativeUnavailable fails the run
-    kernel_mods = (rk, ptk, wk, mpt, segk, bk)
+    kernel_mods = (rk, ptk, wk, mpt, segk, bk, ck)
     for mod in kernel_mods:
         mod.load_library()
     if parent_build is not None:
@@ -1789,7 +2111,7 @@ def main(argv=None) -> int:
     ref_spills = {k: v for k, v in spills_by_kernel(ref_log).items() if v != (0, 0)}
     require(sorted(ref_regs) == sorted(r[0] for r in REF_SASS) and not ref_spills,
             f"render_ref.cu: registers {ref_regs}, spills {ref_spills}")
-    clock = max_sm_clock_mhz()
+    clock = sm_clocks()["clocks_max_sm_mhz"]
     ref_sass = {"new": ref_sass_report(build.library_path("render_ref"), FULL_W ** 2 * 4,
                                        BOUNCES, scene.n_spheres, clock)}
     if "render_ref" in ab_names:
@@ -1845,6 +2167,10 @@ def main(argv=None) -> int:
 
     # ---- 1c. the native host library: required, and build_bvh's default -
     native_host_phase(gpu)
+
+    # ---- 1d. the roofline ceiling probes (csrc/ceiling.cu): before the
+    # heavy phases, and timed again at the run's end (ceilings_late)
+    ceil_rows, ceil_model, ceil_n, ceil_early = ceilings_phase(dev, gpu)
 
     # ---- 2. fwd f32, 1 bounce, 64x64x1: bitwise vs oracle and plain ----
     r64, rp = rays_planes(64)
@@ -2390,7 +2716,7 @@ def main(argv=None) -> int:
     # at the end of the run the main step's events read ~25% slower than
     # at phase 7 and benchmark_fit's rounds spread past its 5%.
     profiling_phase(dev, gpu)
-    roofline_phase(dev, gpu, rows)
+    roofline_phase(dev, gpu, rows, ceil_model)
     torch.cuda.empty_cache()
 
     # ---- 14-18. the mesh path (csrc/wbvh.cu, csrc/mesh_pt.cu) ----------
@@ -3775,6 +4101,15 @@ def main(argv=None) -> int:
     phase("ab_vs_parent", gpu=gpu, parent=None if parent is None else str(parent),
           kernels=ab_names, frames=ab)
 
+    # The ceiling probes timed again, late in the process, beside their
+    # early reading (phase ceilings): does the card slow down?
+    late = ceiling_retime(dev, ceil_n)
+    phase("ceilings_late", gpu=gpu, early=ceil_early, late=late,
+          late_over_early={k: late[k] / ceil_early[k] for k in ("fma_chain_ms", "copy_ms")})
+
+    rows += ceil_rows
+    for row in rows:
+        row.update(bound_measured(row, ceil_model))
     print(gpu_name_and_power_limit(), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1452,3 +1452,88 @@ def test_count_ops_of_the_reference_fwd_bwd_equal_on_card_and_cpu(cuda):
         counts[device.type] = roofline.count_ops(step).as_dict()
     assert counts["cuda"] == counts["cpu"]
     assert not counts["cuda"]["other"] and counts["cuda"]["hard_by_prim"]["sqrt"] > 0
+
+
+# ------------------------------------------- roofline ceiling probes ----
+def _chain_input(op, n, seed):
+    """The probe's input at n elements, its 32 streams spread over [1, 2)
+    (sqrt's and div's fixed points and fma's 1.5 are in reach)."""
+    from ascendpathtracing_tpu_torch.ops import ceiling_kernels as ck
+
+    x = ck.chain_inputs(op, (n,))
+    x[:ck.STREAMS] = torch.tensor(np.random.RandomState(seed).uniform(1.0, 2.0, (ck.STREAMS, n)),
+                                  dtype=torch.float32)
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["mul", "fma", "cmpsel", "mix", "sqrt", "div", "fma_fused"])
+@pytest.mark.parametrize("n,steps", [(1, 3), (1000, 16), (4097, 2)])
+def test_chain_kernel_equals_twin_bitwise(cuda, op, n, steps):
+    """ceiling.cu's chain kernel against its twin on the card, bit for bit
+    (the fused one against the float64 twin, exact on these inputs), and
+    one launch counted."""
+    from ascendpathtracing_tpu_torch.ops import ceiling_kernels as ck
+
+    x = _chain_input(op, n, seed=n).to(cuda)
+    ck.reset_launches()
+    out = ck.chain(op, x, steps)
+    assert ck.LAUNCHES == {"chain": 1, "copy": 0, "read": 0}
+    assert out.shape == (n,)
+    assert torch.equal(out, ck.chain_plain(op, x, steps))
+
+
+@pytest.mark.cuda
+def test_chain_kernel_jax_inputs_and_fill(cuda):
+    """On the JAX probe's own inputs (4,096 trips) the kernel gives the
+    Pallas kernel's constants (tests/test_torch_ceilings.py holds the twin
+    to them), and fill_elements fills every SM."""
+    from ascendpathtracing_tpu_torch.ops import ceiling_kernels as ck
+
+    want = {"mul": 48.25, "fma": 48.0, "cmpsel": 48.0, "mix": 37.53422164916992,
+            "sqrt": 127.99999237060547, "div": 48.0, "fma_fused": 48.0}
+    for op, value in want.items():
+        out = ck.chain(op, ck.chain_inputs(op, device=cuda))
+        assert torch.equal(out, torch.full((8, 128), value, device=cuda)), op
+        n = ck.fill_elements(op, cuda)
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        assert n >= sms * ck.BLOCK and n % (sms * ck.BLOCK) == 0, (op, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4, 1000, 1 << 20])
+def test_copy_kernel_equals_twin_bitwise(cuda, n):
+    """x * 1.0000001 bit for bit the twin's; an unaligned view refused."""
+    from ascendpathtracing_tpu_torch.ops import ceiling_kernels as ck
+
+    x = torch.tensor(np.random.RandomState(n).randn(n + 4).astype(np.float32), device=cuda)
+    ck.reset_launches()
+    y = ck.copy_scale(x[:n])
+    assert ck.LAUNCHES == {"chain": 0, "copy": 1, "read": 0}
+    assert torch.equal(y, ck.copy_scale_plain(x[:n]))
+    with pytest.raises(ValueError):
+        ck.copy_scale(x[1:n + 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb,sub", [(1, 128), (3, 1024), (5, 65536), (128, 4096)])
+def test_read_kernel_against_f64_sum(cuda, nb, sub):
+    """The read on random data: within float32 summation error of the
+    float64 sum (2^-24 x the adds on an output's path x the sum of |x|),
+    the same bits on a second launch, and exactly nb * sub / 128 on ones."""
+    from ascendpathtracing_tpu_torch.ops import ceiling_kernels as ck
+
+    x = torch.tensor(np.random.RandomState(nb).randn(nb, 8, sub).astype(np.float32), device=cuda)
+    ck.reset_launches()
+    out = ck.read_sum(x)
+    assert ck.LAUNCHES == {"chain": 0, "copy": 0, "read": 1}
+    folded = x.double().reshape(nb, 8, sub // 128, 128)
+    want, mag = folded.sum(dim=(0, 2)), folded.abs().sum(dim=(0, 2))
+    rows = nb * sub // 128
+    adds = rows // ck.read_ctas(x) + 8 + ck.read_ctas(x)
+    assert float(((out.double() - want).abs() - adds * 2.0 ** -24 * mag).max()) <= 0.0
+    assert torch.equal(ck.read_sum(x), out)
+    twin = ck.read_sum_plain(x)
+    assert float(((twin.double() - want).abs() - (rows + 1) * 2.0 ** -24 * mag).max()) <= 0.0
+    ones = ck.read_sum(torch.ones((nb, 8, sub), device=cuda))
+    assert torch.equal(ones, torch.full((8, 128), float(rows), device=cuda))

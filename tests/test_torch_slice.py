@@ -187,7 +187,7 @@ def test_importing_the_port_loads_no_jax():
         "       'diff.fd', 'diff.camera_fused', 'post', 'utils.debug',\n"
         "       'utils.checkpoint', 'parallel.sharded', 'models.wavefront', 'parallel.mesh',\n"
         "       'parallel.distributed', 'parallel.assembly', 'parallel.pipeline', 'graft_entry',\n"
-        "       'accel.native', 'utils.profiling', 'utils.roofline'}\n"
+        "       'accel.native', 'utils.profiling', 'utils.roofline', 'ops.ceiling_kernels'}\n"
         "assert {p.__name__ + '.' + m for m in new} <= set(mods), mods\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
