@@ -3,8 +3,7 @@
 // benchmarks/roofline.py:
 //   chain_kernel (:76)  -> chain_kernel<Op>: the FP32 issue rate of one op
 //   copy_kernel  (:185) -> copy_kernel: HBM copy bandwidth
-//   read_kernel  (:201) -> read_partials_kernel + read_reduce_kernel: HBM
-//                          read bandwidth
+//   read_kernel  (:201) -> read_kernel: HBM read bandwidth
 // utils/roofline.measure_ceilings times them and turns the times into the
 // card's measured ceilings (issue slots a second, the sqrt and division
 // weights in slots, bytes a second); utils/roofline.bound composes bounds
@@ -41,21 +40,73 @@
 // 16-byte aligned, n a multiple of 4).  Bound: bytes, each read once and
 // written once.
 //
-// read_partials_kernel + read_reduce_kernel: x [nb, 8, sub] (sub % 128
-// == 0) -> out [8, 128], out[r, l] = sum over b and k of
-// x[b, r, k * 128 + l], the JAX kernel's layout.  Output row r has
-// nb * sub / 128 rows of 128 floats (512 bytes); CTA (c, r) sums its
-// contiguous share of them, each warp every eighth row, each lane four
-// floats with a 16-byte load (four rows' loads in flight; a row past the
-// share adds +0, which leaves every sum as it is, the first added to
-// +0), then its 8 warps in order into partials
-// [ctas, 8, 128]; read_reduce_kernel adds the ctas partials of each
-// output, a warp an output, in a fixed order.  No floating-point atomics:
-// the sums repeat bit for bit.  Bound: bytes, the input read once.
+// read_kernel: x [nb, 8, sub] (sub % 128 == 0) -> out [8, 128],
+// out[r, l] = sum over b and k of x[b, r, k * 128 + l], the JAX kernel's
+// layout.  Bound: bytes, the input read once.  In memory order x is
+// nb * 8 * sub / 128 rows of 128 floats (512 bytes): run j = rows
+// [j * kr, (j + 1) * kr) (kr = sub / 128) is x[j / 8, j % 8], so row q
+// adds into output row (q / kr) % 8.  One launch:
+// - An even, persistent split.  The grid is the CTAs the card holds at
+//   once (SMs x cudaOccupancyMaxActiveBlocksPerMultiprocessor, at most
+//   1,024), each with a contiguous share of the rows: CTA c takes
+//   [c * base + min(c, rem), ...) with base = rows / ctas, rem = rows %
+//   ctas, so shares differ by at most one row (ops/ceiling_kernels.
+//   read_shares mirrors it) and the CTAs end at about the same time.  A
+//   CTA walks its share a run at a time, the output row fixed within a
+//   run, so crossing a (b, r) boundary costs one compare a run, not one
+//   a load.  Row counts fit 32 bits (the launcher checks), so the
+//   reduction's index arithmetic divides in 32 bits.
+// - Loads.  A warp reads a whole row (a lane 16 bytes: four 128-byte
+//   lines, coalesced), the warps of a CTA rows w, w + 8, ... of the run,
+//   kReadLoads (8) rows in flight a lane (the last trip's predicated, not
+//   one latency each), then the adds; the address advances by a pointer
+//   increment of 8 rows.  The loads take the non-coherent path without
+//   allocating in L1 (ld.global.nc.L1::no_allocate: each byte is read
+//   once).  With 4 CTAs an SM that is 128 KB in flight on each SM,
+//   several times the ~20 KB a 3.35 TB/s memory at ~700 ns needs.  Plain
+//   unrolled loads rather than a TMA ring: each byte is used once, by the
+//   thread that loaded it, so a shared-memory stage would only add a copy
+//   and barriers.
+// - Sums.  A warp's running sum of each output row lives in shared memory
+//   ([warp][r][lane], 32 KB), loaded at the start of a run and stored at
+//   its end; at the end of its share the CTA adds its 8 warps in order
+//   into its partial [8, 128] of each output row it touched (scratch
+//   partials [ctas, 8, 128]; rows it did not touch stay unwritten).
+// - Two levels of tickets (int32 atomicAdd after a __threadfence, each
+//   counting rows).  The grid is cut into 8 ranges of CTAs [ctas v / 8,
+//   ctas (v + 1) / 8).  The CTA whose rows complete output row r's rows
+//   in its range v closes (v, r): warp w adds, in CTA order, the partials
+//   of r of the CTAs of sub-range w of the range (at most 16 CTAs, their
+//   loads issued together) that touched r, the 8 warp sums are added in
+//   order into range_sums[v, r], and it adds the range's rows of r to
+//   r's ticket; the CTA that completes r's rows adds the ranges' sums of
+//   r in range order into out[r].  Each ticket is set back to 0 by the
+//   CTA that completed it.  One CTA adding every partial of r alone (~200
+//   at the probe's shape, in batches of 8 loads, a memory latency each)
+//   kept the card busy for microseconds after the last CTA's loads; the
+//   ranges spread that work over the CTAs that finish, most of it while
+//   others still read.  ops/ceiling_kernels.read_sum_ordered is the whole
+//   order in torch.
+// - Programmatic dependent launch (Hopper).  The launch allows the next
+//   kernel on the stream to start early, and every CTA signals at once
+//   (griddepcontrol.launch_dependents), so the next read's CTAs take the
+//   SMs this grid's CTAs leave and read x while this grid's last tickets
+//   and sums finish; before it touches the partials, range sums and
+//   tickets a CTA waits (griddepcontrol.wait) until the previous grid has
+//   ended.  A read that follows any other kernel starts after it ends, as
+//   without the attribute (other kernels do not signal), so the read
+//   never sees x before the kernel that wrote it has finished.
+// No floating-point atomics: the order of every add is fixed by the
+// shape and the grid, so the sums repeat bit for bit.  The tickets
+// (kTickets int32, zero) are kept by the wrapper with the partials and
+// range sums for each (device, stream): calls on one stream run in order
+// and each leaves the tickets at 0 for the next; calls on two streams
+// use two sets, so no memset launches and no two calls share a ticket.
 
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <cstddef>
 #include <cstdint>
 
 namespace {
@@ -66,7 +117,12 @@ constexpr int kBlock = 256;
 constexpr int kWarps = kBlock / 32;
 constexpr int kRows = 8;    // the read's output rows
 constexpr int kLanes = 128; // and its lanes
-constexpr int kInFlight = 4; // the read's loads in flight a lane
+constexpr int kReadLoads = 8; // the read's rows in flight a lane
+constexpr int kRowVec = kLanes / 4; // float4s a row
+constexpr int kRanges = 8;  // the read's reduction: CTA ranges, a warp a sub-range of each
+constexpr int kMaxSub = 16; // CTAs of a sub-range at most
+constexpr int kMaxReadCtas = kRanges * kWarps * kMaxSub; // 1,024
+constexpr int kTickets = kRanges * kRows + kRows;        // [range][r], then [r]
 
 enum Op { kMul, kFma, kCmpSel, kMix, kSqrt, kDiv, kFmaFused, kNumOps };
 
@@ -136,59 +192,202 @@ __global__ void __launch_bounds__(kBlock)
   }
 }
 
-// Row q of output row r (0 <= q < nb * k_rows) is x's row (b, r, k) with
-// b = q / k_rows, k = q % k_rows: 32 float4s at ((b * 8 + r) * k_rows + k) * 32.
-__global__ void __launch_bounds__(kBlock)
-    read_partials_kernel(const float4* __restrict__ x, float* __restrict__ partials,
-                         long long nb, long long k_rows, long long per_cta) {
-  const int c = blockIdx.x, r = blockIdx.y;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const long long q_end = min(static_cast<long long>(c + 1) * per_cta, nb * k_rows);
-  long long q = static_cast<long long>(c) * per_cta + warp;
-  long long b = q / k_rows, k = q - b * k_rows;
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  // kInFlight rows a trip: their loads issue before the first add
-  for (; q < q_end; q += kInFlight * kWarps) {
-    float4 v[kInFlight];
-#pragma unroll
-    for (int u = 0; u < kInFlight; ++u) {
-      v[u] = q + u * kWarps < q_end ? x[((b * kRows + r) * k_rows + k) * (kLanes / 4) + lane]
-                                    : make_float4(0.f, 0.f, 0.f, 0.f);
-      for (k += kWarps; k >= k_rows; k -= k_rows) ++b;
-    }
-#pragma unroll
-    for (int u = 0; u < kInFlight; ++u) {
-      acc.x = __fadd_rn(acc.x, v[u].x);
-      acc.y = __fadd_rn(acc.y, v[u].y);
-      acc.z = __fadd_rn(acc.z, v[u].z);
-      acc.w = __fadd_rn(acc.w, v[u].w);
-    }
-  }
-  __shared__ float4 sums[kWarps][kLanes / 4];
-  sums[warp][lane] = acc;
-  __syncthreads();
-  if (threadIdx.x < kLanes) {
-    const float* s = reinterpret_cast<const float*>(sums);
-    float t = s[threadIdx.x];
-    for (int w = 1; w < kWarps; ++w) t = __fadd_rn(t, s[w * kLanes + threadIdx.x]);
-    partials[(static_cast<long long>(c) * kRows + r) * kLanes + threadIdx.x] = t;
-  }
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y), __fadd_rn(a.z, b.z),
+                     __fadd_rn(a.w, b.w));
 }
 
-// A warp per output i = r * 128 + l: lane j adds partials j, j + 32, ...
-// in order, then a shuffle tree (offsets 16, 8, 4, 2, 1) adds the lanes.
+// A 16-byte load of data read once: the non-coherent path, no L1 line.
+__device__ __forceinline__ float4 load_once(const float4* p) {
+  float4 v;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "l"(p));
+  return v;
+}
+
+// Row counts fit 32 bits (the launcher checks rows < 2^31), so the
+// reduction's index arithmetic divides in 32 bits.
+// CTA c's share of the rows: [start(c), start(c + 1)).
+__device__ __forceinline__ unsigned share_start(unsigned c, unsigned base, unsigned rem) {
+  return c * base + min(c, rem);
+}
+
+// The output rows that rows [s, e) add into, a bit each
+// (ops/ceiling_kernels.read_touched).
+__device__ __forceinline__ unsigned touched_rows(unsigned s, unsigned e, unsigned k_rows) {
+  if (e <= s) return 0u;
+  const unsigned j0 = s / k_rows, j1 = (e - 1) / k_rows;
+  if (j1 - j0 >= kRows - 1) return (1u << kRows) - 1;
+  unsigned m = 0u;
+  for (unsigned j = j0; j <= j1; ++j) m |= 1u << (j % kRows);
+  return m;
+}
+
+// Rows q < n that add into output row r: (q / k_rows) % 8 == r.
+__device__ __forceinline__ unsigned rows_before(unsigned n, unsigned k_rows, unsigned r) {
+  const unsigned period = kRows * k_rows, m = n % period;
+  return n / period * k_rows + min(m > r * k_rows ? m - r * k_rows : 0u, k_rows);
+}
+
 __global__ void __launch_bounds__(kBlock)
-    read_reduce_kernel(const float* __restrict__ partials, float* __restrict__ out, int ctas) {
-  const int i = blockIdx.x * kWarps + threadIdx.x / 32, lane = threadIdx.x % 32;
-  float t = 0.f;
-  for (int c = lane; c < ctas; c += 32) {
-    t = __fadd_rn(t, partials[static_cast<long long>(c) * kRows * kLanes + i]);
-  }
+    read_kernel(const float4* __restrict__ x, float* __restrict__ partials,
+                float* __restrict__ range_sums, int* __restrict__ tickets,
+                float* __restrict__ out, unsigned k_rows, unsigned base, unsigned rem) {
+  __shared__ float4 sums[kWarps][kRows][kRowVec];  // a warp's sum of each output row
+  __shared__ int rows_of[kRows];                    // rows of each output row in the share
+  __shared__ int closes[kRows], finishes[kRows];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  const unsigned c = blockIdx.x, ctas = gridDim.x;
+  const unsigned s = share_start(c, base, rem), e = share_start(c + 1, base, rem);
+  // the next launch on this stream may start as this grid's CTAs exit
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+  for (int r = 0; r < kRows; ++r) sums[warp][r][lane] = zero;
+  if (threadIdx.x < kRows) rows_of[threadIdx.x] = 0;
+  __syncthreads();
+
+  // The share a run at a time: rows [a, a_end) add into output row r.
+  unsigned j = s / k_rows;
+  for (unsigned a = s; a < e; ++j) {
+    const unsigned a_end = min(e, (j + 1) * k_rows);
+    const unsigned r = j % kRows;
+    const unsigned here = a_end - a;
+    // this warp's rows a + warp, a + warp + 8, ..., kReadLoads loads at a
+    // time (the last trip's too, u < n)
+    int n = here > warp ? static_cast<int>((here - warp + kWarps - 1) / kWarps) : 0;
+    const float4* p = x + static_cast<std::size_t>(a + warp) * kRowVec + lane;
+    float4 acc = sums[warp][r][lane];
+    for (; n > 0; n -= kReadLoads) {
+      float4 v[kReadLoads];
 #pragma unroll
-  for (int offset = 16; offset > 0; offset /= 2) {
-    t = __fadd_rn(t, __shfl_down_sync(0xffffffffu, t, offset));
+      for (int u = 0; u < kReadLoads; ++u) {
+        v[u] = u < n ? load_once(p + u * kWarps * kRowVec) : zero;
+      }
+#pragma unroll
+      for (int u = 0; u < kReadLoads; ++u) {
+        if (u < n) acc = add4(acc, v[u]);
+      }
+      p += kReadLoads * kWarps * kRowVec;
+    }
+    sums[warp][r][lane] = acc;
+    if (threadIdx.x == 0) rows_of[r] += static_cast<int>(here);
+    a = a_end;
   }
-  if (lane == 0) out[i] = t;
+  __syncthreads();
+
+  // The partials, range sums and tickets are the previous launch's until
+  // it has ended.
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  // The CTA's partial of each output row it touched: its warps in order.
+  const float* sf = reinterpret_cast<const float*>(sums);  // [warp][r][128]
+  for (int i = threadIdx.x; i < kRows * kLanes; i += kBlock) {
+    const int r = i / kLanes, l = i % kLanes;
+    if (rows_of[r] == 0) continue;
+    float t = sf[r * kLanes + l];
+    for (int w = 1; w < kWarps; ++w) t = __fadd_rn(t, sf[(w * kRows + r) * kLanes + l]);
+    partials[(static_cast<long long>(c) * kRows + r) * kLanes + l] = t;
+  }
+  __threadfence();
+  __syncthreads();
+
+  // Level 1: CTA c's range v = [ctas v / 8, ctas (v + 1) / 8).  The CTA
+  // that reads the last rows of output row r in its range closes (v, r).
+  unsigned v = 0;
+  while (ctas * (v + 1) / kRanges <= c) ++v;
+  const unsigned lo = ctas * v / kRanges, hi = ctas * (v + 1) / kRanges;
+  const unsigned range_s = share_start(lo, base, rem), range_e = share_start(hi, base, rem);
+  if (threadIdx.x < kRows) {
+    const unsigned r = threadIdx.x;
+    const int mine = rows_of[r];
+    const int in_range =
+        static_cast<int>(rows_before(range_e, k_rows, r) - rows_before(range_s, k_rows, r));
+    closes[r] = mine > 0 && atomicAdd(&tickets[v * kRows + r], mine) + mine == in_range;
+  }
+  __syncthreads();
+  unsigned close = 0u;
+  for (int r = 0; r < kRows; ++r) close |= closes[r] ? 1u << r : 0u;
+  if (close == 0u) return;  // the same for every thread of the CTA
+  __threadfence();
+  // warp w: the n <= kMaxSub CTAs [a, a + n) of sub-range w; for each
+  // output row it closes, the partials of those that touched it in CTA
+  // order, kReadLoads loads in flight
+  const unsigned a = lo + (hi - lo) * warp / kWarps;
+  const unsigned n = lo + (hi - lo) * (warp + 1) / kWarps - a;
+  const unsigned mine =
+      lane < n ? touched_rows(share_start(a + lane, base, rem),
+                              share_start(a + lane + 1, base, rem), k_rows) & close
+               : 0u;
+  const float4* parts = reinterpret_cast<const float4*>(partials);
+  for (int r = 0; r < kRows; ++r) {
+    if (!(close >> r & 1u)) continue;
+    unsigned mask = __ballot_sync(0xffffffffu, mine >> r & 1u);
+    float4 acc = zero;
+    while (mask) {
+      float4 p[kReadLoads];
+      bool has[kReadLoads];
+#pragma unroll
+      for (int u = 0; u < kReadLoads; ++u) {
+        has[u] = mask != 0u;
+        const long long cu = a + (has[u] ? __ffs(mask) - 1 : 0);
+        mask &= mask - 1u;
+        p[u] = has[u] ? __ldcg(parts + (cu * kRows + r) * kRowVec + lane) : zero;
+      }
+#pragma unroll
+      for (int u = 0; u < kReadLoads; ++u) {
+        if (has[u]) acc = add4(acc, p[u]);
+      }
+    }
+    sums[warp][r][lane] = acc;
+  }
+  __syncthreads();
+  // the range's sum of each closed output row: the 8 warps in order
+  for (int i = threadIdx.x; i < kRows * kLanes; i += kBlock) {
+    const int r = i / kLanes, l = i % kLanes;
+    if (!(close >> r & 1u)) continue;
+    float t = sf[r * kLanes + l];
+    for (int w = 1; w < kWarps; ++w) t = __fadd_rn(t, sf[(w * kRows + r) * kLanes + l]);
+    range_sums[(v * kRows + r) * kLanes + l] = t;
+  }
+  __threadfence();
+  __syncthreads();
+
+  // Level 2: the CTA that closes the last range of output row r adds the
+  // ranges' sums of r in range order (warp r).
+  if (threadIdx.x < kRows) {
+    const unsigned r = threadIdx.x;
+    bool last = false;
+    if (close >> r & 1u) {
+      tickets[v * kRows + r] = 0;
+      const int in_range =
+          static_cast<int>(rows_before(range_e, k_rows, r) - rows_before(range_s, k_rows, r));
+      last = atomicAdd(&tickets[kRanges * kRows + r], in_range) + in_range ==
+             static_cast<int>((base * ctas + rem) / kRows);
+    }
+    finishes[r] = last;
+  }
+  __syncthreads();
+  const unsigned r = warp;
+  if (!finishes[r]) return;
+  __threadfence();
+  // lane u < 8: does range u hold rows of r (is its sum a term)?
+  const unsigned us = share_start(ctas * (lane % kRanges) / kRanges, base, rem),
+                 ue = share_start(ctas * (lane % kRanges + 1) / kRanges, base, rem);
+  const unsigned terms = __ballot_sync(
+      0xffffffffu, lane < kRanges && rows_before(ue, k_rows, r) > rows_before(us, k_rows, r));
+  const float4* ranges = reinterpret_cast<const float4*>(range_sums);
+  float4 rs[kRanges];
+#pragma unroll
+  for (int u = 0; u < kRanges; ++u) {
+    rs[u] = terms >> u & 1u ? __ldcg(ranges + (u * kRows + r) * kRowVec + lane) : zero;
+  }
+  float4 t = zero;
+#pragma unroll
+  for (int u = 0; u < kRanges; ++u) {
+    if (terms >> u & 1u) t = add4(t, rs[u]);
+  }
+  reinterpret_cast<float4*>(out)[r * kRowVec + lane] = t;
+  if (lane == 0) tickets[kRanges * kRows + r] = 0;
 }
 
 constexpr long long kMaxGrid = 1LL << 30;
@@ -244,21 +443,42 @@ int apt_ceiling_copy(const float* x, float* y, long long n, float scale, void* s
   return cudaGetLastError();
 }
 
-// x [nb, 8, sub] float32, 16-byte aligned, sub % 128 == 0; partials
-// [ctas, 8, 128]; out [8, 128].
-int apt_ceiling_read(const float* x, float* partials, float* out, long long nb, long long sub,
-                     int ctas, void* stream) {
-  if (nb < 1 || sub < kLanes || sub % kLanes != 0 || ctas < 1 ||
-      reinterpret_cast<std::uintptr_t>(x) % 16 != 0) {
+// The read's grid on the current device: out[0] = resident blocks an SM
+// holds of its kernel, out[1] = the most CTAs its grid may have, out[2] =
+// its tickets (int32).
+int apt_ceiling_read_grid(int* out) {
+  out[1] = kMaxReadCtas;
+  out[2] = kTickets;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, read_kernel, kBlock, 0);
+}
+
+// x [nb, 8, sub] float32, 16-byte aligned, sub % 128 == 0, nb * 8 * sub /
+// 128 < 2^31; 1 <= ctas <= 1,024; partials [ctas, 8, 128]; range_sums
+// [8, 8, 128]; tickets [kTickets] int32, zero (each launch leaves them zero);
+// out [8, 128], 16-byte aligned.
+int apt_ceiling_read(const float* x, float* partials, float* range_sums, int* tickets, float* out,
+                     long long nb, long long sub, int ctas, void* stream) {
+  if (nb < 1 || sub < kLanes || sub % kLanes != 0 || ctas < 1 || ctas > kMaxReadCtas ||
+      nb * kRows * (sub / kLanes) >= (1LL << 31) ||
+      reinterpret_cast<std::uintptr_t>(x) % 16 != 0 ||
+      reinterpret_cast<std::uintptr_t>(out) % 16 != 0) {
     return cudaErrorInvalidValue;
   }
-  auto s = static_cast<cudaStream_t>(stream);
-  const long long k_rows = sub / kLanes;
-  const long long per_cta = (nb * k_rows + ctas - 1) / ctas;
-  read_partials_kernel<<<dim3(ctas, kRows), kBlock, 0, s>>>(
-      reinterpret_cast<const float4*>(x), partials, nb, k_rows, per_cta);
-  read_reduce_kernel<<<(kRows * kLanes) / kWarps, kBlock, 0, s>>>(partials, out, ctas);
-  return cudaGetLastError();
+  const long long k_rows = sub / kLanes, rows = nb * kRows * k_rows;
+  cudaLaunchAttribute overlap[1];
+  overlap[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  overlap[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(ctas);
+  config.blockDim = dim3(kBlock);
+  config.stream = static_cast<cudaStream_t>(stream);
+  config.attrs = overlap;
+  config.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &config, read_kernel, reinterpret_cast<const float4*>(x), partials, range_sums, tickets,
+      out, static_cast<unsigned>(k_rows), static_cast<unsigned>(rows / ctas),
+      static_cast<unsigned>(rows % ctas));
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 }  // extern "C"

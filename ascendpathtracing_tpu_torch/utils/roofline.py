@@ -263,7 +263,10 @@ def measure_ceilings(device="cuda", iters: int = 6) -> dict:
     in one instruction.  sqrt's and div's weights are in those slots.
     ``model`` holds what :func:`bound` takes, and ``r_insn_ginsns``, the
     instruction rate of the unfused fma chain (two instructions a step),
-    beside ``r_issue_gslots``.  Raises unless ``device`` is a CUDA card."""
+    beside ``r_issue_gslots``.  Both HBM ceilings stand in ``model``: the
+    copy's ``bw_gb_per_s``, which :func:`bound` divides bytes by as JAX's
+    ``_bound_row`` does, and the read's ``bw_read_gb_per_s``, for a
+    caller to choose from.  Raises unless ``device`` is a CUDA card."""
     from ascendpathtracing_tpu_torch.device import resolve_device
     from ascendpathtracing_tpu_torch.ops import ceiling_kernels as ck
     from ascendpathtracing_tpu_torch.utils import profiling

@@ -67,9 +67,12 @@ the roofline probes of csrc/ceiling.cu (the op chains, the 256 MB copy
 and read that replace benchmarks/roofline.py's Pallas probes) against
 their twins on the JAX probes' inputs and on seeded random inputs at
 the shapes it times (every chain at the elements that fill the card, the
-256 MB copy bit for bit, the read within float32 summation error), runs
+256 MB copy bit for bit, the read bit for bit the model of its order and
+within float32 summation error), runs
 ``utils/roofline.measure_ceilings`` (every row's ``fit_ok``), counts the
-SASS of one chain step per op and reads the SM clock; ``ceilings_late``,
+SASS of one chain step per op and reads the SM clock; the read's row
+adds ``stream_ms`` and ``library_stream_ms`` (launches back to back);
+``ceilings_late``,
 before the last lines, times the fma chain and the copy again beside
 that phase's reading of them.
 Right after
@@ -106,7 +109,8 @@ and operations over the copy bandwidth and ``r_issue`` that phase
 ``ceilings`` measured: neither is a plain peak, since ``r_issue`` counts
 JAX's nominal slots, above the card's instruction rate (the model's
 ``r_insn_ginsns``), and the copy row's measured bound is its own fit time
-by construction); the last line is
+by construction, as the read row's is, over the read's own bandwidth);
+the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device, or run alone (a directory that holds this script
 and not the package beside it), it prints no result and exits 1.
@@ -158,7 +162,9 @@ STATS_TILE = 2048  # with_stats: pixels per cell, the Pallas kernel's default ti
 # same digests at phase 3's 256 x 256 rays in float64, and fwd_idx's share
 # of rays whose trail differs from the plain twin's (phase 4); and a digest
 # of every render_pt, mesh_pt and wbvh frame's outputs (image; tmin, slot,
-# attrs).  Both trees load the same saved bytes.  It prints {"ms": {frame: median ms},
+# attrs); ceiling.cu, the 256 MB read and copy of randn (the read also 20
+# times back to back in one step; no digest, the read's order is the
+# tree's own).  Both trees load the same saved bytes.  It prints {"ms": {frame: median ms},
 # "digests": {name: hex}, "facts": {name: value}}.
 AB_SCRIPT = r"""
 import hashlib, json, statistics, sys
@@ -233,6 +239,14 @@ def segsum(fn, name):
     seg, vals, n_slots = saved[name]
     return lambda: fn(seg, vals, n_slots=n_slots)
 
+def ceiling(what):  # the 256 MB probes on randn from seed 7; `read_x20`: 20 reads back to back
+    from ascendpathtracing_tpu_torch.ops import ceiling_kernels as ck
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn((128, 8, 65536), generator=g, device=dev)
+    if what == "read_x20":
+        return lambda: [ck.read_sum(x) for _ in range(20)][-1]
+    return {"read": lambda: ck.read_sum(x), "copy": lambda: ck.copy_scale(x)}[what]
+
 frames = {  # kernel -> {frame: its step's maker}
     "render_pt": {"render_pt": lambda: bench.make_pt_step("kernel", True, scenes.cornell8(),
                                                           device=dev, bounces=8),
@@ -249,6 +263,7 @@ frames = {  # kernel -> {frame: its step's maker}
     "render_ref": {**{f: (lambda f=f: ref(f)) for f in
                       ("ref_fwd", "ref_fwd_idx", "ref_bwd_replay", "ref_bwd_recompute")},
                    "ref_step": ref_step},
+    "ceiling": {f"ceiling_{w}": (lambda w=w: ceiling(w)) for w in ("read", "read_x20", "copy")},
 }
 
 def outputs(x):  # the tensors of a frame's result, in order
@@ -267,7 +282,8 @@ for kernel in sys.argv[2:]:
         torch.cuda.empty_cache()
 print(json.dumps({"ms": out, "digests": digests, "facts": facts}))
 """
-AB_KERNELS = ("render_pt", "mesh_pt", "wbvh", "bvh", "segsum", "render_ref")  # AB_SCRIPT's
+AB_KERNELS = ("render_pt", "mesh_pt", "wbvh", "bvh", "segsum", "render_ref",
+              "ceiling")  # AB_SCRIPT's
 # The H100 SXM's published peaks (NVIDIA's data sheet, dense, 700 W): HBM
 # bytes/s and float32 outside the tensor cores.
 HBM_BPS, FP32_OPS = 3.35e12, 67e12
@@ -1270,6 +1286,29 @@ def events_ms(fn, iters=10) -> float:
     return statistics.median(bench.time_steps(fn, iters=iters, warmup=2)[0])
 
 
+READ_STREAM_LAUNCHES = 20  # stream_ms: launches back to back between two events
+
+
+def stream_ms(fn, reps=5) -> float:
+    """A kernel's time as the card runs it back to back: one event pair
+    around READ_STREAM_LAUNCHES launches of ``fn``, over their count; the
+    median of ``reps`` such pairs, after two untimed launches."""
+    import torch
+
+    fn(), fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(READ_STREAM_LAUNCHES):
+            fn()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1) / READ_STREAM_LAUNCHES)
+    return statistics.median(times)
+
+
 def ceiling_point(fma_ms: float, copy_ms: float, x) -> dict:
     """One reading of the clock-sensitive probes: the fma chain of ``x``
     ([34, n], LOOP trips) and the copy of CEIL_SHAPE, with their rates and
@@ -1319,17 +1358,20 @@ def ceilings_phase(dev, gpu) -> tuple:
     array of ones exactly 65,536 everywhere) and on seeded random inputs
     at the shapes the kernels line times: every chain bit for bit at the
     elements that fill the card (streams uniform in [1, 2), 4,096 trips),
-    the copy of a random CEIL_SHAPE bit for bit, and the read of it and
-    the read's twin each within float32 summation error of the float64
-    sum (``read_bound_check``, the card tests' bound; ``max_abs_err`` is
-    the kernel's distance from the twin).
+    the copy of a random CEIL_SHAPE bit for bit, and the read of it bit
+    for bit ``read_sum_ordered`` (the model of its order on its grid) and,
+    with the read's twin, each within float32 summation error of the
+    float64 sum (``read_bound_check``, the card tests' bound, the kernel's
+    adds ``read_chain``; ``max_abs_err`` is the kernel's distance from the
+    twin); the read kernel's grid, registers and spills.
     Then ``utils/roofline.measure_ceilings`` on the card, its launches
     counted from zero, every row with its ``fit_ok``; the SASS of one
     chain step per op (``chain_sass_report``); the SM clock; the kernels',
     the twins' and the library calls' ms at those shapes by CUDA events
     (the fma chain's twin once, the run compared; the copy's
     ``torch.mul(x, c, out=y)``, the read's ``x.view(128, 8, 512,
-    128).sum((0, 2))``), and the early ``ceiling_point`` of those
+    128).sum((0, 2))``; the read and its library call also back to back,
+    ``stream_ms``), and the early ``ceiling_point`` of those
     launches, to hold against ``ceiling_retime`` at the run's end.  ->
     (the kernels line's rows chain, copy and read; the measured ceilings'
     model; the fma chain's elements; the early point)."""
@@ -1409,13 +1451,22 @@ def ceilings_phase(dev, gpu) -> tuple:
             f"{CEIL_SHAPE} (max |diff| {copy_err})")
     del y_plain
     r, r_plain = ck.read_sum(big), ck.read_sum_plain(big)
-    adds = {"kernel": rows_folded // ck.read_ctas(big) + 8 + ck.read_ctas(big),
+    read_ctas = ck.read_grid(dev)
+    require(torch.equal(r, ck.read_sum_ordered(big, read_ctas)),
+            "read: the kernel differs from the model of its order (read_sum_ordered)")
+    adds = {"kernel": ck.read_chain(CEIL_SHAPE[0], CEIL_SHAPE[2], read_ctas),
             "twin": rows_folded + 1}
     read_bound_check(r, big, adds["kernel"], "read")
     read_bound_check(r_plain, big, adds["twin"], "read's twin")
     read_err = float((r - r_plain).abs().max())
     del r, r_plain
     random_s = time.time() - t2
+    read_log = build.library_path("ceiling").with_suffix(".log").read_text()
+    read_build = {"ctas": read_ctas, "blocks_per_sm": read_ctas // ceil["device"]["sms"],
+                  "registers": next(n for k, n in registers_by_kernel(read_log).items()
+                                    if "read_kernel" in k),
+                  "spill_bytes": next(v for k, v in spills_by_kernel(read_log).items()
+                                      if "read_kernel" in k)}
 
     scale = torch.full((), float(ck.COPY_SCALE), dtype=torch.float32, device=dev)
     copy_ms, read_ms = events_ms(lambda: ck.copy_scale(big)), events_ms(lambda: ck.read_sum(big))
@@ -1423,6 +1474,8 @@ def ceilings_phase(dev, gpu) -> tuple:
     copy_lib_ms = events_ms(lambda: torch.mul(big, scale, out=y))
     read_plain_ms = events_ms(lambda: ck.read_sum_plain(big))
     read_lib_ms = events_ms(lambda: big.view(*CEIL_SHAPE[:2], -1, 128).sum((0, 2)))
+    read_stream_ms = stream_ms(lambda: ck.read_sum(big))
+    read_lib_stream_ms = stream_ms(lambda: big.view(*CEIL_SHAPE[:2], -1, 128).sum((0, 2)))
     nbytes, elems = big.numel() * 4, big.numel()
     del big, y
     torch.cuda.empty_cache()
@@ -1445,22 +1498,27 @@ def ceilings_phase(dev, gpu) -> tuple:
          "library": "torch.mul(x, c, out=y)"},
         {"name": "read", "route": "cuda", "source": SOURCE["read"], "replaces": REPLACES["read"],
          "run": "measure_ceilings", "launches": launches["read"], "max_abs_err": read_err,
-         "ms": read_ms, "fit_ms": ceil["hbm_read"]["step_ms"], "plain_ms": read_plain_ms,
-         **bound(nbytes + 4 * 8 * 128, elems), "library_ms": read_lib_ms,
-         "library": "x.view(128, 8, 512, 128).sum((0, 2))"},
+         "ms": read_ms, "stream_ms": read_stream_ms, "fit_ms": ceil["hbm_read"]["step_ms"],
+         "plain_ms": read_plain_ms, **bound(nbytes + 4 * 8 * 128, elems),
+         "library_ms": read_lib_ms, "library_stream_ms": read_lib_stream_ms,
+         "library": "x.view(128, 8, 512, 128).sum((0, 2))",
+         "measured_bw_gb_per_s": ceil["hbm_read"]["gb_per_s"]},
     ]
     phase("ceilings", gpu=gpu, chains_on_jax_inputs=chains, read_of_ones=65536.0,
           random_inputs={"chains": "streams uniform in [1, 2) at the elements that fill the "
                                    "card, 4,096 trips", "copy_read": f"randn {CEIL_SHAPE}",
                          "seed": CEIL_SEED},
           tolerance={"chains": "bitwise", "copy": "bitwise",
-                     "read": "kernel and twin each within adds x 2^-24 x sum |x| of the "
-                             "float64 sum", "read_adds": adds},
+                     "read": "kernel bitwise the model of its order (read_sum_ordered); "
+                             "kernel and twin each within adds x 2^-24 x sum |x| of the "
+                             "float64 sum (the kernel's adds: read_chain)", "read_adds": adds},
           max_abs_err={"chain": chain_err, "copy": copy_err, "read": read_err},
           ceilings=ceil, fit_ok=fits, launches=launches,
           chain_sass=sass, chain_issue=issue, issue_peak_ginsns_per_s=peak / 1e9,
           clocks_after=clocks, early=early,
           event_ms={"chain_fma": chain_ms, "copy": copy_ms, "read": read_ms},
+          stream_ms={"read": read_stream_ms, "read_library": read_lib_stream_ms},
+          read_kernel=read_build,
           plain_ms={"chain_fma": plain_chain_ms, "copy": copy_plain_ms, "read": read_plain_ms},
           library_ms={"copy": copy_lib_ms, "read": read_lib_ms},
           seconds={"jax_inputs": jax_inputs_s, "measure_ceilings": measure_s,
@@ -1470,8 +1528,10 @@ def ceilings_phase(dev, gpu) -> tuple:
 
 def bound_measured(row, model) -> dict:
     """A kernels-line row's bytes and operations (``bound``'s) at the
-    measured ceilings: the copy's bandwidth and ``r_issue``."""
-    b_ms = row["bound_bytes"] / (model["bw_gb_per_s"] * 1e9) * 1e3
+    measured ceilings: the copy's bandwidth (the read's row: its own, so
+    that row's bound is its own fit) and ``r_issue``."""
+    bw = row.get("measured_bw_gb_per_s", model["bw_gb_per_s"])
+    b_ms = row["bound_bytes"] / (bw * 1e9) * 1e3
     o_ms = row["bound_ops"] / (model["r_issue_gslots"] * 1e9) * 1e3
     return {"bound_measured_ms": max(b_ms, o_ms),
             "bound_measured_by": "bytes" if b_ms >= o_ms else "operations"}

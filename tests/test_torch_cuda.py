@@ -1516,24 +1516,75 @@ def test_copy_kernel_equals_twin_bitwise(cuda, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nb,sub", [(1, 128), (3, 1024), (5, 65536), (128, 4096)])
+@pytest.mark.parametrize("nb,sub", [(1, 128), (3, 1024), (5, 65536), (128, 4096), (3, 1152),
+                                    (7, 65536), (128, 1152)])
 def test_read_kernel_against_f64_sum(cuda, nb, sub):
-    """The read on random data: within float32 summation error of the
-    float64 sum (2^-24 x the adds on an output's path x the sum of |x|),
-    the same bits on a second launch, and exactly nb * sub / 128 on ones."""
+    """The read on random data, from 8 rows (most CTAs of the grid get
+    none) to ragged splits whose shares cross (b, r) runs of 9 and 512
+    rows: one launch a call; bit for bit the model of its order
+    (``read_sum_ordered`` on ``read_grid`` CTAs); within float32 summation
+    error of the float64 sum (2^-24 x ``read_chain``, the longest chain of
+    adds on an output's path, x the sum of |x|); the same bits from a
+    second launch queued right behind the first (the tickets the first
+    left at 0); and exactly nb * sub / 128 on ones."""
     from ascendpathtracing_tpu_torch.ops import ceiling_kernels as ck
 
     x = torch.tensor(np.random.RandomState(nb).randn(nb, 8, sub).astype(np.float32), device=cuda)
     ck.reset_launches()
     out = ck.read_sum(x)
     assert ck.LAUNCHES == {"chain": 0, "copy": 0, "read": 1}
+    again = ck.read_sum(x)  # no synchronize between the two
+    assert ck.LAUNCHES == {"chain": 0, "copy": 0, "read": 2}
+    assert torch.equal(again, out)
+    ctas = ck.read_grid(cuda)
+    assert torch.equal(out, ck.read_sum_ordered(x, ctas))
     folded = x.double().reshape(nb, 8, sub // 128, 128)
     want, mag = folded.sum(dim=(0, 2)), folded.abs().sum(dim=(0, 2))
     rows = nb * sub // 128
-    adds = rows // ck.read_ctas(x) + 8 + ck.read_ctas(x)
+    adds = ck.read_chain(nb, sub, ctas)
     assert float(((out.double() - want).abs() - adds * 2.0 ** -24 * mag).max()) <= 0.0
-    assert torch.equal(ck.read_sum(x), out)
     twin = ck.read_sum_plain(x)
     assert float(((twin.double() - want).abs() - (rows + 1) * 2.0 ** -24 * mag).max()) <= 0.0
     ones = ck.read_sum(torch.ones((nb, 8, sub), device=cuda))
     assert torch.equal(ones, torch.full((8, 128), float(rows), device=cuda))
+
+
+@pytest.mark.cuda
+def test_read_kernel_one_device_kernel_a_call(cuda):
+    """torch.profiler sees one device kernel a read_sum, read_kernel, on
+    ten reads queued back to back (the first call's zeroed tickets made
+    before the profile)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ascendpathtracing_tpu_torch.ops import ceiling_kernels as ck
+
+    x = torch.ones((16, 8, 65536), device=cuda)
+    ck.read_sum(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            ck.read_sum(x)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 10 and all("read_kernel" in k for k in kernels), kernels
+
+
+@pytest.mark.cuda
+def test_read_kernel_two_streams(cuda):
+    """Reads queued on two streams at once keep apart (each stream has
+    its own partials and tickets): every one equals a read on the current
+    stream alone, bit for bit."""
+    from ascendpathtracing_tpu_torch.ops import ceiling_kernels as ck
+
+    x = torch.tensor(np.random.RandomState(2).randn(16, 8, 65536).astype(np.float32),
+                     device=cuda)
+    want = ck.read_sum(x)
+    main, side = torch.cuda.current_stream(cuda), torch.cuda.Stream(cuda)
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        on_side = [ck.read_sum(x) for _ in range(4)]
+    on_main = [ck.read_sum(x) for _ in range(4)]
+    main.wait_stream(side)
+    for out in on_side + on_main:
+        assert torch.equal(out, want)
