@@ -36,6 +36,7 @@ import torch
 
 from ascendpathtracing_tpu_torch.ops import histogram_kernels as hk
 from ascendpathtracing_tpu_torch.ops import mesh_pt_kernels as mpt
+from ascendpathtracing_tpu_torch.utils.profiling import span
 
 #: Sample layers per replay chunk: at 1024 x 1024 x 8 bounces a chunk's
 #: [bounces, 3, layers, W*H] temporaries are 268 MB each in float32.
@@ -79,7 +80,8 @@ def replay_backward(wid, resv, g, *, n_spheres, n_slots, spp4, with_slots=True,
     cotangent ``g`` [3, W*H] of the per-pixel mean image -> (d_scene_planes
     [10, S], d_slot_albedo [CT, 3], d_slot_emission [CT, 3]) in the dtype
     of ``resv``; the slot gradients are [0, 3] when ``with_slots`` is
-    False.  One segment-sum launch per chunk of ``layer_chunk`` layers.
+    False.  One segment-sum launch per chunk of ``layer_chunk`` layers,
+    each chunk inside the span ``apt.replay.chunk``.
     The sums accumulate in one float64 accumulator across the chunks.
     ``plain=True`` is the replay's twin on any device: the segment-sum's
     plain twin, which the card's checks hold the kernel against."""
@@ -90,14 +92,15 @@ def replay_backward(wid, resv, g, *, n_spheres, n_slots, spp4, with_slots=True,
     # Per-sample cotangent: out = sum over layers of contrib / spp4.
     g_cell = (g.to(dtype) * (1.0 / spp4))[:, None, :]  # [3, 1, W*H]
     for a0 in range(0, spp4, layer_chunk):
-        widc = wid[:, a0:a0 + layer_chunk]  # [B, L, P]
-        rows = replay_rows(widc, resv[:, :, a0:a0 + layer_chunk], g_cell).reshape(6, -1)
-        seg = widc.reshape(-1)
-        if plain:
-            hk.segment_rows_plain(seg, rows, n_slots=n_seg, out=acc)
-        else:
-            hk.segment_rows_paged(seg, rows, n_slots=n_seg, out=acc)
-        del rows
+        with span("apt.replay.chunk"):
+            widc = wid[:, a0:a0 + layer_chunk]  # [B, L, P]
+            rows = replay_rows(widc, resv[:, :, a0:a0 + layer_chunk], g_cell).reshape(6, -1)
+            seg = widc.reshape(-1)
+            if plain:
+                hk.segment_rows_plain(seg, rows, n_slots=n_seg, out=acc)
+            else:
+                hk.segment_rows_paged(seg, rows, n_slots=n_seg, out=acc)
+            del rows
     acc = acc.to(dtype)
     d_planes = torch.zeros((10, s_count), dtype=dtype, device=device)
     d_planes[4:7] = acc[:s_count, 3:6].T
@@ -122,15 +125,17 @@ def slot_grads_to_face(grid, d_slot):
 
 
 class _RenderMeshFn(torch.autograd.Function):
-    """Forward with residuals; backward by replay."""
+    """Forward with residuals; backward by replay.  They run inside the
+    spans ``apt.mesh_diff.forward`` and ``apt.mesh_diff.backward``."""
 
     @staticmethod
     def forward(ctx, scene_planes, slot_albedo, slot_emission, cfg):
-        tris24 = torch.cat([cfg["geom16"], slot_albedo.to(torch.float32),
-                            slot_emission.to(torch.float32), cfg["mat2"]], dim=1)
-        img, wid, resv = mpt.render_pt_mesh(
-            scene_planes, cfg["cboxes"], cfg["sboxes"], tris24,
-            cfg["ssboxes"], with_residuals=True, **cfg["kw"])
+        with span("apt.mesh_diff.forward"):
+            tris24 = torch.cat([cfg["geom16"], slot_albedo.to(torch.float32),
+                                slot_emission.to(torch.float32), cfg["mat2"]], dim=1)
+            img, wid, resv = mpt.render_pt_mesh(
+                scene_planes, cfg["cboxes"], cfg["sboxes"], tris24,
+                cfg["ssboxes"], with_residuals=True, **cfg["kw"])
         ctx.res = (wid, resv)
         ctx.cfg = cfg
         ctx.leaf_dtypes = (slot_albedo.dtype, slot_emission.dtype)
@@ -141,16 +146,17 @@ class _RenderMeshFn(torch.autograd.Function):
         cfg = ctx.cfg
         wid, resv = ctx.res
         with_slots = cfg["grads"] == "scene+slots"
-        d_planes, d_sa, d_se = replay_backward(
-            wid, resv, g.contiguous(), n_spheres=cfg["n_spheres"],
-            n_slots=cfg["n_slots"], spp4=cfg["kw"]["spp4"], with_slots=with_slots)
-        ctx.res = None
-        if not with_slots:
-            d_sa = torch.zeros((cfg["n_slots"], 3), dtype=d_planes.dtype,
-                               device=d_planes.device)
-            d_se = d_sa.clone()
-        return (d_planes, d_sa.to(ctx.leaf_dtypes[0]), d_se.to(ctx.leaf_dtypes[1]),
-                None)
+        with span("apt.mesh_diff.backward"):
+            d_planes, d_sa, d_se = replay_backward(
+                wid, resv, g.contiguous(), n_spheres=cfg["n_spheres"],
+                n_slots=cfg["n_slots"], spp4=cfg["kw"]["spp4"], with_slots=with_slots)
+            ctx.res = None
+            if not with_slots:
+                d_sa = torch.zeros((cfg["n_slots"], 3), dtype=d_planes.dtype,
+                                   device=d_planes.device)
+                d_se = d_sa.clone()
+            d_sa, d_se = d_sa.to(ctx.leaf_dtypes[0]), d_se.to(ctx.leaf_dtypes[1])
+        return d_planes, d_sa, d_se, None
 
 
 def make_render_pt_mesh_diff(cboxes, sboxes, geom16, mat2, *, width, height, spp4,

@@ -9,6 +9,9 @@ Counterpart of ``ascendpathtracing_tpu/ops/pallas_bvh.py``
   ``csrc/bvh.cu`` on the current stream, adds one to ``LAUNCHES["bvh"]``,
   and raises if the launch fails.  There is no fallback.
 
+Either way the call runs inside the span ``apt.kernel.bvh``
+(``utils/profiling.span``).
+
 Both run each ray's own stackless walk (the nodes the lockstep Pallas
 kernel visits for it, in the same order) and keep a running (tmin, hit)
 with a strict ``t < tmin``.  The twin is ``accel/bvh.walk`` over the
@@ -30,6 +33,7 @@ import torch
 from ascendpathtracing_tpu_torch.accel import bvh as bvh_mod
 from ascendpathtracing_tpu_torch.ops import build
 from ascendpathtracing_tpu_torch.ops.render_kernels import on_cpu
+from ascendpathtracing_tpu_torch.utils.profiling import spanned
 
 MISS_T = bvh_mod.MISS_T
 
@@ -103,6 +107,7 @@ def intersect_bvh_plain(rays_planes, nodesf, nodesi, tris9, *, max_leaf, eps=1e-
     return tmin, hit.to(torch.int32)
 
 
+@spanned("apt.kernel.bvh")
 def intersect_bvh(rays_planes, nodesf, nodesi, tris9, *, max_leaf, eps=1e-4):
     """Closest hit of float32 rays [6, N] (ox oy oz dx dy dz) against the
     packed BVH -> (tmin [N] float32, hit [N] int32): hit is the LEAF-ORDER

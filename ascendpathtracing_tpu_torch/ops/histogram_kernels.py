@@ -16,6 +16,9 @@ which keep the JAX names and signatures:
   current stream, add one to ``LAUNCHES["segsum"]``, and raise if the
   launch fails.  There is no fallback.
 
+Either way the call runs inside the span ``apt.kernel.segsum``
+(``utils/profiling.span``).
+
 ``segment_rows_paged`` also returns ``kocc``: for each block of
 ``sample_block`` rows, the number of distinct slot blocks ``seg >>
 log2(slot_block)`` in ``[0, ceil(n_slots / slot_block))`` that it touches
@@ -57,6 +60,7 @@ import torch
 
 from ascendpathtracing_tpu_torch.ops import build
 from ascendpathtracing_tpu_torch.ops.render_kernels import on_cpu
+from ascendpathtracing_tpu_torch.utils.profiling import spanned
 
 MAX_ROWS = 8  # R <= 8, the TPU kernel's sublane block
 MAX_SLOT_BLOCKS = 4096 * 32  # csrc/segsum.cu MAX_FLAG_WORDS * 32
@@ -299,6 +303,7 @@ def _launch(seg, vals, acc, kocc, *, n_slots, slot_block, sample_block):
     LAUNCHES["segsum"] += 1
 
 
+@spanned("apt.kernel.segsum")
 def segment_rows_paged(seg, vals, *, n_slots, slot_block=128, sample_block=2048,
                        out=None):
     """Occupancy-gated segment-sum (``_paged_kernel``'s contract) ->
@@ -317,6 +322,7 @@ def segment_rows_paged(seg, vals, *, n_slots, slot_block=128, sample_block=2048,
     return _result(acc, vals, out), kocc
 
 
+@spanned("apt.kernel.segsum")
 def segment_rows_matmul(seg, vals, *, n_slots, slot_block=512, sample_block=2048,
                         out=None):
     """Dense segment-sum (``_hist_kernel``'s contract) -> sums [n_slots,

@@ -11,6 +11,9 @@ replay residuals, camera and stats outputs and its debug dump).
   ``LAUNCHES["mesh_pt"]``, and raises if the launch fails.  There is no
   fallback.
 
+Either way the call runs inside the span ``apt.kernel.mesh_pt``
+(``utils/profiling.span``).
+
 The estimator is the sphere path tracer's (``ops/pt_kernels``: camera,
 Philox stream keyed as ``render_pt`` keys its own, diffuse/mirror/glass,
 Russian roulette, the mean over ``spp4`` layers) with a mesh: each
@@ -73,6 +76,7 @@ from ascendpathtracing_tpu_torch.ops.wbvh_kernels import (
     plain_grid,
     walk_plain,
 )
+from ascendpathtracing_tpu_torch.utils.profiling import spanned
 
 TRI_PT_F = cg.TRI_ATTR_F  # 24: 13 intersection + 11 shading floats
 
@@ -454,6 +458,7 @@ def walk_pairs_plain(grid: PlainGrid, o3, d3, tmin, *, eps, gate, generator=None
 
 
 # ---------------------------------------------------------- wrapper ----
+@spanned("apt.kernel.mesh_pt")
 def render_pt_mesh(scene_planes, cboxes, sboxes, tris24, ssboxes=None, *,
                    materials, width, height, spp4, tris_per_chunk,
                    supers_per=0, supers2_per=0, bounces=8, rr_depth=5,

@@ -11,6 +11,9 @@ Counterpart of the path-tracing part of
   ``LAUNCHES["pt"]``, and raises if the launch fails.  There is no
   fallback.
 
+Either way the call runs inside the span ``apt.kernel.pt``
+(``utils/profiling.span``).
+
 Both follow the Pallas kernel's arithmetic (not the XLA estimator's): the
 camera ray is made from the sample's own uniforms, the diffuse sample is
 not renormalized, glass uses Schlick with a 1e-20 floor on the
@@ -46,6 +49,7 @@ from ascendpathtracing_tpu_torch.ops.intersect import (
 )
 from ascendpathtracing_tpu_torch.ops.render_kernels import MAX_S, on_cpu
 from ascendpathtracing_tpu_torch.ops.shade import REL_OFFSET, sqrt_rn, where_const
+from ascendpathtracing_tpu_torch.utils.profiling import spanned
 
 DIFF, REFR = 0, 2  # scenes.DIFF, scenes.REFR; any other code is a mirror
 TWO_PI = 2.0 * 3.14159265358979  # the Pallas kernel's constant
@@ -429,6 +433,7 @@ def path_record_plain(scene_planes, materials, *, width, height, spp4, bounces=8
 
 
 # ---------------------------------------------------------- wrapper ----
+@spanned("apt.kernel.pt")
 def render_pt(scene_planes, materials, *, width, height, spp4, bounces=8,
               rr_depth=5, eps=1e-4, seed=0, uniforms=None, debug=False,
               debug_tile=DEBUG_TILE):

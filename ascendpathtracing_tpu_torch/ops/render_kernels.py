@@ -10,6 +10,9 @@ inputs, then:
   ``csrc/render_ref.cu`` on the current stream, adds one to its entry of
   ``LAUNCHES``, and raises if the launch fails.  There is no fallback.
 
+Either way the call runs inside the span ``apt.kernel.<its LAUNCHES key>``
+(``utils/profiling.span``).
+
 | wrapper | CUDA kernel | replaces (pallas_kernels.py) |
 |---|---|---|
 | ``render_reference_planes`` | ``render_ref_fwd_kernel<T, false, S>`` | ``_render_ref_kernel`` |
@@ -36,6 +39,7 @@ from torch import nn
 
 from ascendpathtracing_tpu_torch.models import megakernel
 from ascendpathtracing_tpu_torch.ops import build
+from ascendpathtracing_tpu_torch.utils.profiling import spanned
 
 MAX_S = 16  # csrc/render_ref.cu MAX_S
 BLOCK = 256  # csrc/render_ref.cu BLOCK: rays per CUDA block
@@ -226,6 +230,7 @@ def render_ref_bwd_plain(
 
 
 # ---------------------------------------------------------- wrappers ----
+@spanned("apt.kernel.fwd")
 def render_reference_planes(
     rays_planes, scene_planes, *, light_index, bounces=5, eps=1e-4
 ):
@@ -247,6 +252,7 @@ def render_reference_planes(
     return out
 
 
+@spanned("apt.kernel.fwd_idx")
 def render_reference_planes_with_idx(
     rays_planes, scene_planes, *, light_index, bounces=5, eps=1e-4
 ):
@@ -274,6 +280,7 @@ def _partials(n, s, like):
     return torch.empty((3 + 3 * s, -(-n // BLOCK)), dtype=like.dtype, device=like.device)
 
 
+@spanned("apt.kernel.bwd_replay")
 def render_ref_bwd_replay(idx, scene_planes, g, *, light_index, bounces):
     """Replay backward: idx [bounces, N] int32 and cotangent g [3, N] ->
     scene-plane gradient [10, S] in the scene's dtype."""
@@ -294,6 +301,7 @@ def render_ref_bwd_replay(idx, scene_planes, g, *, light_index, bounces):
     return grad
 
 
+@spanned("apt.kernel.bwd_recompute")
 def render_ref_bwd(rays_planes, scene_planes, g, *, light_index, bounces, eps=1e-4):
     """Recompute backward: rays [6, N], scene [10, S] and cotangent g
     [3, N] -> scene-plane gradient [10, S]; needs no residual."""

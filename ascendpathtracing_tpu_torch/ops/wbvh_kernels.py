@@ -10,6 +10,9 @@ Counterpart of ``ascendpathtracing_tpu/ops/pallas_wbvh.py``
   ``LAUNCHES["wbvh"]``, and raises if the launch fails.  There is no
   fallback.
 
+Either way the call runs inside the span ``apt.kernel.wbvh``
+(``utils/profiling.span``).
+
 Both gate each ray by its own slab tests (``csrc/chunk_walk.cuh`` says
 why that keeps the Pallas kernel's winners).  The twin visits chunks in
 increasing index and keeps a running (tmin, slot) with a strict ``t <
@@ -45,6 +48,7 @@ import torch
 from ascendpathtracing_tpu_torch.ops import build
 from ascendpathtracing_tpu_torch.ops.chunk_grid import MISS_T, TRI_ATTR_F, TRI_F
 from ascendpathtracing_tpu_torch.ops.render_kernels import on_cpu
+from ascendpathtracing_tpu_torch.utils.profiling import spanned
 
 N_ATTR = TRI_ATTR_F - TRI_F  # winner planes: nx ny nz ar ag ab er eg eb is_diff is_refr
 
@@ -314,6 +318,7 @@ def intersect_chunks_plain(rays_planes, cboxes, sboxes, tris, ssboxes=None, *,
 
 
 # ---------------------------------------------------------- wrapper ----
+@spanned("apt.kernel.wbvh")
 def intersect_chunks(rays_planes, cboxes, sboxes, tris, ssboxes=None, *,
                      tris_per_chunk, supers_per=0, supers2_per=0, eps=1e-4,
                      attrs=False, stats=False, debug=False, debug_tile=DEBUG_TILE):

@@ -34,6 +34,7 @@ from ascendpathtracing_tpu_torch.ops import render_kernels, rng
 from ascendpathtracing_tpu_torch.ops.intersect import MISS_T, intersect_spheres_soa
 from ascendpathtracing_tpu_torch.ops.render_kernels import RenderReferenceFn
 from ascendpathtracing_tpu_torch.parallel import mesh as pmesh
+from ascendpathtracing_tpu_torch.utils.profiling import span
 
 PARAM_KEYS = ("albedo", "emission", "center", "r2")
 
@@ -183,26 +184,36 @@ def make_train_step(mesh, *, bounces: int = 5, eps: float = 1e-4,
     and parameters.  The replay backward's rows r2, x, y, z are exactly
     zero (the colors depend on the geometry only through the discrete
     winners), so ``center`` and ``r2`` keep their values, as under
-    ``jax.value_and_grad`` of the XLA bounce loop."""
+    ``jax.value_and_grad`` of the XLA bounce loop.
+
+    A step runs inside the span ``apt.train_step``
+    (``utils/profiling.span``), its parts inside ``apt.train_step.forward``,
+    ``.loss``, ``.backward``, ``.all_reduce`` (with a mesh) and ``.update``."""
 
     def step(params, aux, rays, target, return_colors=False):
-        planes = params_to_planes(params).detach().requires_grad_(True)
-        colors = RenderReferenceFn.apply(rays.T.contiguous(), planes,
-                                         aux["light_index"], bounces, eps, True)
-        if mesh is None:
-            loss = torch.mean((colors.T - target) ** 2)
-            (grad,) = torch.autograd.grad(loss, [planes])
+        with span("apt.train_step"):
+            with span("apt.train_step.forward"):
+                planes = params_to_planes(params).detach().requires_grad_(True)
+                colors = RenderReferenceFn.apply(rays.T.contiguous(), planes,
+                                                 aux["light_index"], bounces, eps, True)
+            with span("apt.train_step.loss"):
+                if mesh is None:
+                    loss = torch.mean((colors.T - target) ** 2)
+                else:
+                    n_global = rays.shape[0] * mesh.size()
+                    loss = torch.sum((colors.T - target) ** 2) / (3 * n_global)
+            with span("apt.train_step.backward"):
+                (grad,) = torch.autograd.grad(loss, [planes])
             loss = loss.detach()
-        else:
-            n_global = rays.shape[0] * mesh.size()
-            local = torch.sum((colors.T - target) ** 2) / (3 * n_global)
-            (grad,) = torch.autograd.grad(local, [planes])
-            # one all-reduce carries the loss and the gradient
-            buf = torch.cat([local.detach().reshape(1), grad.reshape(-1)])
-            dist.all_reduce(buf)
-            loss, grad = buf[0], buf[1:].reshape(grad.shape)
-        grads = planes_to_params(grad)
-        new_params = {k: params[k] - learning_rate * grads[k] for k in PARAM_KEYS}
+            if mesh is not None:
+                with span("apt.train_step.all_reduce"):
+                    # one all-reduce carries the loss and the gradient
+                    buf = torch.cat([loss.reshape(1), grad.reshape(-1)])
+                    dist.all_reduce(buf)
+                    loss, grad = buf[0], buf[1:].reshape(grad.shape)
+            with span("apt.train_step.update"):
+                grads = planes_to_params(grad)
+                new_params = {k: params[k] - learning_rate * grads[k] for k in PARAM_KEYS}
         if return_colors:
             return loss, new_params, colors.detach().T
         return loss, new_params

@@ -2,6 +2,9 @@
 
 Counterpart of ``ascendpathtracing_tpu/utils/profiling.py``:
 
+- :func:`span` and :func:`spanned` — the program's own named ranges
+  (``apt.`` ...) at its layer boundaries, recorded while a torch profiler
+  records and free otherwise.
 - :func:`trace` — a context manager around ``torch.profiler`` (CPU and,
   where there is a card, CUDA activities) that writes a Chrome trace into
   a directory.
@@ -25,18 +28,57 @@ first by subtracting it, the second by fitting two batch sizes).
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import time
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 from torch.utils import _pytree as pytree
+
+_NULL = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context that records the range ``name`` (``apt.`` then the
+    layer) in the trace of a torch profiler that is recording, and the
+    shared null context when none is (one attribute read: the profiler's
+    own flag, no environment variable).
+
+    The range is a function-scope record function: a host event on the
+    thread that ran it, to which the profiler links the device operations
+    launched inside it.  ``torch.profiler.record_function`` (a user scope)
+    would also put a device-typed annotation over those operations into
+    the trace, which a reader that sums device events counts as device
+    work; this one adds none."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch._C._profiler._RecordFunctionFast(name)
+    return _NULL
+
+
+def spanned(name: str):
+    """Decorator: the whole call of the function inside :func:`span`."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+
+        return inner
+
+    return wrap
 
 
 @contextlib.contextmanager
 def trace(logdir: str):
     """Capture a trace of the host and, where there is a card, of its
     CUDA kernels; written as ``trace.json`` (Chrome trace format, viewable
-    in Perfetto or chrome://tracing) into ``logdir`` on exit."""
+    in Perfetto or chrome://tracing) into ``logdir`` on exit.  The trace
+    carries the program's :func:`span` ranges (``apt.train_step`` and its
+    parts, ``apt.mesh_diff.*``, ``apt.replay.chunk``, ``apt.kernel.<key>``
+    around each kernel wrapper) as host events, the kernels they launched
+    linked to them."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]

@@ -12,6 +12,9 @@ nothing of the JAX package), so that it runs on a machine without jax:
 the run; ``chip_smoke.py`` runs exactly this command on the card)."""
 
 import json
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -35,6 +38,7 @@ from ascendpathtracing_tpu_torch.ops import wbvh_kernels as wk
 from tests import test_torch_ref_reduce_order as rro
 
 LIGHT = 7  # cornell8's light
+REPO = Path(__file__).resolve().parents[1]
 TRAVERSALS = [  # (subdivisions, tris_per_chunk, supers_per, supers2_per)
     (2, 8, 0, 0),
     (2, 8, 4, 0),
@@ -1158,6 +1162,61 @@ def test_train_step_on_the_card_equals_the_cpu_twin_step(cuda):
     base = megakernel.scene_to_device(scenes.cornell8(), dtype=torch.float64)
     assert torch.equal(pg["center"], base["center"]) and torch.equal(pg["r2"], base["r2"])
     assert lg[-1] < lg[0]
+
+
+# One step of make_train_step(None) at 65,536 rays (128 x 128 x 4), 8
+# bounces, under torch.profiler, in a process of its own: a process's
+# second profiler session can miss device events (it failed
+# test_read_kernel_one_device_kernel_a_call when this ran first).
+SPANS_STEP = """
+import json, torch
+from torch.profiler import ProfilerActivity, profile
+from ascendpathtracing_tpu_torch import camera, scenes
+from ascendpathtracing_tpu_torch.models import megakernel
+from ascendpathtracing_tpu_torch.ops import render_kernels as rk
+from ascendpathtracing_tpu_torch.parallel import sharded
+from perfbench import spans, trace
+
+cuda = torch.device("cuda")
+scene = megakernel.scene_to_device(scenes.cornell8(), device=cuda)
+rays = torch.tensor(camera.generate_rays_numpy(128, 128, 1, seed=0), dtype=torch.float32,
+                    device=cuda)
+target = rk.render_reference(rays, sharded.params_to_planes(scene), light_index=7, bounces=8)
+params, aux = sharded.split_scene_params(scene)
+params = dict(params, albedo=params["albedo"] + 0.08)
+step = sharded.make_train_step(None, bounces=8, learning_rate=0.05)
+step(params, aux, rays, target)
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    step(params, aux, rays, target)
+    torch.cuda.synchronize()
+print(json.dumps({"device_events": [n for n, _, _ in trace.profiler_events(prof)[0]],
+                  "spans": spans.summary(prof)}))
+"""
+
+
+@pytest.mark.cuda
+def test_train_step_spans_hold_every_device_operation(cuda):
+    """One traced train step (``SPANS_STEP``) read as the benchmark reads a
+    trace (perfbench/trace, perfbench/spans): every device operation of
+    the step belongs to an apt. span, no device-typed annotation reaches
+    the device events, and launches_per_step counts each of those
+    operations."""
+    from perfbench import spans, trace
+
+    out = subprocess.run([sys.executable, "-c", SPANS_STEP], cwd=REPO, capture_output=True,
+                         text=True, timeout=900, check=True)
+    got = json.loads([ln for ln in out.stdout.splitlines() if ln.startswith("{")][-1])
+    dev, ops = got["device_events"], got["spans"]["ops"]
+    assert dev and not any(name.startswith("apt.") for name in dev)
+    assert len(ops) == len(dev)
+    assert [op[0] for op in ops if not op[3]] == []
+    inner = {trace.csrc_kernel(op[0]): op[3][-1] for op in ops if trace.csrc_kernel(op[0])}
+    assert inner["render_ref_fwd_kernel"] == "apt.kernel.fwd_idx"
+    assert inner["render_ref_bwd_replay_kernel"] == "apt.kernel.bwd_replay"
+    ctx = {"trace": {"iterations": 1, "spans": got["spans"]}}
+    assert spans.launches_per_step(ctx) == len(dev)
+    assert spans.span_ms(ctx, spans.TRAINER) > 0
 
 
 @pytest.mark.cuda

@@ -147,7 +147,9 @@ def test_benchmark_on_the_output_device():
 def test_trace_writes_a_chrome_trace(tmp_path):
     x = torch.ones(64)
     with profiling.trace(str(tmp_path / "t")) as d:
-        (x * 3).sum()
+        with profiling.span("apt.test"):
+            (x * 3).sum()
     assert d == str(tmp_path / "t")
     events = json.loads((tmp_path / "t" / "trace.json").read_text())["traceEvents"]
     assert any(e.get("name") == "aten::mul" for e in events)
+    assert any(e.get("name") == "apt.test" for e in events)
