@@ -46,11 +46,12 @@ icosphere of ``--subdiv`` (4: 5,120 triangles) at (50, 40, 60), radius
 RR from 5, seed 0.  By default one step is the training step of
 ``diff/mesh_fused.make_render_pt_mesh_diff``: the forward with replay
 residuals, then ``image.sum()``'s gradient to the scene planes, the slot
-albedos and the slot emissions by the replay backward (one segment-sum
-launch per chunk of sample layers); ``--fwd-only`` is the forward
-alone.  ``--renderer plain`` runs the plain twins (the forward with
-residuals, then the replay with the plain segment-sum; minutes at full
-size: pass a smaller ``--spp``).  The value counts samples per second.
+albedos and the slot emissions by the replay backward (one rows launch,
+``csrc/mesh_replay.cu``, and one segment-sum launch per chunk of sample
+layers); ``--fwd-only`` is the forward alone.  ``--renderer plain`` runs
+the plain twins (the forward with residuals, then the replay with the
+plain rows and segment-sum; minutes at full size: pass a smaller
+``--spp``).  The value counts samples per second.
 
 ``--mode mesh --renderer xla`` is the JAX bench's ``xla-mesh`` cell: the
 same scene through the bounce-loop renderer (``models/mesh``), 1024 x
@@ -233,8 +234,9 @@ def make_mesh_step(renderer, ms, *, device, bounces, width=1024, height=1024,
     otherwise: image.sum() and its gradients to (scene planes [10, S],
       slot albedo [CT, 3], slot emission [CT, 3]).  kernel:
       ``make_render_pt_mesh_diff`` (the kernel forward with residuals,
-      the replay through the segment-sum kernel); plain: the twin forward
-      with residuals and the replay with the plain segment-sum.
+      the replay through the rows and segment-sum kernels); plain: the
+      twin forward with residuals and the replay with the plain rows and
+      segment-sum.
     """
     import torch
 
@@ -497,6 +499,7 @@ def main(argv=None) -> int:
         counted = [wbvh_kernels, bvh_kernels, histogram_kernels]
     elif args.mode == "mesh":
         from ascendpathtracing_tpu_torch.ops import histogram_kernels, mesh_pt_kernels
+        from ascendpathtracing_tpu_torch.ops import replay_kernels
 
         scene_name = f"mesh-icosphere s{args.subdiv}"
         fwd_only = args.fwd_only
@@ -510,7 +513,7 @@ def main(argv=None) -> int:
                  "rr_depth": PT_RR_DEPTH, "tris": int((grid.face_of_slot >= 0).sum()),
                  "tris_per_chunk": args.chunk_tris, "chunks": grid.n_chunks,
                  "supers": grid.n_supers, "supers2": grid.n_supers2}
-        counted = [mesh_pt_kernels, histogram_kernels]
+        counted = [mesh_pt_kernels, histogram_kernels, replay_kernels]
     elif args.mode == "pt":
         from ascendpathtracing_tpu_torch.ops import pt_kernels
 

@@ -19,11 +19,13 @@ from them with no intersection:
 
 Winner ids, RR survival and the glass picks are detached (exact for
 bounces <= rr_depth; the standard detached-RR estimator beyond).  The
-replay is plain torch in the JAX op order (JAX leaves it to XLA), chunked
-over sample layers so that its temporaries stay at one chunk's scale, and
-each chunk's per-winner rows [ga | ge] go through one segment-sum
-(``ops/histogram_kernels.segment_rows_paged``: the CUDA kernel on a card,
-its plain twin on the CPU) keyed by the winner code itself: spheres land
+replay runs in chunks of sample layers.  A chunk's per-winner rows [ga |
+ge] come from ``ops/replay_kernels.replay_rows`` (on a card one launch of
+``csrc/mesh_replay.cu``, the chain in registers; on the CPU its plain
+twin, torch in the JAX op order, which JAX leaves to XLA) and go through
+one segment-sum (``ops/histogram_kernels.segment_rows_paged``: the CUDA
+kernel on a card, its plain twin on the CPU) keyed by the winner code
+itself: spheres land
 in segments [0, S), triangle slots in [S, S + CT).  So one call gives the
 [10, S] scene-plane gradients (rows 7-9 albedo, 4-6 emission, 0-3 exactly
 zero) and the slot gradients.
@@ -36,41 +38,13 @@ import torch
 
 from ascendpathtracing_tpu_torch.ops import histogram_kernels as hk
 from ascendpathtracing_tpu_torch.ops import mesh_pt_kernels as mpt
+from ascendpathtracing_tpu_torch.ops import replay_kernels as rp
 from ascendpathtracing_tpu_torch.utils.profiling import span
 
 #: Sample layers per replay chunk: at 1024 x 1024 x 8 bounces a chunk's
-#: [bounces, 3, layers, W*H] temporaries are 268 MB each in float32.
+#: rows [6, bounces, layers, W*H] are 1.6 GB in float32 (the plain twin's
+#: [bounces, 3, layers, W*H] temporaries 268 MB each).
 LAYER_CHUNK = 8
-
-
-def replay_rows(widc, resvc, g_cell):
-    """One chunk's rows: residuals ``widc`` [B, L, P] and ``resvc`` [B, 7,
-    L, P], per-sample cotangent ``g_cell`` [3, 1, P] -> [6, B, L, P], the
-    albedo gradients ``ga`` (rows 0-2) and emission gradients ``ge`` (rows
-    3-5) of each sample-bounce, in the order of ``widc.reshape(-1)``."""
-    bounces = widc.shape[0]
-    a3 = resvc[:, 0:3]
-    e3 = resvc[:, 3:6]
-    s = resvc[:, 6]
-    livef = (widc >= 0).to(resvc.dtype)[:, None]  # [B, 1, L, P]
-    m = torch.where(livef > 0, a3 * s[:, None], 1.0)
-    e_live = e3 * livef
-
-    tput_prev = []
-    t = torch.ones_like(m[0])
-    for b in range(bounces):
-        tput_prev.append(t)
-        t = t * m[b]
-    suffix = [None] * bounces
-    suffix[bounces - 1] = torch.zeros_like(m[0])
-    for b in range(bounces - 2, -1, -1):
-        suffix[b] = e_live[b + 1] + m[b + 1] * suffix[b + 1]
-
-    rows = torch.empty((6,) + tuple(widc.shape), dtype=resvc.dtype, device=resvc.device)
-    for b in range(bounces):
-        rows[3:6, b] = g_cell * livef[b] * tput_prev[b]
-        rows[0:3, b] = g_cell * livef[b] * s[b][None] * tput_prev[b] * suffix[b]
-    return rows
 
 
 def replay_backward(wid, resv, g, *, n_spheres, n_slots, spp4, with_slots=True,
@@ -80,22 +54,25 @@ def replay_backward(wid, resv, g, *, n_spheres, n_slots, spp4, with_slots=True,
     cotangent ``g`` [3, W*H] of the per-pixel mean image -> (d_scene_planes
     [10, S], d_slot_albedo [CT, 3], d_slot_emission [CT, 3]) in the dtype
     of ``resv``; the slot gradients are [0, 3] when ``with_slots`` is
-    False.  One segment-sum launch per chunk of ``layer_chunk`` layers,
-    each chunk inside the span ``apt.replay.chunk``.
+    False.  One rows launch and one segment-sum launch per chunk of
+    ``layer_chunk`` layers, each chunk inside the span
+    ``apt.replay.chunk``.
     The sums accumulate in one float64 accumulator across the chunks.
-    ``plain=True`` is the replay's twin on any device: the segment-sum's
-    plain twin, which the card's checks hold the kernel against."""
+    ``plain=True`` is the replay's twin on any device: the rows' and the
+    segment-sum's plain twins, which the card's checks hold the kernels
+    against."""
     dtype, device = resv.dtype, resv.device
     s_count = n_spheres
     n_seg = s_count + n_slots if with_slots else s_count
     acc = torch.zeros((n_seg, 6), dtype=torch.float64, device=device)
     # Per-sample cotangent: out = sum over layers of contrib / spp4.
-    g_cell = (g.to(dtype) * (1.0 / spp4))[:, None, :]  # [3, 1, W*H]
+    g_cell = (g.to(dtype) * (1.0 / spp4)).contiguous()  # [3, W*H]
+    rows_of = rp.replay_rows_plain if plain else rp.replay_rows
     for a0 in range(0, spp4, layer_chunk):
         with span("apt.replay.chunk"):
-            widc = wid[:, a0:a0 + layer_chunk]  # [B, L, P]
-            rows = replay_rows(widc, resv[:, :, a0:a0 + layer_chunk], g_cell).reshape(6, -1)
-            seg = widc.reshape(-1)
+            layers = min(layer_chunk, spp4 - a0)
+            rows = rows_of(wid, resv, g_cell, layer0=a0, layers=layers).reshape(6, -1)
+            seg = wid[:, a0:a0 + layers].reshape(-1)
             if plain:
                 hk.segment_rows_plain(seg, rows, n_slots=n_seg, out=acc)
             else:

@@ -35,7 +35,8 @@ NVCC_FLAGS = (
 )
 
 #: Every library of ``csrc/`` (one ``.cu`` each).
-LIBRARIES = ("render_ref", "render_pt", "wbvh", "mesh_pt", "segsum", "bvh", "ceiling")
+LIBRARIES = ("render_ref", "render_pt", "wbvh", "mesh_pt", "segsum", "bvh", "ceiling",
+             "mesh_replay")
 
 _LOCK = threading.Lock()
 _LOADED: dict[str, ctypes.CDLL] = {}

@@ -308,6 +308,7 @@ SOURCE = {  # launch counter -> its CUDA source
     "chain": f"{CSRC}/ceiling.cu",
     "copy": f"{CSRC}/ceiling.cu",
     "read": f"{CSRC}/ceiling.cu",
+    "replay_rows": f"{CSRC}/mesh_replay.cu",
 }
 REPLACES = {  # launch counter -> the TPU kernel it replaces
     "fwd": f"{PALLAS}:41",
@@ -324,6 +325,8 @@ REPLACES = {  # launch counter -> the TPU kernel it replaces
     "chain": "benchmarks/roofline.py:76",
     "copy": "benchmarks/roofline.py:185",
     "read": "benchmarks/roofline.py:201",
+    # no Pallas kernel: the JAX package leaves replay_backward's chain to XLA
+    "replay_rows": "none (ascendpathtracing_tpu/diff/mesh_fused.py replay_backward, XLA)",
 }
 # The user-facing runs, each counted from zero, and the launches each
 # must make.  ``train_step`` is the main path (fwd + replay bwd); the
@@ -333,7 +336,8 @@ REPLACES = {  # launch counter -> the TPU kernel it replaces
 # 12); ``first_hit_mesh`` the mesh first-hit query in chunks mode and
 # ``mesh_step`` one forward step of the bench's mesh cell (phase 17);
 # ``mesh_train_step`` one training step of that cell: the forward with
-# residuals and one segment-sum per replay chunk (phase 21).
+# residuals, one rows launch and one segment-sum per replay chunk (phase
+# 21).
 # ``xla_mesh_*`` are the bounce-loop mesh renderer at the bench's xla-mesh
 # cell: one traversal launch per bounce (phases 24-25).  ``camera_step``
 # is the camera-gradient step at the mesh cell (phase 22b): one fused
@@ -347,7 +351,8 @@ RUNS = {
     "pt_step": {**_NONE, "pt": 1},
     "first_hit_mesh": {**_NONE, "wbvh": 1},
     "mesh_step": {**_NONE, "mesh_pt": 1},
-    "mesh_train_step": {**_NONE, "mesh_pt": 1, "segsum": MESH_CHUNKS},
+    "mesh_train_step": {**_NONE, "mesh_pt": 1, "segsum": MESH_CHUNKS,
+                        "replay_rows": MESH_CHUNKS},
     "xla_mesh_fwd_chunks": {**_NONE, "wbvh": BOUNCES},
     "xla_mesh_fwd_lockstep": {**_NONE, "bvh": BOUNCES},
     # + 2 segment-sums per 9-plane gather's backward, 2 gathers a bounce;
@@ -367,6 +372,7 @@ RUN_OF = {  # kernel -> the run whose count its row reports
     "mesh_pt": "mesh_step",
     "segsum": "mesh_train_step",
     "bvh": "xla_mesh_fwd_lockstep",
+    "replay_rows": "mesh_train_step",
 }
 BVH_SLICE = 262144  # rays of the BVH twin's check and timing (the twin is slow)
 
@@ -2076,6 +2082,7 @@ def main(argv=None) -> int:
     from ascendpathtracing_tpu_torch.ops import mesh_pt_kernels as mpt
     from ascendpathtracing_tpu_torch.ops import pt_kernels as ptk
     from ascendpathtracing_tpu_torch.ops import render_kernels as rk
+    from ascendpathtracing_tpu_torch.ops import replay_kernels as rpk
     from ascendpathtracing_tpu_torch.ops import wbvh_kernels as wk
 
     dev = torch.device("cuda")
@@ -2111,7 +2118,7 @@ def main(argv=None) -> int:
         native_build = pool.submit(native.build)
         build.build_all(libs)
         native_lib = native_build.result()  # NativeUnavailable fails the run
-    kernel_mods = (rk, ptk, wk, mpt, segk, bk, ck)
+    kernel_mods = (rk, ptk, wk, mpt, segk, bk, ck, rpk)
     for mod in kernel_mods:
         mod.load_library()
     if parent_build is not None:
@@ -3308,11 +3315,12 @@ def main(argv=None) -> int:
         lambda: segk.segment_rows_paged(seg8, vals8, n_slots=9 + s8_slots), iters=5)
     del row, region, tri_ids, seg8, vals8
     # The real replay stream: chunk 0 of the full-size training step
-    # (8 layers x 8 bounces x 1,048,576 pixels), cotangent ones.
-    g_cell = torch.full((3, 1, FULL_W * FULL_W), 1.0 / PT_SPP4, device=dev)
+    # (8 layers x 8 bounces x 1,048,576 pixels), cotangent ones, its rows
+    # from the rows kernel (bitwise the twin's, checked in phase 21).
+    g_cell = torch.full((3, FULL_W * FULL_W), 1.0 / PT_SPP4, device=dev)
     seg_real = wid_r[:, :mf.LAYER_CHUNK].reshape(-1)
-    vals_real = mf.replay_rows(wid_r[:, :mf.LAYER_CHUNK], resv_r[:, :, :mf.LAYER_CHUNK],
-                               g_cell).reshape(6, -1)
+    vals_real = rpk.replay_rows(wid_r, resv_r, g_cell, layer0=0,
+                                layers=mf.LAYER_CHUNK).reshape(6, -1)
     real = seg_check(seg_real, vals_real, n_seg)
     seg20["replay_chunk0"] = real
     if ab_names:
@@ -3381,6 +3389,34 @@ def main(argv=None) -> int:
     replay_ms = med_ms(lambda: mf.replay_backward(wid_r, resv_r, g_ones, **rkw), iters=3)
     replay_plain_ms = med_ms(lambda: mf.replay_backward(wid_r, resv_r, g_ones, plain=True,
                                                         **rkw), iters=3)
+    # The rows kernel on the real residuals, each of the 8 chunks (layer
+    # offsets 0-56, read in place) bitwise the twin's; timed on chunk 0
+    # and the last chunk; the bound: 56 bytes a sample-bounce (the winner,
+    # seven residuals, six rows) and the cotangent (phase 20's g_cell).
+    rows_out = torch.empty((6, BOUNCES, mf.LAYER_CHUNK, FULL_W * FULL_W), device=dev)
+    for a0 in range(0, PT_SPP4, mf.LAYER_CHUNK):
+        rows_p = rpk.replay_rows_plain(wid_r, resv_r, g_cell, layer0=a0, layers=mf.LAYER_CHUNK)
+        rpk.replay_rows(wid_r, resv_r, g_cell, layer0=a0, layers=mf.LAYER_CHUNK, out=rows_out)
+        require(torch.equal(rows_out.view(torch.int32), rows_p.view(torch.int32)),
+                f"replay rows kernel: chunk at layer {a0} differs from the twin")
+        del rows_p
+    rows_ms = {a0: med_ms(lambda a0=a0: rpk.replay_rows(
+        wid_r, resv_r, g_cell, layer0=a0, layers=mf.LAYER_CHUNK, out=rows_out), iters=10)
+        for a0 in (0, PT_SPP4 - mf.LAYER_CHUNK)}
+    rows_plain_ms = med_ms(lambda: rpk.replay_rows_plain(
+        wid_r, resv_r, g_cell, layer0=0, layers=mf.LAYER_CHUNK), iters=3)
+    rows_bytes = BOUNCES * mf.LAYER_CHUNK * FULL_W * FULL_W * 56 + 3 * FULL_W * FULL_W * 4
+    rows_bound = bound(rows_bytes, BOUNCES * mf.LAYER_CHUNK * FULL_W * FULL_W * 12)
+    rows_row = {
+        "name": "replay_rows", "route": "cuda", "source": SOURCE["replay_rows"],
+        "replaces": REPLACES["replay_rows"], "run": RUN_OF["replay_rows"],
+        "max_abs_err": 0.0, "ms": rows_ms[0], "ms_last_chunk": rows_ms[PT_SPP4 - mf.LAYER_CHUNK],
+        "plain_ms": rows_plain_ms, **rows_bound,
+        "bound_ms_at_2992_gb_per_s": rows_bytes / 2992e9 * 1e3,
+        "gb_per_s": rows_bytes / (rows_ms[0] * 1e-3) / 1e9,
+        "library_ms": "none: no single PyTorch call computes the rows",
+    }
+    del rows_out, g_cell
     dead_share = float((wid_r < 0).float().mean())
     del wid_r, resv_r, rep_k, rep_p
     torch.cuda.empty_cache()
@@ -3408,6 +3444,8 @@ def main(argv=None) -> int:
         "ms": seg_ms, "plain_ms": seg_plain_ms, **seg_bound, "library_ms": seg_lib_ms,
     }
     rows.append(seg_row)
+    rows_row["launches"] = launches[RUN_OF["replay_rows"]]["replay_rows"]
+    rows.append(rows_row)
     del loss_t, gp, ga, ge, train_step
     torch.cuda.empty_cache()
 
@@ -3469,7 +3507,8 @@ def main(argv=None) -> int:
     train_line = json.loads(buf.getvalue().strip().splitlines()[-1])
     require(rc_bench == 0 and train_line["value"] > 0
             and train_line["detail"]["launches_per_step"]
-            == {"mesh_pt": 1.0, "segsum": float(MESH_CHUNKS)},
+            == {"mesh_pt": 1.0, "segsum": float(MESH_CHUNKS),
+                "replay_rows": float(MESH_CHUNKS)},
             f"bench --mode mesh: {train_line}")
     phase("mesh_train_entry_points", bench=train_line, bench_fwd_only=mesh_line)
     torch.cuda.empty_cache()

@@ -24,6 +24,7 @@ from ascendpathtracing_tpu_torch import camera, cli, convert, scenes
 from ascendpathtracing_tpu_torch.accel import bvh as bvh_mod
 from ascendpathtracing_tpu_torch.accel import meshes, tri
 from ascendpathtracing_tpu_torch.diff import camera_fused as dcf
+from ascendpathtracing_tpu_torch.diff import mesh_fused as mf
 from ascendpathtracing_tpu_torch.diff.camera import CameraParams
 from ascendpathtracing_tpu_torch.models import megakernel
 from ascendpathtracing_tpu_torch.models import mesh as mm
@@ -34,6 +35,7 @@ from ascendpathtracing_tpu_torch.ops import histogram_kernels as hk
 from ascendpathtracing_tpu_torch.ops import mesh_pt_kernels as mpt
 from ascendpathtracing_tpu_torch.ops import pt_kernels as ptk
 from ascendpathtracing_tpu_torch.ops import render_kernels as rk
+from ascendpathtracing_tpu_torch.ops import replay_kernels as rpk
 from ascendpathtracing_tpu_torch.ops import wbvh_kernels as wk
 from tests import test_torch_ref_reduce_order as rro
 
@@ -181,6 +183,36 @@ def _mixed_scene(subdivisions=2):
     ms.face_material[nf // 3: nf // 2] = scenes.REFR
     ms.face_emission[:4] = (0.0, 2.0, 0.5)
     return ms
+
+
+def _replay_residuals(bounces, spp4, pix, dtype, device, seed=0, dead="zeros"):
+    """Residuals in the fused mesh forward's layout, ``wid`` int32 [B,
+    spp4, P] and ``resv`` [B, 7, spp4, P], and a cotangent ``g`` [3, P]
+    of both signs: winners among 9 spheres and 40 slots; each path dies
+    at a random depth and stays dead (-1); about one live bounce in eight
+    hits a light (emission up to 4, else 0) and one in five is glass (s
+    from 1.1 to 10, else 1).  Dead bounces hold zeros, as the forward
+    writes them, or with ``dead="random"`` the random residuals."""
+    gen = torch.Generator().manual_seed(seed)
+    shape = (bounces, spp4, pix)
+    depth = torch.randint(0, bounces + 1, (spp4, pix), generator=gen)
+    wid = torch.randint(0, 49, shape, generator=gen, dtype=torch.int32)
+    dead_at = torch.arange(bounces)[:, None, None] >= depth
+    wid[dead_at] = -1
+    resv = torch.rand((bounces, 7) + shape[1:], generator=gen, dtype=torch.float64)
+    light = torch.rand(shape, generator=gen) < 0.125
+    resv[:, 3:6] *= 4.0 * light[:, None]
+    glass = torch.rand(shape, generator=gen) < 0.2
+    resv[:, 6] = torch.where(glass, 1.0 / (0.1 + 0.8 * resv[:, 6]), 1.0)
+    if dead == "zeros":
+        resv *= ~dead_at[:, None]
+    g = torch.randn((3, pix), generator=gen, dtype=torch.float64)
+    return wid.to(device), resv.to(dtype=dtype, device=device), g.to(dtype=dtype, device=device)
+
+
+def _bits(t):
+    """A float tensor's bits, as integers of its width."""
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int64)
 
 
 def _tie_mesh(subdivisions=0, copies=3):
@@ -655,6 +687,62 @@ def test_mesh_pt_kernel_matches_twin(cuda, dtype):
         torch.testing.assert_close(k, p, rtol=1e-9, atol=0)
     else:
         assert float(((k - p).abs() <= 1e-5 * p.abs()).float().mean()) >= 0.999
+
+
+# ------------------------------------------------------ replay rows ----
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("bounces", [1, 3, 8, rpk.MAX_UNROLLED + 1])
+@pytest.mark.parametrize("dead", ["zeros", "random"])
+def test_replay_rows_kernel_equals_twin_bitwise(cuda, dtype, bounces, dead):
+    """The kernel's rows are the plain twin's bit for bit (signed zeros
+    too): 777 pixels (no multiple of the block), chunks at layer offsets
+    inside spp4 24, read in place, the last one ragged; one launch each;
+    ``out=`` filled in place.  Bounces above MAX_UNROLLED take the
+    run-time instantiation."""
+    wid, resv, g = _replay_residuals(bounces, 24, 777, dtype, cuda, seed=bounces, dead=dead)
+    for layer0, layers in ((0, 8), (8, 8), (16, 5), (23, 1)):
+        rpk.reset_launches()
+        got = rpk.replay_rows(wid, resv, g, layer0=layer0, layers=layers)
+        assert rpk.LAUNCHES == {"replay_rows": 1}
+        exp = rpk.replay_rows_plain(wid, resv, g, layer0=layer0, layers=layers)
+        assert got.shape == (6, bounces, layers, 777) and torch.equal(_bits(got), _bits(exp))
+    out = torch.full_like(got, float("nan"))
+    assert rpk.replay_rows(wid, resv, g, layer0=23, layers=1, out=out) is out
+    assert torch.equal(_bits(out), _bits(exp))
+
+
+@pytest.mark.cuda
+def test_replay_rows_kernel_refuses_a_device_mix(cuda):
+    wid, resv, g = _replay_residuals(2, 8, 64, torch.float32, cuda)
+    with pytest.raises(ValueError, match="different devices"):
+        rpk.replay_rows(wid, resv, g.cpu(), layer0=0, layers=8)
+    with pytest.raises(ValueError, match="different devices"):
+        rpk.replay_rows(wid.cpu(), resv, g, layer0=0, layers=8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("spp4,chunk", [(16, 8), (20, 8)])
+def test_replay_backward_on_the_card_equals_plain_rows_bitwise(cuda, monkeypatch, dtype, spp4,
+                                                               chunk):
+    """replay_backward on the card (the rows kernel, then segsum.cu) equals,
+    bit for bit, the same replay with the plain rows swapped in for the
+    kernel; one rows launch and one segment-sum launch a chunk."""
+    wid, resv, g = _replay_residuals(8, spp4, 1000, dtype, cuda, seed=5)
+    kw = dict(n_spheres=9, n_slots=40, spp4=spp4, layer_chunk=chunk)
+    chunks = -(-spp4 // chunk)
+    rpk.reset_launches()
+    hk.reset_launches()
+    got = mf.replay_backward(wid, resv, g, **kw)
+    assert rpk.LAUNCHES == {"replay_rows": chunks} and hk.LAUNCHES == {"segsum": chunks}
+    monkeypatch.setattr(rpk, "replay_rows", lambda wid, resv, g_cell, **k:
+                        rpk.replay_rows_plain(wid, resv, g_cell, **k))
+    rpk.reset_launches()
+    exp = mf.replay_backward(wid, resv, g, **kw)
+    assert rpk.LAUNCHES == {"replay_rows": 0} and hk.LAUNCHES == {"segsum": 2 * chunks}
+    assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(got, exp))
+    assert float(got[0][4:10].abs().max()) > 0 and float(got[1].abs().max()) > 0
 
 
 # ------------------------------------------------------ segment-sum ----

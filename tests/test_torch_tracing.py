@@ -24,6 +24,7 @@ from ascendpathtracing_tpu_torch.ops import histogram_kernels as hk
 from ascendpathtracing_tpu_torch.ops import mesh_pt_kernels as mpt
 from ascendpathtracing_tpu_torch.ops import pt_kernels as ptk
 from ascendpathtracing_tpu_torch.ops import render_kernels as rk
+from ascendpathtracing_tpu_torch.ops import replay_kernels as rpk
 from ascendpathtracing_tpu_torch.ops import wbvh_kernels as wk
 from ascendpathtracing_tpu_torch.parallel import sharded
 from ascendpathtracing_tpu_torch.utils import profiling
@@ -96,8 +97,9 @@ def test_train_step_spans_its_parts_in_order():
 
 @pytest.mark.parametrize("plain,segsums", [(False, 1), (True, 0)])
 def test_replay_backward_spans_each_chunk(plain, segsums):
-    """spp4 16 in chunks of 8: two chunks; the default path's segment-sum
-    (the wrapper's CPU twin) inside each, the plain twin with no span."""
+    """spp4 16 in chunks of 8: two chunks; the default path's rows and
+    segment-sum (the wrappers' CPU twins) inside each, one of each; the
+    plain twins with no span."""
     gen = torch.Generator().manual_seed(0)
     bounces, spp4, pix, spheres, slots = 2, 16, 8, 9, 5
     wid = torch.randint(-1, spheres + slots, (bounces, spp4, pix), generator=gen,
@@ -108,10 +110,11 @@ def test_replay_backward_spans_each_chunk(plain, segsums):
                                                 spp4=spp4, layer_chunk=8, plain=plain))
     chunks = [e for e in ev if e.name == "apt.replay.chunk"]
     assert len(chunks) == 2 and all(_apt_parent(c) is None for c in chunks)
-    seg = [e for e in ev if e.name == "apt.kernel.segsum"]
-    assert len(seg) == 2 * segsums
-    for c in chunks:
-        assert sum(_apt_parent(e) is c for e in seg) == segsums
+    for name in ("apt.kernel.segsum", "apt.kernel.replay_rows"):
+        inner = [e for e in ev if e.name == name]
+        assert len(inner) == 2 * segsums
+        for c in chunks:
+            assert sum(_apt_parent(e) is c for e in inner) == segsums
 
 
 def _mesh_inputs():
@@ -168,6 +171,10 @@ def _wrapper_call(key):
     if key == "mesh_pt":
         tables, mkw = _mesh_inputs()
         return lambda: mpt.render_pt_mesh(*tables, **mkw)
+    if key == "replay_rows":
+        wid = torch.tensor([[[0, -1], [3, 1]]], dtype=torch.int32)  # [B 1, spp4 2, P 2]
+        resv, g = torch.ones((1, 7, 2, 2)), torch.ones((3, 2))
+        return lambda: rpk.replay_rows(wid, resv, g, layer0=1, layers=1)
     return {"wbvh": _wbvh_call, "bvh": _bvh_call}[key]()
 
 
@@ -175,14 +182,15 @@ def _wrapper_call(key):
     ("fwd", "fwd"), ("fwd_idx", "fwd_idx"), ("bwd_replay", "bwd_replay"),
     ("bwd_recompute", "bwd_recompute"), ("segsum_paged", "segsum"), ("segsum_matmul", "segsum"),
     ("pt", "pt"), ("mesh_pt", "mesh_pt"), ("wbvh", "wbvh"), ("bvh", "bvh"),
+    ("replay_rows", "replay_rows"),
 ])
 def test_each_kernel_wrapper_spans_its_twin_path(key, span):
     call = _wrapper_call(key)
-    launches = [dict(m.LAUNCHES) for m in (rk, hk, ptk, mpt, wk, bk)]
+    launches = [dict(m.LAUNCHES) for m in (rk, hk, ptk, mpt, wk, bk, rpk)]
     ev = _apt_events(call)
     assert [e.name for e in ev] == [f"apt.kernel.{span}"]
     # The twin path launches nothing, so no count moves.
-    assert [dict(m.LAUNCHES) for m in (rk, hk, ptk, mpt, wk, bk)] == launches
+    assert [dict(m.LAUNCHES) for m in (rk, hk, ptk, mpt, wk, bk, rpk)] == launches
 
 
 # ------------------------------------------------- the attribution ----
