@@ -19,6 +19,13 @@ def _line(text):
     return isinstance(text, str) and 1 <= len(text) <= 200 and "\n" not in text and "\t" not in text
 
 
+def chips_allowed(workloads) -> bool:
+    """Each cell asks for 1 card or 4, and at most max(1, cells // 4)
+    cells ask for 4."""
+    chips = [w["chips"] for w in workloads]
+    return set(chips) <= {1, 4} and chips.count(4) <= max(1, len(chips) // 4)
+
+
 def test_top_level_keys_and_command():
     assert set(BENCH) == {"command", "paths", "run_seconds", "configs", "workloads",
                           "end_to_end", "per_layer"}
@@ -39,7 +46,11 @@ def test_configs():
         assert c["file"] == f"perfbench/configs/{c['name']}.json"
         cfg = inputs.load_json("configs", c["name"])
         assert cfg["name"] == c["name"] and cfg["source"] == c["source"]
-        assert cfg["reduced"] == c["reduced"] == []
+        # What the configuration changed from its source: the same list of
+        # names in BENCHMARK.json and in its file, empty or not.
+        assert isinstance(c["reduced"], list) and len(c["reduced"]) <= 16
+        assert all(isinstance(k, str) and NAME.match(k) for k in c["reduced"])
+        assert cfg["reduced"] == c["reduced"]
         assert c["name"] in used
 
 
@@ -48,7 +59,7 @@ def test_cell_found_by_name(cell):
     entry = next(w for w in BENCH["workloads"] if w["name"] == cell)
     assert set(entry) == {"name", "config", "traffic", "chips", "why"}
     assert NAME.match(cell) and NAME.match(entry["traffic"]) and _line(entry["why"])
-    assert entry["chips"] == 1
+    assert entry["chips"] in (1, 4)
     c = harness.load_cell(cell)
     assert c.workload["why"] == entry["why"] and c.workload["chips"] == entry["chips"]
     assert callable(harness.traffic(entry["traffic"]).run)
@@ -58,6 +69,26 @@ def test_cell_found_by_name(cell):
     for m in c.per_layer:
         assert callable(harness.load_by_path("metrics", m["name"]).read)
         assert m["moves"] in names
+
+
+def test_four_card_cells_within_their_share():
+    assert chips_allowed(BENCH["workloads"])
+
+
+def _cells(*chips):
+    return [{"name": f"c{i}", "chips": c} for i, c in enumerate(chips)]
+
+
+@pytest.mark.parametrize("workloads,allowed", [
+    (_cells(1, 1, 1, 1, 4), True),  # one four-card cell is always allowed
+    (_cells(4), True),
+    (_cells(1, 1, 1, 1, 1, 1, 1, 4, 4), True),  # 9 cells: two
+    (_cells(1, 1, 1, 4, 4), False),  # 5 cells: one too many
+    (_cells(1, 1, 1, 1, 1, 1, 4, 4, 4), False),
+    (_cells(1, 2), False),  # 1 or 4 only
+])
+def test_chips_rule(workloads, allowed):
+    assert chips_allowed(workloads) == allowed
 
 
 def test_cells_unique_and_metrics_well_formed():
